@@ -1,0 +1,1 @@
+"""See the package docstring of v3d_tpu_torch."""

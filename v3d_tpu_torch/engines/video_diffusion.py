@@ -1,0 +1,146 @@
+"""The generation engine (counterpart of v3d_tpu/engines/video_diffusion.py;
+sgm video_diffusion.py DiffusionEngine + scripts/pub/V3D_512.py:115-317).
+
+Public layouts follow the JAX package: image (1, H, W, 3) in [-1, 1],
+latents (t, h, w, 4), frames (t, H, W, 3) in [0, 1], cond dict keys
+crossattn / concat / vector.  Every noise draw is either an explicit tensor
+argument or comes from the ``torch.Generator`` passed in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from v3d_tpu_torch.diffusion.denoise import Denoiser
+from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+from v3d_tpu_torch.models.clip_vit import clip_preprocess
+from v3d_tpu_torch.models.conditioner import (
+    ConcatTimestepEmbedderND,
+    EmbedderSpec,
+    GeneralConditioner,
+    IdentityEncoder,
+    repeat_cond_per_frame,
+)
+from v3d_tpu_torch.models.vae import gaussian_sample
+
+
+def _draw(noise: Optional[torch.Tensor], shape, device,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    if noise is not None:
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(shape)}")
+        return noise.to(device=device, dtype=torch.float32)
+    return torch.randn(shape, device=device, generator=generator)
+
+
+@dataclasses.dataclass
+class VideoDiffusionEngine:
+    """The modules (with their weights) plus the sampling configuration."""
+
+    unet: Any
+    denoiser: Denoiser
+    sampler: Any
+    vae_encoder: Any
+    vae_decoder: Any
+    clip: Any
+    scale_factor: float = 0.18215
+    num_frames: int = 18
+    latent_channels: int = 4
+    downscale: int = 8
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    def conditioner(self) -> GeneralConditioner:
+        """V3D_512.yaml: identity CLIP / VAE cond + three scalar sinusoidal
+        embedders (fps, motion bucket, cond aug) -> 768-d vector."""
+        return GeneralConditioner(embedders=(
+            EmbedderSpec(IdentityEncoder(), "cond_frames_without_noise", 0.2),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "fps_id"),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "motion_bucket_id"),
+            EmbedderSpec(IdentityEncoder(), "cond_frames", 0.2),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "cond_aug"),
+        ))
+
+    @torch.no_grad()
+    def encode_image(self, image: torch.Tensor, cond_aug: float,
+                     enc_noise: Optional[torch.Tensor] = None,
+                     aug_noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """image (1, H, W, 3) in [-1, 1] -> (CLIP embedding (1, 1, d), the
+        moments-sampled cond latent + cond_aug noise (1, h, w, 4))
+        (V3D_512.py:234-243).  The latent sample draws ``enc_noise``, then
+        the cond-aug noise ``aug_noise``."""
+        dev = self.device
+        image = image.to(dev, torch.float32)
+        clip_emb = self.clip(clip_preprocess(image).permute(0, 3, 1, 2)).float()
+        if clip_emb.dim() == 2:
+            clip_emb = clip_emb[:, None, :]
+        moments = self.vae_encoder(image.permute(0, 3, 1, 2))
+        moments = moments.permute(0, 2, 3, 1).float()
+        shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
+        z = gaussian_sample(moments, _draw(enc_noise, shape, dev, generator))
+        z = z + cond_aug * _draw(aug_noise, shape, dev, generator)
+        return clip_emb, z
+
+    def build_cond(self, clip_emb, cond_frames, fps_id, motion_bucket_id,
+                   cond_aug) -> Tuple[Dict, Dict]:
+        """get_batch + get_unconditional_conditioning + per-frame repeat
+        (V3D_512.py:31-69, 247-267); uc zeroes the image conds."""
+        b = clip_emb.shape[0]
+        ones = torch.ones((b * self.num_frames,), device=clip_emb.device)
+        batch = {
+            "cond_frames_without_noise": clip_emb,
+            "cond_frames": cond_frames,
+            "fps_id": ones * fps_id,
+            "motion_bucket_id": ones * motion_bucket_id,
+            "cond_aug": ones * cond_aug,
+        }
+        c, uc = self.conditioner().get_unconditional_conditioning(
+            batch, force_uc_zero_embeddings=["cond_frames",
+                                             "cond_frames_without_noise"])
+        return (repeat_cond_per_frame(c, self.num_frames),
+                repeat_cond_per_frame(uc, self.num_frames))
+
+    def latent_shape(self, height: int, width: int) -> Tuple[int, ...]:
+        return (self.num_frames, height // self.downscale,
+                width // self.downscale, self.latent_channels)
+
+    @torch.no_grad()
+    def sample_latents(self, c: Dict, uc: Dict, height: int = 512,
+                       width: int = 512, noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        """EDM sampling of the VideoUNet: the hot loop.  ``noise`` is the
+        initial standard-normal latent (t, h, w, 4)."""
+        dev = self.device
+        noise = _draw(noise, self.latent_shape(height, width), dev, generator)
+        # CFG doubles the video batch -> indicator (2, t) (V3D_512.py:273-275)
+        indicator = torch.zeros((2, self.num_frames), device=dev)
+        network = make_unet_network_fn(self.unet, self.num_frames)
+
+        def denoiser_fn(x, sigma, cond):
+            return self.denoiser(network, x, sigma, cond,
+                                 image_only_indicator=indicator)
+
+        return self.sampler(denoiser_fn, noise, c, uc, generator=generator)
+
+    @torch.no_grad()
+    def decode_latents(self, z: torch.Tensor,
+                       decoding_t: Optional[int] = None) -> torch.Tensor:
+        """Chunked temporal VAE decode (video_diffusion.py:183-211):
+        (t, h, w, 4) -> frames (t, H, W, 3) in [0, 1], float32."""
+        t = z.shape[0]
+        decoding_t = min(decoding_t or t, t)
+        outs = []
+        for i in range(0, t, decoding_t):
+            chunk = z[i:i + decoding_t].to(self.device) / self.scale_factor
+            x = self.vae_decoder(chunk.permute(0, 3, 1, 2), chunk.shape[0])
+            outs.append(((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
+                        .permute(0, 2, 3, 1))
+        return torch.cat(outs, dim=0)

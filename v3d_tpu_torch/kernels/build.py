@@ -1,0 +1,112 @@
+"""Build and load the hand-written Hopper kernels.
+
+``v3d_tpu_torch/csrc/*.cu`` are compiled with nvcc for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/libv3d_tpu_torch_kernels.so csrc/*.cu
+
+The library is built at first use and rebuilt when the hash of the sources
+changes.  A failed build raises.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+LIB_PATH = BUILD_DIR / "libv3d_tpu_torch_kernels.so"
+STAMP_PATH = BUILD_DIR / "sources.sha256"
+LOG_PATH = BUILD_DIR / "build.log"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C signatures of the exported functions (see csrc/*.cu)
+SIGNATURES = {
+    "v3d_flash_attn_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I]
+                           + [_L] * 12 + [_P], _I),
+    "v3d_temporal_core": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                          + [_L] * 9 + [_P], _I),
+    "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P], _I),
+    "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
+}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def sources() -> list:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def sources_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise KernelBuildError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+    return nvcc
+
+
+def build(force: bool = False) -> Path:
+    """Compile csrc/*.cu into LIB_PATH unless an up-to-date build exists.
+    Returns the library path; raises KernelBuildError on failure."""
+    digest = sources_hash()
+    if (not force and LIB_PATH.exists() and STAMP_PATH.exists()
+            and STAMP_PATH.read_text().strip() == digest):
+        return LIB_PATH
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp)]
+    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    LOG_PATH.write_text(
+        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
+        f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, LIB_PATH)
+    STAMP_PATH.write_text(digest + "\n")
+    return LIB_PATH
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _LIB = lib
+    return _LIB
