@@ -163,7 +163,7 @@ def test_build_cond_matches_jax_engine():
     """GeneralConditioner routing, force-zero uc and the per-frame repeat,
     through both engines' build_cond."""
     clip_emb, cond_frames = rand((1, 1, 64), 3), rand((1, 8, 8, 4), 4)
-    port_engine = build_tiny_engine(num_frames=4)
+    port_engine = build_tiny_engine(num_frames=4, device="cpu")
     jax_engine = jax_tiny_engine(num_frames=4)
     c, uc = port_engine.build_cond(t(clip_emb), t(cond_frames), 1, 300, 0.02)
     jc_, juc = jax_engine.build_cond(jnp.asarray(clip_emb), jnp.asarray(cond_frames),

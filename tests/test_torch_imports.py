@@ -1,7 +1,8 @@
-"""The port stands alone: in a fresh interpreter, importing v3d_tpu_torch and
-chip_smoke and running a tiny generation on the CPU loads neither jax, flax
-nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without a
-CUDA device or outside a checkout of the repository."""
+"""The port stands alone: in a fresh interpreter, importing every module of
+v3d_tpu_torch (found by walking the package) and chip_smoke, and running a
+tiny generation and a tiny 3DGS fit on the CPU, loads neither jax, jaxlib,
+flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+a CUDA device or outside a checkout of the repository."""
 
 import json
 import os
@@ -13,18 +14,31 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import sys
+import importlib, pkgutil, sys, tempfile
 import numpy as np
 import chip_smoke
-import v3d_tpu_torch.ops.attention, v3d_tpu_torch.ops.temporal_attention
-import v3d_tpu_torch.kernels.build
+import v3d_tpu_torch
+
+mods = [m.name for m in pkgutil.walk_packages(v3d_tpu_torch.__path__, "v3d_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+print("MODULES", len(mods))
+
 from v3d_tpu_torch.apps.generate import sample_one
+from v3d_tpu_torch.apps.recon_gs import train_from_frames
 from v3d_tpu_torch.engines.builder import build_tiny_engine
 
 img = chip_smoke.synthetic_image(96)
-frames, _, timings = sample_one(img, engine=build_tiny_engine(num_frames=4, num_steps=2),
-                                resolution=64)
+frames, _, timings = sample_one(
+    img, engine=build_tiny_engine(num_frames=4, num_steps=2, device="cpu"),
+    resolution=64)
 assert frames.shape == (4, 64, 64, 3) and frames.dtype == np.uint8, frames.shape
+with tempfile.TemporaryDirectory() as out:
+    trainer = train_from_frames(frames[:, :32, :32], out, iterations=3, num_pts=40,
+                                capacity=64, test_every=2, device="cpu",
+                                config_overrides=dict(densify_from_iter=1,
+                                                      densification_interval=2))
+assert trainer.step_count == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
 print("FOREIGN", bad)
@@ -44,6 +58,8 @@ def test_port_path_imports_no_jax_and_generates_on_cpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout
+    n_modules = int(out.stdout.split("MODULES")[1].split()[0])
+    assert n_modules >= 40, out.stdout
 
 
 def _last_json(stdout: str):

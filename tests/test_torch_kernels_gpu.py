@@ -14,9 +14,15 @@ and the scalar load paths of the latter, each run.  Tolerances:
   order than cuBLAS);
 - bfloat16: PSNR >= 40 dB of the bf16 kernel against the plain version in
   float32 on the same (bf16-rounded) inputs, the bound chip_smoke.py states
-  (bf16 rounding of q/k/v, P and o).
+  (bf16 rounding of q/k/v, P and o);
+- the 3DGS compositor (T10 / T11, float32), the bounds chip_smoke.py
+  states: rgb and acc max abs <= 1e-4, depth <= 1e-3 (a pair whose
+  transmittance sits at the 1e-4 stop may count on one side only); the slab
+  gradient per attribute max abs <= 1e-3 x max |plain| of that attribute
+  (T11 divides T back and sums with atomics, in another order).
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -110,3 +116,89 @@ def test_kernels_refuse_instead_of_falling_back(dev):
         flash_attn_fwd(q, q, q)
     with reference_mode():  # the explicit switch is the only way to plain
         assert flash_attn_fwd(q, q, q).shape == q.shape
+
+
+def _gs_slab(dev, n, res, kc, opacity=None, seed=0):
+    """A real slab: n seeded gaussians (the trainer's random init) projected
+    from one orbit camera at res^2 and binned with Kc = kc (coarse cells when
+    the n + 64 slots exceed kc, else one global depth sort)."""
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import orbit_cameras
+    from v3d_tpu_torch.gs.gaussians import from_pcd, random_init_pcd
+    from v3d_tpu_torch.gs.render import RasterizeConfig, build_slabs, project_gaussians
+
+    xyz, colors = random_init_pcd(np.random.RandomState(seed), n, radius=2.0)
+    g = from_pcd(xyz, colors, capacity=n + 64, device=dev)
+    if opacity is not None:
+        g = dataclasses.replace(g, opacity=torch.full_like(g.opacity, opacity))
+    cam = orbit_cameras(18, resolution=res)[3]
+    cfg = RasterizeConfig(coarse_factor=8 if res >= 256 else 2, max_per_coarse=kc)
+    return build_slabs(project_gaussians(g, cam), res, res, cfg)
+
+
+@pytest.mark.parametrize("n,res,kc,opacity", [(3000, 64, 256, None),
+                                              (3000, 64, 256, 6.0),
+                                              (20000, 256, 1000, None),
+                                              (500, 48, 1024, None)])
+def test_gs_composite_kernels(dev, n, res, kc, opacity):
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops import gs_composite as gc
+
+    s = _gs_slab(dev, n, res, kc, opacity)
+    args = (s.slab.detach(), s.live_count, s.cell_of_tile, s.tile_xy)
+    before = dict(LAUNCHES)
+    (rgb, acc, dep), saved = gc.composite_fwd(*args)
+    torch.cuda.synchronize()
+    ref = gc.composite_plain(*args)
+    for name, out, r, tol in (("rgb", rgb, ref[0], 1e-4), ("acc", acc, ref[1], 1e-4),
+                              ("depth", dep, ref[2], 1e-3)):
+        assert torch.isfinite(out).all()
+        err = float((out - r).abs().max())
+        assert err <= tol, (name, err)
+    assert float(acc.max()) > 0.5
+    if opacity is not None:   # pixels saturate and stop at T < 1e-4
+        assert float(acc.max()) > 1 - 1e-4
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = [torch.randn(x.shape, device=dev, generator=gen) for x in (rgb, acc, dep)]
+    dslab = gc.composite_bwd(args[0], s.cell_of_tile, s.tile_xy, saved, *cot)
+    torch.cuda.synchronize()
+    slab = args[0].clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(gc.composite_plain(slab, *args[1:]), slab, cot)
+    for a in range(gc.ATTR):
+        scale = float(want[..., a].abs().max())
+        err = float((dslab[..., a] - want[..., a]).abs().max())
+        assert err <= 1e-3 * scale + 1e-12, (a, err, scale)
+    assert LAUNCHES["gs_composite_fwd"] == before["gs_composite_fwd"] + 1
+    assert LAUNCHES["gs_composite_bwd"] == before["gs_composite_bwd"] + 1
+
+
+def test_gs_render_gradients_through_kernels(dev):
+    """render + backward with GSComposite (T10/T11) against the same in
+    reference_mode(): parameter gradients within 1e-3 of the largest."""
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import orbit_cameras
+    from v3d_tpu_torch.gs.gaussians import from_pcd, random_init_pcd
+    from v3d_tpu_torch.gs.render import RasterizeConfig, render
+    from v3d_tpu_torch.ops import reference_mode
+
+    xyz, colors = random_init_pcd(np.random.RandomState(2), 5000, radius=2.0)
+    cam = orbit_cameras(18, resolution=128)[5]
+    cfg = RasterizeConfig(coarse_factor=4, max_per_coarse=1024)
+
+    def grads():
+        g = from_pcd(xyz, colors, capacity=5100, device=dev)
+        fields = {k: getattr(g, k).requires_grad_() for k in ("xyz", "opacity", "scaling", "f_dc")}
+        out = render(dataclasses.replace(g, **fields), cam, torch.ones(3, device=dev),
+                     config=cfg)
+        (out.image.square().sum() + out.alpha.sum() + 0.1 * out.depth.sum()).backward()
+        return {k: v.grad for k, v in fields.items()}
+
+    got = grads()
+    with reference_mode():
+        want = grads()
+    for k in got:
+        scale = float(want[k].abs().max())
+        assert scale > 0 and float((got[k] - want[k]).abs().max()) <= 1e-3 * scale, k

@@ -113,7 +113,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
                                    torch.randn(32), 2)
     q = torch.randn(1, 1, 64, 64)
     tattn.flash_attn_fwd(q, q, q)
-    assert LAUNCHES == {"flash_attn_fwd": 0, "temporal_block": 0, "temporal_core": 0}
+    assert LAUNCHES == {"flash_attn_fwd": 0, "temporal_block": 0, "temporal_core": 0,
+                        "gs_composite_fwd": 0, "gs_composite_bwd": 0}
 
 
 def test_reference_mode_is_scoped():

@@ -33,7 +33,7 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 
 def test_tiny_slice_matches_jax():
     tt, res = 4, 64
-    port = build_tiny_engine(num_frames=tt, num_steps=2)
+    port = build_tiny_engine(num_frames=tt, num_steps=2, device="cpu")
     for i, m in enumerate((port.unet, port.vae_encoder, port.vae_decoder, port.clip)):
         numpy_init_(m, 100 + i)
     params = {"unet": to_flax(port.unet, MAP_UNET),

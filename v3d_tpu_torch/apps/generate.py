@@ -15,8 +15,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -36,23 +34,22 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
                border_ratio: float = 0.3, min_guidance_scale: float = 3.5,
                max_guidance_scale: float = 3.5, sigma_max: float = 700.0,
                ignore_alpha: bool = False, bf16: bool = True,
-               device: Optional[str] = None, resolution: int = 512,
+               device="cuda", resolution: int = 512,
                weights_seed: int = 0, enc_noise=None, aug_noise=None,
                noise=None):
     """(H, W, 3|4) uint8 image -> (frames uint8 (T, res, res, 3), engine,
     timings in seconds).
 
-    Without ``engine``, builds the V3D-512 engine on ``device`` (CUDA when
-    present) with seeded random weights, bf16-resident when ``bf16``.  The
-    noise comes from a generator seeded with ``seed`` (latent sample, cond
-    aug, initial latent, in that order) unless given explicitly."""
+    Without ``engine``, builds the V3D-512 engine on ``device`` (the card
+    unless the caller passes ``device="cpu"``) with seeded random weights,
+    bf16-resident when ``bf16``.  The noise comes from a generator seeded
+    with ``seed`` (latent sample, cond aug, initial latent, in that order)
+    unless given explicitly."""
     if engine is None:
-        dev = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                      else "cpu"))
         engine = build_v3d_engine(
             num_frames=num_frames, num_steps=num_steps,
             min_scale=min_guidance_scale, max_scale=max_guidance_scale,
-            sigma_max=sigma_max, device=dev,
+            sigma_max=sigma_max, device=device,
             dtype=torch.bfloat16 if bf16 else torch.float32, seed=weights_seed)
     dev = engine.device
     img = preprocess_image(image, border_ratio=border_ratio,
@@ -96,7 +93,8 @@ def main(argv=None):
     p.add_argument("--sigma-max", type=float, default=700.0)
     p.add_argument("--output-folder", default="outputs/v3d_512")
     p.add_argument("--ignore-alpha", action="store_true")
-    p.add_argument("--device", default=None, help="default: cuda if present")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)
     if args.checkpoint:
         p.error("--checkpoint: loading real weights waits until they are in "

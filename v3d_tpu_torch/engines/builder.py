@@ -72,11 +72,12 @@ def build_v3d_engine(num_frames: int = 18, num_steps: int = 25,
                      min_scale: float = 3.5, max_scale: float = 3.5,
                      sigma_max: float = 700.0, guider: str = "linear",
                      model_channels: int = 320, vae_ch: int = 128,
-                     device="cpu", dtype: torch.dtype = torch.float32,
+                     device="cuda", dtype: torch.dtype = torch.float32,
                      seed: int = 0, clip_cfg: Optional[Dict] = None,
                      unet_overrides: Optional[Dict] = None
                      ) -> VideoDiffusionEngine:
-    """The V3D_512.yaml recipe with seeded random weights on ``device``."""
+    """The V3D_512.yaml recipe with seeded random weights on ``device`` (the
+    card unless the caller passes ``device="cpu"``)."""
     guider_cls = {"linear": LinearPredictionGuider,
                   "triangle": TrianglePredictionGuider}[guider]
     sampler = EulerEDMSampler(
@@ -104,7 +105,7 @@ def build_v3d_engine(num_frames: int = 18, num_steps: int = 25,
         clip=mods[3], scale_factor=0.18215, num_frames=num_frames)
 
 
-def build_tiny_engine(num_frames: int = 4, num_steps: int = 3, device="cpu",
+def build_tiny_engine(num_frames: int = 4, num_steps: int = 3, device="cuda",
                       dtype: torch.dtype = torch.float32, seed: int = 0
                       ) -> VideoDiffusionEngine:
     """Scaled-down engine of the same topology, for tests and dry runs."""

@@ -1,10 +1,12 @@
 """Build and load the hand-written Hopper kernels.
 
-``v3d_tpu_torch/csrc/*.cu`` are compiled with nvcc for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes:
+``v3d_tpu_torch/csrc/*.cu`` are compiled with nvcc for ``sm_90a``, one nvcc
+process per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/libv3d_tpu_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o build/kernels/<name>.o csrc/<name>.cu  # each
+    nvcc -shared -o build/kernels/libv3d_tpu_torch_kernels.so build/kernels/*.o
 
 The library is built at first use and rebuilt when the hash of the sources
 changes.  A failed build raises.  Nothing here runs at import time.
@@ -40,6 +42,8 @@ SIGNATURES = {
                           + [_L] * 9 + [_P], _I),
     "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P], _I),
     "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
+    "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 3 + [_P] * 6 + [_P], _I),
+    "v3d_gs_composite_bwd": ([_P] * 3 + [_I] * 3 + [_P] * 7 + [_P], _I),
 }
 
 
@@ -77,20 +81,39 @@ def build(force: bool = False) -> Path:
             and STAMP_PATH.read_text().strip() == digest):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(
-        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
-        f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    if proc.returncode != 0:
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o",
+               str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(err)
+    objs = [obj for _, obj, _ in jobs]
+    tmp = LIB_PATH.with_suffix(f".{tag}.so")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n"
+                   f"{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    LOG_PATH.write_text(f"# {time.perf_counter() - t0:.1f} s\n" + "\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(
+            err[-4000:] for err in failed))
     os.replace(tmp, LIB_PATH)
     STAMP_PATH.write_text(digest + "\n")
     return LIB_PATH

@@ -16,7 +16,8 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "temporal_block": 0,
-                            "temporal_core": 0}
+                            "temporal_core": 0, "gs_composite_fwd": 0,
+                            "gs_composite_bwd": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
