@@ -27,14 +27,22 @@ Phases, each printing lines before the last:
    launch counts;
 7. where a fit step's time goes: CUDA events around its stages, and a
    ``torch.profiler`` trace of a few steps (device busy share, time by
-   kernel class).
+   kernel class);
+8. the VideoUNet fine-tune step at V3D-512's full width (f32 master
+   weights, bf16 compute, gradient checkpointing, 1 video of 18 frames at
+   64^2 latents): one step's gradients with the kernels against
+   ``reference_mode()`` on the same batch and draws, then
+   ``v3d_tpu_torch.apps.train_diffusion.train`` for a few AdamW steps
+   (ms per step, peak memory, loss and gradient norm per step, launches per
+   step), a step without checkpointing, and a profile of two steps.
 
-Each path (phases 5 and 6) is run with the launch counts set to 0 just
+Each path (phases 5, 6 and 8) is run with the launch counts set to 0 just
 before it and read just after; a kernel of the path launched no time, or
-another number of times than the path needs, fails the run.  Then one JSON
-line with every kernel's numbers, and last the line ``{"ok": true,
-"device": {...}}``.  Any failure exits non-zero before that line.  No CUDA
-device: exit 2 at once.  Nothing here imports JAX or v3d_tpu.
+another number of times than the path needs (counted from the modules, see
+``unet_sites``), fails the run.  Then one JSON line with every kernel's
+numbers, and last the line ``{"ok": true, "device": {...}}``.  Any failure
+exits non-zero before that line.  No CUDA device: exit 2 at once.  Nothing
+here imports JAX or v3d_tpu.
 
 TF32: both ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False, so float32 products and
@@ -51,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Sequence
 
 # Tolerances (kernel vs plain version on the same inputs)
 F32_MAX_REL = 1e-4    # max |kernel - plain| / max |plain|, float32
@@ -62,6 +71,12 @@ UNET_MIN_PSNR = 30.0  # dB, phase 4: bf16 UNet with kernels vs plain versions
 GS_RGB_ACC_MAX_ABS = 1e-4
 GS_DEPTH_MAX_ABS = 1e-3
 GS_GRAD_REL = 1e-3    # per attribute: max abs <= GS_GRAD_REL * max |plain|
+# phase 8, one fine-tune step with the kernels against reference_mode(), bf16
+# compute: the two differ only by bf16 rounding inside the kernels (P and dS
+# packed to bf16 by K1/K7/K8, other summation orders)
+TRAIN_LOSS_REL = 1e-3     # |loss - loss_plain| <= 1e-3 |loss_plain|
+TRAIN_MIN_COS = 0.999     # cosine of each parameter's gradient with the plain one
+TRAIN_STEPS = 10          # AdamW steps of phase 8
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16 = 989e12    # FLOP/s, tensor cores
@@ -81,10 +96,6 @@ GS_FLOPS_BWD = 50
 FIT_ITERS = 200
 FIT_POINTS = 100_000
 FIT_CAPACITY = 300_000
-# launches each path needs (phase 5: one generation; phase 6: the fit)
-GEN_LAUNCHES = {"flash_attn_fwd": 250, "temporal_block": 125,
-                "temporal_core": 275, "gs_composite_fwd": 0,
-                "gs_composite_bwd": 0}
 KERNELS = {
     "flash_attn_fwd": dict(
         label="K1", source="v3d_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -101,7 +112,25 @@ KERNELS = {
     "gs_composite_bwd": dict(
         label="K5", source="v3d_tpu_torch/csrc/gs_composite_bwd.cu",
         replaces="v3d_tpu/gs/pallas_raster.py:267 (composite_tiles_bwd, T11)"),
+    "group_norm": dict(
+        label="K6", source="v3d_tpu_torch/csrc/group_norm.cu",
+        replaces="v3d_tpu/ops/fused_groupnorm.py:90 (_pallas_group_norm, T9)"),
+    "flash_attn_bwd_dkv": dict(
+        label="K7", source="v3d_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+                 "(_flash_attention_bwd_dkv, T1-dkv, pallas_call :1121; run "
+                 "by v3d_tpu/ops/attention.py:154 under jax.grad)"),
+    "flash_attn_bwd_dq": dict(
+        label="K8", source="v3d_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
+                 "(_flash_attention_bwd_dq, T1-dq, pallas_call :1456; run "
+                 "by v3d_tpu/ops/attention.py:154 under jax.grad)"),
 }
+# the path whose launches each kernel's JSON entry reports
+KERNEL_PATH = {"flash_attn_fwd": "gen", "temporal_block": "gen",
+               "temporal_core": "gen", "gs_composite_fwd": "fit",
+               "gs_composite_bwd": "fit", "group_norm": "gen",
+               "flash_attn_bwd_dkv": "train", "flash_attn_bwd_dq": "train"}
 
 
 class SmokeFailure(RuntimeError):
@@ -316,8 +345,108 @@ def phase_kernels() -> dict:
                 lambda: temporal_core_plain(*up, heads),
                 (4 * n * 18 * 18 * 64, 4 * n * 18 * 64 * size),
                 lambda: F.scaled_dot_product_attention(*lib)))
+    results["group_norm"] = group_norm_checks(randn)
+    results.update(flash_bwd_checks(randn))
     results.update(phase_gs_kernels())
     return results
+
+
+def group_norm_checks(randn) -> list:
+    """K6 (T9) at the UNet's ds1 map (36, 320, 64, 64), a temporal
+    GroupNorm's (2, 320, 18, 64, 64) and the VAE decoder's largest (18, 128,
+    512, 512), f32 and bf16, with and without SiLU; library:
+    F.group_norm on the same tensor; bound: 2 reads + 1 write of x."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.group_norm import group_norm_act_plain, group_norm_fwd
+
+    out = []
+    for tag, shape in (("unet ds1", (36, 320, 64, 64)),
+                       ("temporal", (2, 320, 18, 64, 64)),
+                       ("vae decoder", (18, 128, 512, 512))):
+        fmt = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+        x32 = (randn(*shape) + 0.3).contiguous(memory_format=fmt)
+        c = shape[1]
+        w32, b32 = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            up = x.float()
+            n = x.numel()
+            for silu in (False, True):
+                out.append(_check(
+                    "group_norm", f"{tag} {shape}{' +SiLU' if silu else ''}", dtype,
+                    lambda: group_norm_fwd(x, w32, b32, 32, 1e-5, silu),
+                    lambda: group_norm_act_plain(x, w32, b32, 32, 1e-5, silu),
+                    lambda: group_norm_act_plain(up, w32, b32, 32, 1e-5, silu),
+                    ((8 if silu else 5) * n, 3 * n * x.element_size()),
+                    lambda: F.group_norm(x, 32, w32.to(dtype), b32.to(dtype), 1e-5)))
+            del x, up
+        del x32
+    return out
+
+
+def flash_bwd_checks(randn) -> dict:
+    """K8 (dq, D) and K7 (dk, dv) at the fine-tune step's (18, 5, 4096, 64)
+    and (18, 10, 1024, 64), bf16, q/k/v/do as (b, h, s, d) views of
+    (b, s, h, d) buffers, o and lse from K1; each against the plain backward
+    on the same inputs (PSNR vs the plain result in f32) and timed alone;
+    plain: the whole plain backward; library: the backward of
+    scaled_dot_product_attention alone (its forward run once before).
+    Bounds: K8 three products (S, dP, dQ), K7 four (S, dV, dP, dK), each
+    2 b h s^2 d FLOPs, at the bf16 tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops import attention as A
+
+    res = {"flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
+    for tag, (b, h, s) in (("ds1", (18, 5, 4096)), ("ds2", (18, 10, 1024))):
+        q, k, v, do = (randn(b, s, h, 64).to(torch.bfloat16).transpose(1, 2)
+                       for _ in range(4))
+        o, lse = A.flash_attn_fwd(q, k, v, with_lse=True)
+        got = A.flash_attn_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        plain = A.flash_attn_bwd_plain(q, k, v, o, lse, do)
+        ref = A.flash_attn_bwd_plain(*(t_.float() for t_ in (q, k, v, o)), lse,
+                                     do.float())
+        quality = [psnr(g, r) for g, r in zip(got, ref)]
+        errs = [float((g.float() - p_.float()).abs().max()) for g, p_ in zip(got, plain)]
+        ok = (all(bool(torch.isfinite(g).all()) for g in got)
+              and min(quality) >= BF16_MIN_PSNR)
+        dsum = torch.empty(b, h, s, device=q.device)
+        dq, dk, dv = (A._like_projection(b, s, h, 64, q) for _ in range(3))
+        ms_dq = cuda_ms(lambda: A._bwd_dq(q, k, v, o, lse, do, dsum, dq))
+        ms_dkv = cuda_ms(lambda: A._bwd_dkv(q, k, v, do, lse, dsum, dk, dv))
+        plain_ms = cuda_ms(lambda: A.flash_attn_bwd_plain(q, k, v, o, lse, do),
+                           iters=3, warmup=1)
+        ql, kl, vl = (t_.detach().requires_grad_() for t_ in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True))
+        pair = 2 * b * h * s * s * 64
+        elt = b * h * s * 64 * 2
+        rows = {"flash_attn_bwd_dq": (ms_dq, errs[0], bound_ms(
+                    3 * pair, 6 * elt + 2 * b * h * s * 4, PEAK_BF16)),
+                "flash_attn_bwd_dkv": (ms_dkv, max(errs[1:]), bound_ms(
+                    4 * pair, 6 * elt + 2 * b * h * s * 4, PEAK_BF16))}
+        for name, (ms, err, (bnd, by)) in rows.items():
+            say("3 kernels", f"{KERNELS[name]['label']} {name} {tag} "
+                f"{(b, h, s, 64)} bfloat16: max_abs vs plain {err:.3e} | psnr_vs_f32 "
+                f"dq {quality[0]:.2f} dk {quality[1]:.2f} dv {quality[2]:.2f} dB "
+                f"(>= {BF16_MIN_PSNR:g}) | kernel {ms:.4f} ms plain (whole "
+                f"backward) {plain_ms:.4f} ms library (SDPA backward) "
+                f"{library_ms:.4f} ms | bound {bnd:.4f} ms ({by}) | "
+                f"{'ok' if ok else 'FAIL'}")
+            res[name].append({"shape": f"{tag} {(b, h, s, 64)}", "dtype": "bfloat16",
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bnd, "bound_by": by,
+                              "library_ms": library_ms, "psnr_dq_dk_dv": quality})
+        if not ok:
+            raise SmokeFailure(f"flash backward {tag} disagrees: PSNR {quality}")
+        del q, k, v, do, o, lse, got, plain, ref, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    return res
 
 
 def fit_scene_slabs(dev, n: int = 100_000, res: int = 512, kc: int = 2048):
@@ -447,6 +576,77 @@ def phase_gs_kernels() -> dict:
                                   bound_ms=bwd_bound[0], bound_by=bwd_bound[1])]}
 
 
+def unet_sites(unet, hw: int) -> dict:
+    """What one VideoUNet forward at hw^2 latents launches, counted from the
+    modules and their own routing rules: spatial self-attentions that take
+    K1 (``CrossAttention.takes_flash``), temporal self-attentions that take
+    K2 (``TemporalSelfAttention.takes_block``) or else K3, and the
+    GroupNorms (K6) inside the blocks that
+    ``use_checkpoint`` recomputes (VideoResBlock, SpatialVideoTransformer)
+    and outside them."""
+    from v3d_tpu_torch.models.layers import Downsample, GroupNorm32, Upsample
+    from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+    from v3d_tpu_torch.models.video_unet import VideoResBlock
+
+    sites = dict(flash=0, temporal_block=0, temporal_core=0, gn_blocks=0,
+                 gn_other=0)
+    res = hw
+    blocks = list(unet.input_blocks) + [unet.middle_block] + list(unet.output_blocks)
+    for layer in [m for block in blocks for m in block] + [unet.out]:
+        n_gn = sum(isinstance(m, GroupNorm32) for m in layer.modules())
+        if isinstance(layer, (VideoResBlock, SpatialVideoTransformer)):
+            sites["gn_blocks"] += n_gn
+        else:
+            sites["gn_other"] += n_gn
+        if isinstance(layer, SpatialVideoTransformer):
+            tokens = res * res
+            for blk in layer.transformer_blocks:
+                sites["flash"] += blk.attn1.takes_flash(tokens)
+            for tb in layer.time_stack:
+                fused = tb.attn1.takes_block(tokens)
+                sites["temporal_block" if fused else "temporal_core"] += 1
+        elif isinstance(layer, Downsample):
+            res //= 2
+        elif isinstance(layer, Upsample):
+            res *= 2
+    return sites
+
+
+def count_group_norms(module) -> int:
+    from v3d_tpu_torch.models.layers import GroupNorm32
+
+    return sum(isinstance(m, GroupNorm32) for m in module.modules())
+
+
+def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
+    """Launches of one generation: ``steps`` UNet forwards, one VAE encode
+    of the image and one decode of all frames; no backward, no 3DGS."""
+    u = unet_sites(engine.unet, hw)
+    out = {name: 0 for name in KERNELS}
+    out.update(flash_attn_fwd=steps * u["flash"],
+               temporal_block=steps * u["temporal_block"],
+               temporal_core=steps * u["temporal_core"],
+               group_norm=steps * (u["gn_blocks"] + u["gn_other"])
+               + count_group_norms(engine.vae_encoder)
+               + count_group_norms(engine.vae_decoder))
+    return out
+
+
+def train_launches(unet, hw: int = 64, use_checkpoint: bool = True) -> dict:
+    """Launches of one fine-tune step: the forward, the blocks' forwards
+    once more when checkpointing recomputes them, K8 and K7 once per K1
+    site; K2/K3/K6 backwards recompute through plain formulas."""
+    u = unet_sites(unet, hw)
+    r = 2 if use_checkpoint else 1
+    out = {name: 0 for name in KERNELS}
+    out.update(flash_attn_fwd=r * u["flash"], flash_attn_bwd_dq=u["flash"],
+               flash_attn_bwd_dkv=u["flash"],
+               temporal_block=r * u["temporal_block"],
+               temporal_core=r * u["temporal_core"],
+               group_norm=r * u["gn_blocks"] + u["gn_other"])
+    return out
+
+
 def build_engine(device):
     import torch
 
@@ -524,6 +724,7 @@ def phase_generate(engine, requests: int = 2) -> dict:
     from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     image = synthetic_image()
+    expect = gen_launches(engine)
     out = {}
     for r in range(requests):
         torch.cuda.reset_peak_memory_stats()
@@ -535,13 +736,13 @@ def phase_generate(engine, requests: int = 2) -> dict:
         counts = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         shape_ok = frames.shape == (engine.num_frames, 512, 512, 3)
-        counts_ok = counts == GEN_LAUNCHES
+        counts_ok = counts == expect
         say("5 generate", f"request {r}: {wall:.3f} s (cond "
             f"{timings['cond_s']:.3f}, sample {timings['sample_s']:.3f}, "
             f"decode {timings['decode_s']:.3f}) | peak "
             f"{peak:.2f} GiB | frames {frames.shape} {frames.dtype} "
             f"[{frames.min()}, {frames.max()}] std {frames.std():.2f} | "
-            f"launches {counts} (expect {GEN_LAUNCHES}) | "
+            f"launches {counts} (expect {expect}) | "
             f"{'ok' if shape_ok and counts_ok else 'FAIL'}")
         if not (shape_ok and counts_ok):
             raise SmokeFailure(f"request {r}: frames {frames.shape}, "
@@ -699,20 +900,81 @@ KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
 )
 
 
+TRAIN_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
+    ("K1 flash_attn_fwd", ("flash_fwd",)),
+    ("K8 flash_attn_bwd_dq", ("flash_bwd_dq",)),
+    ("K7 flash_attn_bwd_dkv", ("flash_bwd_dkv",)),
+    ("K2 temporal_block", ("temporal_block",)),
+    ("K3 temporal_core", ("temporal_core",)),
+    ("K6 group_norm", ("gn_stats", "gn_finalize", "gn_norm")),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("AdamW + EMA (foreach)", ("adam", "multi_tensor", "foreach", "lerp")),
+    ("reductions (plain GN/LN backward, norms)", ("reduce", "norm")),
+    # casts are copy kernels; "cast" alone would also take every elementwise
+    # kernel on ATen's unrolled path (its LoadWithoutCast / StoreWithCast)
+    ("copies / casts / fills", ("memcpy", "memset", "copy", "fill")),
+)
+TRAIN_OTHER = "elementwise (activations, the plain backwards' arithmetic, loss)"
+
+
 def phase_profile(trainer, step_ms: float, steps: int = 5) -> None:
     """Where a fit step's time goes: a torch.profiler trace of ``steps``
     steps (device time by kernel class; the device busy share of the traced
     span, and of ``step_ms``, phase 6's step time without the profiler)."""
+    for _ in range(2):
+        trainer.train_iter()
+    profile_steps("7 profile", "fit", trainer.train_iter, steps, step_ms,
+                  KERNEL_CLASSES, "elementwise (projection, loss, their backward)")
+
+
+def _kernel_class(name: str, kernel_classes, other: str) -> str:
+    name = name.lower()
+    return next((c for c, keys in kernel_classes if any(k in name for k in keys)), other)
+
+
+def _class_by_origin(prof, cls: str, kernel_classes, other: str) -> dict:
+    """Device ms of one kernel class by where its kernels were launched:
+    "<autograd node or forward> / <outermost aten op>", e.g. a backward's
+    ``aten::to`` (a cast) against a forward's ``aten::contiguous`` (a
+    layout copy)."""
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels
+                 if _kernel_class(k.name, kernel_classes, other) == cls)
+        if not us:
+            continue
+        op, node, p = e.name, "forward", e.cpu_parent
+        while p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function:"):
+                node = p.name.split("evaluate_function:", 1)[1].strip()
+                break
+            if p.name.startswith("aten::"):
+                op = p.name
+            p = p.cpu_parent
+        key = f"{node} / {op}"
+        out[key] = out.get(key, 0.0) + us / 1e3
+    return out
+
+
+def profile_steps(phase: str, what: str, step_fn, steps: int, step_ms: float,
+                  kernel_classes, other: str, split: Sequence[str] = ()) -> None:
+    """A torch.profiler trace of ``steps`` calls of ``step_fn``: device time
+    by kernel class, the device busy share of the traced span and of
+    ``step_ms``, the step time without the profiler; for the classes in
+    ``split``, their time by where their kernels were launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        trainer.train_iter()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            trainer.train_iter()
+            step_fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans, classes = [], {}
@@ -720,13 +982,11 @@ def phase_profile(trainer, step_ms: float, steps: int = 5) -> None:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        name = e.name.lower()
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
-                   "elementwise (projection, loss, their backward)")
+        cls = _kernel_class(e.name, kernel_classes, other)
         ms, n = classes.get(cls, (0.0, 0))
         classes[cls] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     if not spans:
-        say("7 profile", "the profiler recorded no device events")
+        say(phase, "the profiler recorded no device events")
         return
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -740,19 +1000,189 @@ def phase_profile(trainer, step_ms: float, steps: int = 5) -> None:
     span = spans[-1][1] - spans[0][0]
     total = sum(ms for ms, _ in classes.values())
     busy_ms = busy / 1e3 / steps
-    say("7 profile", f"{steps} fit steps under the profiler: {1e3 * wall / steps:.3f} "
+    say(phase, f"{steps} {what} steps under the profiler: {1e3 * wall / steps:.3f} "
         f"ms per step (host clock), device busy {busy / 1e3:.3f} ms of a "
         f"{span / 1e3:.3f} ms span, idle {100 * (1 - busy / span):.1f}% | "
         f"without the profiler: {busy_ms:.3f} ms busy of a {step_ms:.3f} ms "
         f"step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
     for cls, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
-        say("7 profile", f"  {cls}: {ms / steps:.3f} ms per step "
+        say(phase, f"  {cls}: {ms / steps:.3f} ms per step "
             f"({100 * ms / total:.1f}%), {n // steps} kernels per step")
+    for cls in split:
+        origins = _class_by_origin(prof, cls, kernel_classes, other)
+        say(phase, f"  {cls} by origin (autograd node / aten op), ms per step:")
+        for key, ms in sorted(origins.items(), key=lambda kv: -kv[1])[:12]:
+            say(phase, f"    {key}: {ms / steps:.3f}")
+
+
+def train_grad_check(engine, batch, dev) -> None:
+    """One fine-tune step's loss and gradients with the kernels against
+    ``reference_mode()`` on the same batch and the same sigmas and noise."""
+    import torch
+
+    from v3d_tpu_torch.ops import reference_mode
+
+    unet = engine.unet.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    latents = batch["latents"]
+    sigmas = engine.loss_fn.sigma_sampler(latents.shape[0], device=dev, generator=gen)
+    noise = torch.randn(latents.shape, device=dev, generator=gen)
+    runs = []
+    for mode in (contextlib.nullcontext, reference_mode):
+        unet.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        with mode():
+            loss = engine.training_loss(latents, batch["cond"], sigmas=sigmas,
+                                        noise=noise)
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append((float(loss.detach()), time.perf_counter() - t0,
+                     {k: p.grad for k, p in unet.named_parameters()}))
+    unet.zero_grad(set_to_none=True)
+    (loss_k, sec_k, gk), (loss_p, sec_p, gp) = runs
+    names = list(gp)
+    stats = torch.stack([torch.stack([(gk[k].double() * gp[k].double()).sum(),
+                                      gk[k].double().norm(), gp[k].double().norm()])
+                         for k in names]).tolist()
+    cos = {k: (dot / (na * nb) if na * nb > 0 else float(na == nb))
+           for k, (dot, na, nb) in zip(names, stats)}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    norm_k = math.sqrt(sum(na * na for _, na, _ in stats))
+    norm_p = math.sqrt(sum(nb * nb for _, _, nb in stats))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (math.isfinite(loss_k) and rel <= TRAIN_LOSS_REL
+          and all(c >= TRAIN_MIN_COS for c in cos.values()))
+    say("8 train", f"step-1 gradients, kernels vs reference_mode() (same batch, "
+        f"sigmas, noise): loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e} <= "
+        f"{TRAIN_LOSS_REL:g}) | gradient norm {norm_k:.5e} vs {norm_p:.5e} | "
+        f"cosine per parameter tensor: min {worst[0][1]:.6f} (>= {TRAIN_MIN_COS:g}) "
+        f"over {len(cos)} tensors, lowest {[(k, round(c, 6)) for k, c in worst]} | "
+        f"forward+backward {sec_k:.2f} s vs {sec_p:.2f} s | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"fine-tune gradients disagree: loss {loss_k} {loss_p}, "
+                           f"lowest cosines {worst}")
+
+
+def phase_train(dev) -> dict:
+    """The fine-tune path at V3D-512's full width through its entry point,
+    ``apps.train_diffusion.train``, after a gradient check; then one step
+    without checkpointing (peak memory) and a profile of two steps."""
+    import torch
+
+    from v3d_tpu_torch.apps.train_diffusion import (
+        batches,
+        build_train_engine,
+        make_dataset,
+        train,
+    )
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    t0 = time.perf_counter()
+    engine = build_train_engine(device=dev)
+    unet, t = engine.unet, engine.num_frames
+    n = sum(p.numel() for p in unet.parameters())
+    say("8 train", f"V3D-512 training engine built in {time.perf_counter() - t0:.1f} s: "
+        f"UNet {n:,} parameters in float32, compute {unet.compute_dtype}, "
+        f"use_checkpoint {unet.use_checkpoint}; batch 1 video x {t} frames at 64^2")
+    data = batches(engine, make_dataset("synthetic", t, unet.context_dim), 1, t)
+    train_grad_check(engine, next(data), dev)
+
+    marks, stats = [], []
+
+    def record(s):
+        marks.append(time.perf_counter())
+        stats.append(s)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    marks.append(time.perf_counter())
+    trainer = train("synthetic", num_frames=t, max_steps=TRAIN_STEPS, engine=engine,
+                    log_every=1, log_fn=record)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = train_launches(unet, 64, use_checkpoint=True)
+    expect = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    step_ms = statistics.median(steps_ms[2:])
+    losses = [s_["loss"] for s_ in stats]
+    ok = (counts == expect and len(stats) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses + [s_["grad_norm"] for s_ in stats]))
+    say("8 train", f"train('synthetic') {TRAIN_STEPS} AdamW steps (lr 1e-4, "
+        f"LambdaLinear, EMA 0.9999): ms per step (median of steps 3-{TRAIN_STEPS}, "
+        f"host clock, each step ends in a sync) {step_ms:.1f}; all "
+        f"{[round(x, 1) for x in steps_ms]} | peak {peak:.2f} GiB | loss "
+        f"{[round(x, 5) for x in losses]} | grad norm "
+        f"{[round(s_['grad_norm'], 4) for s_ in stats]} | launches per step "
+        f"{ {k: v / TRAIN_STEPS for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in per_step.items() if v} }) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"fine-tune: launches {counts} (expect {expect}), "
+                           f"losses {losses}")
+
+    # the same step without checkpointing, where it fits
+    batch = next(batches(engine, make_dataset("synthetic", t, unet.context_dim), 1, t))
+    unet.use_checkpoint = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            trainer.train_step(batch["latents"], batch["cond"])
+            times.append(1e3 * (time.perf_counter() - t1))
+        nock = {"ms": times[-1], "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        want = {k: 2 * v for k, v in train_launches(unet, 64, False).items()}
+        nock_ok = dict(LAUNCHES) == want
+        say("8 train", f"without checkpointing: step {times[-1]:.1f} ms, peak "
+            f"{nock['peak_gib']:.2f} GiB | launches {dict(LAUNCHES)} (expect "
+            f"{want}) | {'ok' if nock_ok else 'FAIL'}")
+        if not nock_ok:
+            raise SmokeFailure(f"fine-tune without checkpointing: launches {dict(LAUNCHES)}")
+    except torch.OutOfMemoryError:
+        nock = {"ms": None, "peak_gib": None}
+        say("8 train", "without checkpointing: the step does not fit on the card")
+    unet.use_checkpoint = True
+    torch.cuda.empty_cache()
+    ab = train_ab(trainer, batch)
+    profile_steps("8 profile", "fine-tune", lambda: trainer.train_step(
+        batch["latents"], batch["cond"]), 2, step_ms, TRAIN_KERNEL_CLASSES,
+        TRAIN_OTHER, split=("copies / casts / fills", TRAIN_OTHER))
+    return {"launches": counts, "step_ms": step_ms, "peak_gib": peak,
+            "no_checkpoint": nock, "losses": losses, "ab": ab}
+
+
+def train_ab(trainer, batch) -> dict:
+    """The checkpointed fine-tune step with the kernels against the same step
+    in ``reference_mode()``, in turns (kernels, plain, kernels, plain): two
+    steps a turn, the second timed (host clock; each step ends in a sync),
+    and each turn's peak memory."""
+    import torch
+
+    from v3d_tpu_torch.ops import reference_mode
+
+    out = {"kernels": [], "plain": [], "peak_kernels": [], "peak_plain": []}
+    for name in ("kernels", "plain", "kernels", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        with reference_mode() if name == "plain" else contextlib.nullcontext():
+            for _ in range(2):
+                t0 = time.perf_counter()
+                trainer.train_step(batch["latents"], batch["cond"])
+                ms = 1e3 * (time.perf_counter() - t0)
+        out[name].append(round(ms, 1))
+        out[f"peak_{name}"].append(round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    say("8 train", f"step ms in turns (kernels, plain, kernels, plain): kernels "
+        f"{out['kernels']} plain (reference_mode) {out['plain']}, ratio "
+        f"{statistics.mean(out['kernels']) / statistics.mean(out['plain']):.3f} | "
+        f"peak GiB kernels {out['peak_kernels']} plain {out['peak_plain']}")
+    return out
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -766,6 +1196,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     phase_env()
+    say("run", f"phases {sorted(phases)}")
     if 2 in phases:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
@@ -784,13 +1215,17 @@ def main(argv=None) -> int:
         fit = phase_fit(frames, torch.device("cuda"))
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
+    paths = {"gen": gen, "fit": {"launches": fit.get("launches", {})}}
+    del fit
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(torch.device("cuda")) if 8 in phases else {}
 
     report = []
     for name, meta in KERNELS.items():
         checks = kernel_checks.get(name, [])
         bf16 = [c for c in checks if c["dtype"] == "bfloat16"]
         head = bf16[0] if bf16 else checks[0] if checks else {}
-        path = fit if name.startswith("gs_") else gen
+        path = paths[KERNEL_PATH[name]]
         report.append({
             "name": f"{meta['label']} {name}", "route": "cuda",
             "source": meta["source"], "replaces": meta["replaces"],
@@ -804,8 +1239,6 @@ def main(argv=None) -> int:
     last = {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
-    if phases != {1, 2, 3, 4, 5, 6, 7}:
-        last["phases"] = sorted(phases)
     print(json.dumps(last), flush=True)
     return 0
 

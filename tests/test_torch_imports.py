@@ -1,7 +1,7 @@
 """The port stands alone: in a fresh interpreter, importing every module of
 v3d_tpu_torch (found by walking the package) and chip_smoke, and running a
-tiny generation and a tiny 3DGS fit on the CPU, loads neither jax, jaxlib,
-flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, loads
+neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -39,6 +39,14 @@ with tempfile.TemporaryDirectory() as out:
                                 config_overrides=dict(densify_from_iter=1,
                                                       densification_interval=2))
 assert trainer.step_count == 3
+from v3d_tpu_torch.apps.train_diffusion import batches
+from v3d_tpu_torch.data.objaverse import SyntheticOrbitDataset
+from v3d_tpu_torch.engines.trainer import DiffusionTrainer
+eng = build_tiny_engine(num_frames=4, device="cpu", unet_overrides=dict(use_checkpoint=True))
+tuned = DiffusionTrainer(eng, num_frames=4)
+tuned.fit(batches(eng, SyntheticOrbitDataset(2, 4, 8, clip_dim=64), 1, 4), max_steps=1,
+          log_fn=lambda s: None)
+assert tuned.step == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
 print("FOREIGN", bad)
@@ -59,7 +67,7 @@ def test_port_path_imports_no_jax_and_generates_on_cpu():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 40, out.stdout
+    assert n_modules >= 50, out.stdout
 
 
 def _last_json(stdout: str):

@@ -202,3 +202,149 @@ def test_gs_render_gradients_through_kernels(dev):
     for k in got:
         scale = float(want[k].abs().max())
         assert scale > 0 and float((got[k] - want[k]).abs().max()) <= 1e-3 * scale, k
+
+
+def _psnr(out, ref):
+    mse = float(((out.float() - ref.float()) ** 2).mean())
+    return 10 * math.log10(float(ref.abs().max()) ** 2 / mse) if mse else math.inf
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,silu,scale_dtype", [
+    ((3, 64, 9, 7), True, torch.float32),
+    ((2, 320, 16, 16), False, torch.float32),
+    ((2, 96, 5, 4, 3), True, torch.bfloat16),     # NCTHW, channels_last_3d
+    ((1, 2560, 2, 2), True, torch.float32),       # wide C, one row group
+    ((40, 128, 3, 1), False, torch.bfloat16)])
+def test_group_norm_kernel(dev, dtype, shape, silu, scale_dtype):
+    """K6 (T9) against its plain version, in both memory formats it takes."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.group_norm import group_norm_act_plain, group_norm_fwd
+
+    fmt = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+    x = (torch.randn(*shape, device=dev) * 2 + 0.5).to(dtype).contiguous(memory_format=fmt)
+    c = shape[1]
+    scale = (1 + 0.1 * torch.randn(c, device=dev)).to(scale_dtype)
+    bias = (0.1 * torch.randn(c, device=dev)).to(scale_dtype)
+    before = LAUNCHES["group_norm"]
+    _close(group_norm_fwd, group_norm_act_plain, x, scale, bias, 32, 1e-5, silu)
+    assert LAUNCHES["group_norm"] == before + 1
+    assert group_norm_fwd(x, scale, bias, 32, 1e-5, silu).is_contiguous(memory_format=fmt)
+
+
+def test_group_norm_refuses_nchw(dev):
+    from v3d_tpu_torch.ops.group_norm import group_norm_fwd
+
+    x = torch.randn(2, 64, 8, 8, device=dev)
+    w = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="channels-last"):
+        group_norm_fwd(x, w, w)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,pad", [(1, 2, 100, 130, 0), (2, 1, 64, 64, 0),
+                                           (1, 3, 1, 257, 0), (2, 2, 70, 200, 3),
+                                           (1, 5, 1024, 1024, 0)])
+def test_flash_bwd_kernels(dev, b, h, sq, sk, pad):
+    """K1's log-sum-exp, then K8 (dq) and K7 (dk, dv) against the plain
+    backward on the same inputs in float32: PSNR >= 40 dB each."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.attention import (
+        flash_attn_bwd,
+        flash_attn_bwd_plain,
+        flash_attn_fwd,
+        flash_attn_fwd_plain,
+    )
+
+    dt = torch.bfloat16
+    q = _strided((b, sq, h, 64), dev, dt, pad).transpose(1, 2)
+    k = _strided((b, h, sk, 64), dev, dt, pad)
+    v = _strided((b, sk, h, 64), dev, dt, pad).transpose(1, 2)
+    do = _strided((b, sq, h, 64), dev, dt, pad).transpose(1, 2)
+    o, lse = flash_attn_fwd(q, k, v, with_lse=True)
+    _, lse_ref = flash_attn_fwd_plain(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    before = dict(LAUNCHES)
+    got = flash_attn_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = flash_attn_bwd_plain(*(x.float() for x in (q, k, v, o)), lse, do.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _psnr(g, w) >= BF16_MIN_PSNR, (name, _psnr(g, w))
+    assert LAUNCHES["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
+    assert LAUNCHES["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
+
+
+def test_attention_and_temporal_gradients_through_kernels(dev):
+    """flash_attention, temporal_core and temporal_block_attention under
+    autograd (K1 + K8/K7; K3, K2 forwards with recomputed plain backwards)
+    against the same in reference_mode(): every gradient PSNR >= 40 dB."""
+    from v3d_tpu_torch.ops import reference_mode
+    from v3d_tpu_torch.ops.attention import flash_attention
+    from v3d_tpu_torch.ops.temporal_attention import (
+        temporal_block_attention,
+        temporal_core,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def leaf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
+
+    qkv = leaf(2, 256, 3, 2, 64)
+    xt = leaf(1, 18, 64, 128)
+    wt = [leaf(128, 128, scale=128 ** -0.5) for _ in range(4)] + [leaf(128, scale=0.1)]
+    ct = leaf(1, 18, 16, 3 * 128)
+
+    def grads():
+        ins = [t.clone().requires_grad_() for t in (qkv, xt, *wt, ct)]
+        q, k, v = ins[0].unbind(2)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        blk = temporal_block_attention(ins[1], *ins[2:7], 2)
+        c = ins[7]
+        core = temporal_core(c[..., :128], c[..., 128:256], c[..., 256:], 2)
+        loss = (out.float() ** 2).sum() + (blk.float() ** 2).sum() + (core.float() ** 2).sum()
+        loss.backward()
+        return [t.grad for t in ins]
+
+    got = grads()
+    with reference_mode():
+        want = grads()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all() and _psnr(g, w) >= BF16_MIN_PSNR, (i, _psnr(g, w))
+
+
+def test_every_groupnorm_input_on_the_paths_is_channels_last(dev, monkeypatch):
+    """K6 raises on memory that is not channels-last rather than copy; a
+    tiny generation (UNet, VAE encode and temporal decode) and a tiny
+    fine-tune step (bf16 compute, checkpointing) run through it on the card,
+    5-D temporal GroupNorms included."""
+    import chip_smoke
+    from v3d_tpu_torch.apps.generate import sample_one
+    from v3d_tpu_torch.apps.train_diffusion import batches
+    from v3d_tpu_torch.data.objaverse import SyntheticOrbitDataset
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.engines.trainer import DiffusionTrainer
+    from v3d_tpu_torch.ops import group_norm as gn
+
+    seen = []
+    fwd = gn.group_norm_fwd
+
+    def checked(x, *args):
+        seen.append((tuple(x.shape), gn.channels_last_rows(x) is not None))
+        return fwd(x, *args)
+
+    monkeypatch.setattr(gn, "group_norm_fwd", checked)
+    engine = build_tiny_engine(num_frames=4, num_steps=1, device=dev)
+    sample_one(chip_smoke.synthetic_image(96), engine=engine, resolution=64)
+    n_gen = len(seen)
+    engine = build_tiny_engine(num_frames=4, device=dev, unet_overrides=dict(
+        use_checkpoint=True, compute_dtype=torch.bfloat16))
+    trainer = DiffusionTrainer(engine, num_frames=4)
+    trainer.fit(batches(engine, SyntheticOrbitDataset(2, 4, 8, clip_dim=64), 1, 4),
+                max_steps=1, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    assert n_gen > 50 and len(seen) > n_gen
+    assert [s for s, ok in seen if not ok] == []
+    assert any(len(s) == 5 for s, _ in seen)

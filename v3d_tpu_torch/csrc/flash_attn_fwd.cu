@@ -54,7 +54,8 @@ struct Strides {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int heads, int sq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int heads, int sq,
                  int sk, Strides qs, Strides ks, Strides vs, Strides os,
                  float scale) {
   extern __shared__ float smem[];
@@ -170,12 +171,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       ob[row * os.s + cg + 16 * j] = from_f<T>(acc[i][j] * inv);
+    if (lse != nullptr && cg == 0) lse[(long long)bh * sq + row] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
            Strides os, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BK * D + BQ * LD);
   cudaError_t err = cudaFuncSetAttribute(
@@ -184,7 +186,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + BQ - 1) / BQ, b * heads);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), heads, sq, sk, qs, ks, vs, os, 1.f / sqrtf((float)D));
+      static_cast<T*>(o), lse, heads, sq, sk, qs, ks, vs, os, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -199,38 +201,10 @@ constexpr int LDH = D + 8;                // bf16 row pitch of the smem tiles
 constexpr int TILE = 64 * LDH;            // elements of one 64-row tile
 constexpr size_t TC_SMEM = 4 * TILE * sizeof(bf16);  // K and V tiles, two stages each
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage 64 rows of a (rows, 64) bf16 matrix (row stride ``stride``) into a
-// [64][LDH] shared tile; rows past ``rows_left`` are zero.  With ``vec``,
-// 16-byte cp.async copies that the caller commits and waits for; otherwise
-// plain element loads.
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
                                            long long stride, int rows_left,
                                            bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < 64 * (D / 8); e += TC_THREADS) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-      if (r < rows_left)
-        cp_async16(dst + r * LDH + c, src + r * stride + c);
-      else
-        *reinterpret_cast<uint4*>(dst + r * LDH + c) = make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < 64 * D; e += TC_THREADS) {
-      const int r = e / D, c = e % D;
-      dst[r * LDH + c] = r < rows_left ? src[r * stride + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ bool vec_ok(const void* p, long long s0, long long s1,
-                                       long long s2) {
-  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && (s0 % 8 == 0) &&
-         (s1 % 8 == 0) && (s2 % 8 == 0);
+  stage_tile64<TC_THREADS, LDH>(dst, src, stride, rows_left, vec);
 }
 
 // K and V tiles go through two shared-memory stages: tile kt + 1 is copied
@@ -243,9 +217,9 @@ __device__ __forceinline__ bool vec_ok(const void* p, long long s0, long long s1
 // faster than 3 blocks without the cap, despite 12 B of spills.
 __global__ void __launch_bounds__(TC_THREADS, 4)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int heads,
-                    int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
-                    float scale) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int heads, int sq, int sk, Strides qs,
+                    Strides ks, Strides vs, Strides os, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [2][64 keys][LDH]
   bf16* Vt = Kt + 2 * TILE;                      // [2][64 keys][LDH]
@@ -386,6 +360,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= sq) continue;
     const float inv = 1.f / l_r[r];
+    // log-sum-exp of the scaled logits, natural log (m_r is in log2 units)
+    if (lse != nullptr && u == 0)
+      lse[(long long)bh * sq + row] = (m_r[r] + log2f(l_r[r])) * 0.6931471805599453f;
     bf16* ob = o + bi * os.b + hi * os.h + row * os.s;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -395,8 +372,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+              int b, int heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
               Strides os, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
@@ -404,28 +381,32 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + 63) / 64, b * heads);
   flash_fwd_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, sq, sk, qs, ks,
-      vs, os, 1.f / sqrtf((float)D));
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, heads, sq, sk, qs,
+      ks, vs, os, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q/k/v/o: (b, h, s, 64) through element strides (b, h, s), unit stride on d.
-// Returns the cudaError_t of the launch.
+// lse: null, or (b, h, sq) f32 that receives each row's log-sum-exp of the
+// scaled logits (the residual of the backward, K7/K8).  Returns the
+// cudaError_t of the launch.
 extern "C" int v3d_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   const void* v, void* o, int b, int heads,
                                   int sq, int sk, long long qsb, long long qsh,
                                   long long qss, long long ksb, long long ksh,
                                   long long kss, long long vsb, long long vsh,
                                   long long vss, long long osb, long long osh,
-                                  long long oss, void* stream) {
+                                  long long oss, void* lse, void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == V3D_F32)
-    return launch<float>(q, k, v, o, b, heads, sq, sk, qs, ks, vs, os, st);
+    return launch<float>(q, k, v, o, static_cast<float*>(lse), b, heads, sq, sk, qs,
+                         ks, vs, os, st);
   if (dtype == V3D_BF16)
-    return launch_tc(q, k, v, o, b, heads, sq, sk, qs, ks, vs, os, st);
+    return launch_tc(q, k, v, o, static_cast<float*>(lse), b, heads, sq, sk, qs, ks,
+                     vs, os, st);
   return (int)cudaErrorInvalidValue;
 }

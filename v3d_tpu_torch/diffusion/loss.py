@@ -1,0 +1,53 @@
+"""Diffusion training loss (counterpart of v3d_tpu/diffusion/loss.py
+StandardDiffusionLoss; sgm diffusionmodules/loss.py:13-118).
+
+Samples sigma, noises the latents, runs the preconditioned denoiser and
+returns the weighted per-sample loss.  The draws (sigmas, then the noise,
+then the offset noise) come from the ``generator`` passed in, or are given
+explicitly, so that a test can feed both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from v3d_tpu_torch.diffusion.denoise import append_dims
+
+
+@dataclasses.dataclass(frozen=True)
+class StandardDiffusionLoss:
+    sigma_sampler: Callable = None
+    loss_weighting: Callable = None
+    loss_type: str = "l2"
+    offset_noise_level: float = 0.0
+
+    def __call__(self, network: Callable, denoiser: Callable, cond: Dict,
+                 inputs: torch.Tensor, sigmas: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 extra_model_inputs: Optional[Dict] = None) -> torch.Tensor:
+        extra_model_inputs = extra_model_inputs or {}
+        n, dev = inputs.shape[0], inputs.device
+        if sigmas is None:
+            sigmas = self.sigma_sampler(n, device=dev, generator=generator)
+        sigmas = sigmas.to(dev, inputs.dtype)
+        if noise is None:
+            noise = torch.randn(inputs.shape, device=dev, generator=generator,
+                                dtype=inputs.dtype)
+        if self.offset_noise_level > 0.0:
+            offset = torch.randn((n,), device=dev, generator=generator,
+                                 dtype=inputs.dtype)
+            noise = noise + self.offset_noise_level * append_dims(offset, inputs.dim())
+        noised = inputs + noise.to(dev, inputs.dtype) * append_dims(sigmas, inputs.dim())
+        model_output = denoiser(network, noised, sigmas, cond, **extra_model_inputs)
+        w = append_dims(self.loss_weighting(sigmas), inputs.dim())
+        if self.loss_type == "l2":
+            per = w * (model_output - inputs) ** 2
+        elif self.loss_type == "l1":
+            per = w * (model_output - inputs).abs()
+        else:
+            raise NotImplementedError(self.loss_type)
+        return per.reshape(n, -1).mean(dim=1)

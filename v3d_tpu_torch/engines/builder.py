@@ -25,6 +25,9 @@ from v3d_tpu_torch.diffusion import (
     TrianglePredictionGuider,
     VScalingWithEDMcNoise,
 )
+from v3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
+from v3d_tpu_torch.diffusion.sigma_sampling import EDMSampling
+from v3d_tpu_torch.diffusion.weighting import EDMWeighting
 from v3d_tpu_torch.engines.video_diffusion import VideoDiffusionEngine
 from v3d_tpu_torch.models.clip_vit import CLIPVisionTransformer
 from v3d_tpu_torch.models.vae import Encoder, VideoDecoder
@@ -77,7 +80,9 @@ def build_v3d_engine(num_frames: int = 18, num_steps: int = 25,
                      unet_overrides: Optional[Dict] = None
                      ) -> VideoDiffusionEngine:
     """The V3D_512.yaml recipe with seeded random weights on ``device`` (the
-    card unless the caller passes ``device="cpu"``)."""
+    card unless the caller passes ``device="cpu"``), all in ``dtype``.
+    ``unet_overrides`` may set the UNet's ``compute_dtype`` and
+    ``use_checkpoint`` for training."""
     guider_cls = {"linear": LinearPredictionGuider,
                   "triangle": TrianglePredictionGuider}[guider]
     sampler = EulerEDMSampler(
@@ -102,14 +107,18 @@ def build_v3d_engine(num_frames: int = 18, num_steps: int = 25,
     return VideoDiffusionEngine(
         unet=mods[0], denoiser=Denoiser(scaling=VScalingWithEDMcNoise()),
         sampler=sampler, vae_encoder=mods[1], vae_decoder=mods[2],
-        clip=mods[3], scale_factor=0.18215, num_frames=num_frames)
+        clip=mods[3], scale_factor=0.18215, num_frames=num_frames,
+        loss_fn=StandardDiffusionLoss(
+            sigma_sampler=EDMSampling(p_mean=1.5, p_std=2.0),
+            loss_weighting=EDMWeighting(sigma_data=1.0)))
 
 
 def build_tiny_engine(num_frames: int = 4, num_steps: int = 3, device="cuda",
-                      dtype: torch.dtype = torch.float32, seed: int = 0
+                      dtype: torch.dtype = torch.float32, seed: int = 0,
+                      unet_overrides: Optional[Dict] = None
                       ) -> VideoDiffusionEngine:
     """Scaled-down engine of the same topology, for tests and dry runs."""
     return build_v3d_engine(num_frames=num_frames, num_steps=num_steps,
                             model_channels=32, vae_ch=32, device=device,
                             dtype=dtype, seed=seed, clip_cfg=TINY_CLIP,
-                            unet_overrides=TINY_UNET)
+                            unet_overrides={**TINY_UNET, **(unet_overrides or {})})

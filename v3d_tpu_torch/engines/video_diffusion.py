@@ -4,7 +4,9 @@ sgm video_diffusion.py DiffusionEngine + scripts/pub/V3D_512.py:115-317).
 Public layouts follow the JAX package: image (1, H, W, 3) in [-1, 1],
 latents (t, h, w, 4), frames (t, H, W, 3) in [0, 1], cond dict keys
 crossattn / concat / vector.  Every noise draw is either an explicit tensor
-argument or comes from the ``torch.Generator`` passed in.
+argument or comes from the ``torch.Generator`` passed in.  Training
+(``training_cond``, ``training_loss``; sgm DiffusionEngine.training_step)
+runs the EDM loss on pre-encoded latents.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from v3d_tpu_torch.diffusion.denoise import Denoiser
+from v3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
 from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
 from v3d_tpu_torch.models.clip_vit import clip_preprocess
 from v3d_tpu_torch.models.conditioner import (
@@ -50,6 +54,7 @@ class VideoDiffusionEngine:
     num_frames: int = 18
     latent_channels: int = 4
     downscale: int = 8
+    loss_fn: Optional[StandardDiffusionLoss] = None
 
     @property
     def device(self) -> torch.device:
@@ -144,3 +149,62 @@ class VideoDiffusionEngine:
             outs.append(((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
                         .permute(0, 2, 3, 1))
         return torch.cat(outs, dim=0)
+
+    @torch.no_grad()
+    def encode_first_stage(self, frames: torch.Tensor,
+                           noise: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """frames (n, H, W, 3) in [-1, 1] -> scaled latents (n, h, w, 4), a
+        sample of the encoder's moments (video_diffusion.py:195-201)."""
+        moments = self.vae_encoder(frames.to(self.device).permute(0, 3, 1, 2))
+        moments = moments.permute(0, 2, 3, 1).float()
+        shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
+        return self.scale_factor * gaussian_sample(
+            moments, _draw(noise, shape, self.device, generator))
+
+    def training_cond(self, batch: Dict, num_frames: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The frame-flattened cond dict of a ``video_collate`` batch
+        (video_diffusion.py:214-231): per-video CLIP embedding and cond
+        frame repeated per frame, the three scalar embeddings per frame."""
+        t = num_frames or self.num_frames
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=self.device)
+
+        clip_emb = dev(batch["cond_frames_without_noise"])
+        if clip_emb.dim() == 2:
+            clip_emb = clip_emb[:, None, :]
+        emb = ConcatTimestepEmbedderND(256)
+        vector = torch.cat([emb(dev(batch[k])) for k in
+                            ("fps_id", "motion_bucket_id", "cond_aug")], dim=-1)
+        cond = {"crossattn": clip_emb, "concat": dev(batch["cond_frames"]),
+                "vector": vector}
+        return repeat_cond_per_frame(cond, t)
+
+    def training_loss(self, latents: torch.Tensor, cond: Dict,
+                      num_frames: Optional[int] = None,
+                      sigma_per_video: bool = False,
+                      sigmas: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Mean EDM loss on pre-encoded latents ((b t), h, w, 4), already
+        scaled (video_diffusion.py:233-258).  Sigmas are drawn per flattened
+        frame, as the reference does, or with ``sigma_per_video`` one per
+        video shared by its frames; ``sigmas`` / ``noise`` may be given."""
+        t = num_frames or self.num_frames
+        b = latents.shape[0] // t
+        network = make_unet_network_fn(self.unet, t)
+        indicator = torch.zeros((b, t), device=latents.device)
+        if sigma_per_video and sigmas is None:
+            sigmas = self.loss_fn.sigma_sampler(
+                b, device=latents.device, generator=generator
+            ).repeat_interleave(t)
+        per_sample = self.loss_fn(
+            network, self.denoiser, cond, latents, sigmas=sigmas, noise=noise,
+            generator=generator,
+            extra_model_inputs={"image_only_indicator": indicator})
+        return per_sample.mean()

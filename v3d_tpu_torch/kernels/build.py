@@ -37,7 +37,11 @@ _L = ctypes.c_longlong
 # C signatures of the exported functions (see csrc/*.cu)
 SIGNATURES = {
     "v3d_flash_attn_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I]
-                           + [_L] * 12 + [_P], _I),
+                           + [_L] * 12 + [_P, _P], _I),
+    "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
+    "v3d_flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
+    "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 5
+                       + [ctypes.c_float, _I, _P], _I),
     "v3d_temporal_core": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 9 + [_P], _I),
     "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P], _I),

@@ -11,8 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from v3d_tpu_torch.models.layers import GroupNorm32, LayerNormF32
-from v3d_tpu_torch.ops.attention import attention_plain, flash_attn_fwd
+from v3d_tpu_torch.models.layers import GroupNorm32, LayerNormF32, Linear
+from v3d_tpu_torch.ops.attention import attention_plain, flash_attention
 
 
 class CrossAttention(nn.Module):
@@ -20,20 +20,25 @@ class CrossAttention(nn.Module):
     attention when ``context`` is None.
 
     Self-attention with dim_head 64 over >= 1024 tokens (a multiple of 512)
-    runs kernel K1, where the JAX package runs the Pallas flash kernel
-    (attention_blocks.py:98-108, attention.py:137-138): q/k/v go to it as
-    (b, h, s, d) views of the projection output, no copies.  Every other
-    site (cross-attention, short sequences) uses the plain formula."""
+    runs kernel K1 (and K8/K7 for its gradient), where the JAX package runs
+    the Pallas flash kernel (attention_blocks.py:98-108, attention.py:137-138):
+    q/k/v go to it as (b, h, s, d) views of the projection output, no
+    copies.  Every other site (cross-attention, short sequences) uses the
+    plain formula."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, query_dim), nn.Dropout(0.0))
+
+    def takes_flash(self, tokens: int) -> bool:
+        """Whether self-attention over ``tokens`` tokens runs K1."""
+        return self.dim_head == 64 and tokens >= 1024 and tokens % 512 == 0
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -44,9 +49,9 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, sq, h, d)
         k = self.to_k(ctx).view(b, sk, h, d)
         v = self.to_v(ctx).view(b, sk, h, d)
-        if context is None and d == 64 and sq >= 1024 and sq % 512 == 0:
-            o = flash_attn_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2)).transpose(1, 2)
+        if context is None and self.takes_flash(sq):
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2)).transpose(1, 2)
         else:
             o = attention_plain(q, k, v)
         return self.to_out(o.reshape(b, sq, h * d))
@@ -59,7 +64,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
@@ -73,7 +78,7 @@ class FeedForward(nn.Module):
         super().__init__()
         inner = int(dim * mult)
         self.net = nn.Sequential(GEGLU(dim, inner), nn.Dropout(0.0),
-                                 nn.Linear(inner, dim_out or dim))
+                                 Linear(inner, dim_out or dim))
 
     def forward(self, x):
         return self.net(x)
@@ -120,11 +125,11 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim)
             for _ in range(depth))
-        self.proj_out = nn.Linear(inner, in_channels)
+        self.proj_out = Linear(inner, in_channels)
 
     def forward(self, x, context=None):
         _, _, h, w = x.shape

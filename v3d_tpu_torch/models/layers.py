@@ -5,7 +5,9 @@ Feature maps are NCHW tensors in ``channels_last`` memory (NCTHW in
 ``channels_last_3d`` for the temporal convs), so cuDNN sees the NHWC layout
 while the weights keep the checkpoint's (O, I, kh, kw) shapes.  Norms compute
 in float32 whatever the module dtype (GroupNorm32 semantics,
-util.py:274-277).  Parameter names follow the sgm checkpoint.
+util.py:274-277).  ``Linear`` / ``Conv2d`` / ``Conv3d`` compute in their
+input's dtype, as flax's ``dtype=`` does, so f32 master weights can train
+under bf16 compute.  Parameter names follow the sgm checkpoint.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from v3d_tpu_torch.ops.group_norm import group_norm_act
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -32,16 +36,23 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm evaluated in float32, cast back to the input dtype.  eps is
-    1e-5 in the UNet and 1e-6 in the VAE and the transformers' ``norm``."""
+    """GroupNorm evaluated in float32, cast back to the input dtype, with an
+    optional SiLU fused in before the cast (``act="silu"``), through
+    ``ops.group_norm.group_norm_act`` (kernel K6 on the card).  eps is 1e-5
+    in the UNet and 1e-6 in the VAE and the transformers' ``norm``.  Where a
+    module fuses the SiLU, an ``nn.Identity`` holds the SiLU's old place in
+    its Sequential, so parameter names stay the checkpoint's."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5,
-                 num_groups: int = 32):
+                 num_groups: int = 32, act: Optional[str] = None):
         super().__init__(num_groups, num_channels, eps=eps)
+        if act not in (None, "silu"):
+            raise ValueError(f"GroupNorm32: act must be None or 'silu', got {act}")
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return group_norm_act(x, self.weight, self.bias, self.num_groups,
+                              self.eps, self.act == "silu")
 
 
 class LayerNormF32(nn.LayerNorm):
@@ -53,8 +64,34 @@ class LayerNormF32(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+def _cast(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the input's dtype (weights cast per call; a no-op when
+    they already match)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
 def conv_nd(dims: int, cin: int, cout: int, kernel_size, **kw) -> nn.Module:
-    return (nn.Conv2d if dims == 2 else nn.Conv3d)(cin, cout, kernel_size, **kw)
+    return (Conv2d if dims == 2 else Conv3d)(cin, cout, kernel_size, **kw)
 
 
 def to_video(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -103,7 +140,7 @@ class Upsample(nn.Module):
 
     def __init__(self, channels: int, out_channels: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, out_channels or channels, 3, padding=1)
+        self.conv = Conv2d(channels, out_channels or channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -114,8 +151,8 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int, out_channels: Optional[int] = None):
         super().__init__()
-        self.op = nn.Conv2d(channels, out_channels or channels, 3, stride=2,
-                            padding=1)
+        self.op = Conv2d(channels, out_channels or channels, 3, stride=2,
+                         padding=1)
 
     def forward(self, x):
         return self.op(x)
@@ -142,14 +179,15 @@ class ResBlock(nn.Module):
         self.dims = dims
         self.exchange_temb_dims = exchange_temb_dims
         self.skip_t_emb = skip_t_emb
+        # the GroupNorm + SiLU pairs are fused (K6); Identity keeps the index
         self.in_layers = nn.Sequential(
-            GroupNorm32(channels), nn.SiLU(),
+            GroupNorm32(channels, act="silu"), nn.Identity(),
             conv_nd(dims, channels, out_channels, ks, padding=pad))
         if not skip_t_emb:
             self.emb_layers = nn.Sequential(nn.SiLU(),
-                                            nn.Linear(emb_channels, out_channels))
+                                            Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(0.0),
+            GroupNorm32(out_channels, act="silu"), nn.Identity(), nn.Dropout(0.0),
             conv_nd(dims, out_channels, out_channels, ks, padding=pad))
         self.skip_connection = (
             nn.Identity() if out_channels == channels

@@ -26,26 +26,27 @@ from v3d_tpu_torch.models.layers import (
 from v3d_tpu_torch.ops.attention import attention_plain
 
 
-def vae_norm(channels: int) -> GroupNorm32:
-    return GroupNorm32(channels, eps=1e-6)
+def vae_norm(channels: int, act=None) -> GroupNorm32:
+    return GroupNorm32(channels, eps=1e-6, act=act)
 
 
 class ResnetBlock(nn.Module):
-    """model.py:144-186: GN-SiLU-conv twice with a 1x1 nin_shortcut."""
+    """model.py:144-186: GN-SiLU-conv twice with a 1x1 nin_shortcut (each
+    GN-SiLU one fused K6 call)."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None):
         super().__init__()
         out_channels = out_channels or in_channels
-        self.norm1 = vae_norm(in_channels)
+        self.norm1 = vae_norm(in_channels, "silu")
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.norm2 = vae_norm(out_channels)
+        self.norm2 = vae_norm(out_channels, "silu")
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -138,7 +139,7 @@ class Encoder(nn.Module):
                                     None if last else Downsample(block_in)))
         self.mid = _Mid(ResnetBlock(block_in), AttnBlock(block_in),
                         ResnetBlock(block_in))
-        self.norm_out = vae_norm(block_in)
+        self.norm_out = vae_norm(block_in, "silu")
         self.conv_out = nn.Conv2d(block_in, 2 * z_channels if double_z
                                   else z_channels, 3, padding=1)
 
@@ -151,7 +152,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class VideoResBlockAE(ResnetBlock):
@@ -208,7 +209,7 @@ class VideoDecoder(nn.Module):
             levels[i] = _Level(blocks, "upsample" if i else None,
                                Upsample(block_in) if i else None)
         self.up = nn.ModuleList(levels)
-        self.norm_out = vae_norm(block_in)
+        self.norm_out = vae_norm(block_in, "silu")
         self.conv_out = AE3DConv(block_in, out_ch)
 
     def forward(self, z, num_frames: int):
@@ -221,7 +222,7 @@ class VideoDecoder(nn.Module):
                 h = block(h, num_frames)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)), num_frames)
+        return self.conv_out(self.norm_out(h), num_frames)
 
 
 def gaussian_moments_split(moments: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -26,6 +26,7 @@ from v3d_tpu_torch.models.layers import (
     AlphaBlender,
     GroupNorm32,
     LayerNormF32,
+    Linear,
     timestep_embedding,
 )
 from v3d_tpu_torch.ops.temporal_attention import (
@@ -41,10 +42,10 @@ class _QKVOut(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(0.0))
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, dim), nn.Dropout(0.0))
 
 
 class TemporalSelfAttention(_QKVOut):
@@ -52,19 +53,25 @@ class TemporalSelfAttention(_QKVOut):
 
     Where the pixel count is a multiple of 64 and there are at most 8 heads
     (the ds1 levels), the whole layer is kernel K2, as the JAX package runs
-    its fused Pallas block there (video_attention.py:96).  Elsewhere the
-    projections are matmuls and K3 does the attention on their output."""
+    its fused Pallas block there (video_attention.py:96), with the weights
+    cast to the activations' dtype as ``_pallas_block`` casts them.
+    Elsewhere the projections are matmuls and K3 does the attention on
+    their output."""
 
     def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__(dim, dim, heads, dim_head)
 
+    def takes_block(self, pixels: int) -> bool:
+        """Whether a call on ``pixels`` pixels per frame runs K2 (else K3)."""
+        return pixels % 64 == 0 and self.heads <= 8
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.shape[2]
         out = self.to_out[0]
-        if s % 64 == 0 and self.heads <= 8:
+        if self.takes_block(x.shape[2]):
             return temporal_block_attention(
-                x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-                out.weight, out.bias, self.heads)
+                x, *(w.to(x.dtype) for w in (
+                    self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                    out.weight, out.bias)), self.heads)
         o = temporal_core(self.to_q(x), self.to_k(x), self.to_v(x), self.heads)
         return out(o)
 
@@ -132,7 +139,7 @@ class SpatialVideoTransformer(nn.Module):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim)
             for _ in range(depth))
@@ -140,10 +147,10 @@ class SpatialVideoTransformer(nn.Module):
             VideoTransformerBlock(inner, n_heads, d_head, context_dim)
             for _ in range(depth))
         self.time_pos_embed = nn.Sequential(
-            nn.Linear(in_channels, 4 * in_channels), nn.SiLU(),
-            nn.Linear(4 * in_channels, in_channels))
+            Linear(in_channels, 4 * in_channels), nn.SiLU(),
+            Linear(4 * in_channels, in_channels))
         self.time_mixer = AlphaBlender(0.5, "btc")
-        self.proj_out = nn.Linear(inner, in_channels)
+        self.proj_out = Linear(inner, in_channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 num_frames: int, image_only_indicator) -> torch.Tensor:

@@ -5,6 +5,12 @@ NCHW feature maps in channels_last memory; the batch is ``(b*t)`` with
 frames fastest.  Parameter names are the checkpoint's: ``time_embed.{0,2}``,
 ``label_emb.0.{0,2}``, ``input_blocks.{i}.{j}``, ``middle_block.{j}``,
 ``output_blocks.{i}.{j}``, ``out.{0,2}``.
+
+For training, ``compute_dtype`` separates the activations' dtype from the
+parameters' (f32 master weights under bf16 compute, flax's ``dtype`` with
+``param_dtype=float32``), and ``use_checkpoint`` recomputes each
+VideoResBlock and SpatialVideoTransformer in the backward, the counterpart
+of ``nn.remat`` (v3d_tpu/models/video_unet.py:141-165).
 """
 
 from __future__ import annotations
@@ -13,11 +19,14 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from v3d_tpu_torch.models.layers import (
     AlphaBlender,
+    Conv2d,
     Downsample,
     GroupNorm32,
+    Linear,
     ResBlock,
     Upsample,
     from_video,
@@ -99,27 +108,30 @@ class VideoUNet(nn.Module):
                  attention_resolutions: Sequence[int] = (4, 2, 1),
                  channel_mult: Sequence[int] = (1, 2, 4, 4),
                  num_head_channels: int = 64, context_dim: int = 1024,
-                 adm_in_channels: Optional[int] = 768):
+                 adm_in_channels: Optional[int] = 768,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 use_checkpoint: bool = False):
         super().__init__()
         mc = model_channels
         emb_ch = 4 * mc
         self.model_channels = mc
         self.context_dim = context_dim
-        self.time_embed = nn.Sequential(nn.Linear(mc, emb_ch), nn.SiLU(),
-                                        nn.Linear(emb_ch, emb_ch))
+        self.compute_dtype = compute_dtype
+        self.use_checkpoint = use_checkpoint
+        self.time_embed = nn.Sequential(Linear(mc, emb_ch), nn.SiLU(),
+                                        Linear(emb_ch, emb_ch))
         self.adm_in_channels = adm_in_channels
         if adm_in_channels is not None:
             self.label_emb = nn.Sequential(nn.Sequential(
-                nn.Linear(adm_in_channels, emb_ch), nn.SiLU(),
-                nn.Linear(emb_ch, emb_ch)))
-
+                Linear(adm_in_channels, emb_ch), nn.SiLU(),
+                Linear(emb_ch, emb_ch)))
 
         def build(layers, ch):
             mods = []
             for spec in layers:
                 kind = spec[0]
                 if kind == "conv_in":
-                    mods.append(nn.Conv2d(in_channels, spec[1], 3, padding=1))
+                    mods.append(Conv2d(in_channels, spec[1], 3, padding=1))
                     ch = spec[1]
                 elif kind == "res":
                     cin = ch + (spec[2] if len(spec) > 2 else 0)
@@ -149,12 +161,13 @@ class VideoUNet(nn.Module):
         for layers in specs_out:
             block, ch = build(layers, ch)
             self.output_blocks.append(block)
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
-                                 nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.out = nn.Sequential(GroupNorm32(ch, act="silu"), nn.Identity(),
+                                 Conv2d(ch, out_channels, 3, padding=1))
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.time_embed[0].weight.dtype
+        """The activations' dtype: ``compute_dtype``, else the weights'."""
+        return self.compute_dtype or self.time_embed[0].weight.dtype
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
@@ -171,12 +184,19 @@ class VideoUNet(nn.Module):
         if context is not None:
             context = context.to(dt)
 
+        remat = self.use_checkpoint and torch.is_grad_enabled()
+
+        def call(layer, *args):
+            if remat:
+                return checkpoint(layer, *args, use_reentrant=False)
+            return layer(*args)
+
         def run(block, h):
             for layer in block:
                 if isinstance(layer, VideoResBlock):
-                    h = layer(h, emb, t, image_only_indicator)
+                    h = call(layer, h, emb, t, image_only_indicator)
                 elif isinstance(layer, SpatialVideoTransformer):
-                    h = layer(h, context, t, image_only_indicator)
+                    h = call(layer, h, context, t, image_only_indicator)
                 else:
                     h = layer(h)
             return h

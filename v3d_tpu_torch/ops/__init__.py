@@ -2,11 +2,17 @@
 
 | kernel | wrapper | plain version | replaces (v3d_tpu) |
 |---|---|---|---|
-| K1 | attention.flash_attn_fwd | attention.flash_attn_fwd_plain | ops/attention.py attention_bhsd (flash_jax) |
+| K1 | attention.flash_attn_fwd (via flash_attention) | attention.flash_attn_fwd_plain | ops/attention.py attention_bhsd (flash_jax) |
 | K2 | temporal_attention.temporal_block_attention | temporal_block_attention_plain | ops/temporal_attention.py _pallas_block |
 | K3 | temporal_attention.temporal_core | temporal_core_plain | ops/temporal_attention.py _pallas_core |
-| T10 | gs_composite.composite_fwd (via GSComposite) | gs_composite.composite_plain | gs/pallas_raster.py composite_tiles_fwd |
-| T11 | gs_composite.composite_bwd (GSComposite backward) | autograd of composite_plain | gs/pallas_raster.py composite_tiles_bwd |
+| K4 (T10) | gs_composite.composite_fwd (via GSComposite) | gs_composite.composite_plain | gs/pallas_raster.py composite_tiles_fwd |
+| K5 (T11) | gs_composite.composite_bwd (GSComposite backward) | autograd of composite_plain | gs/pallas_raster.py composite_tiles_bwd |
+| K6 | group_norm.group_norm_fwd (via group_norm_act) | group_norm.group_norm_act_plain | ops/fused_groupnorm.py _pallas_group_norm |
+| K7 | attention.flash_attn_bwd (dk, dv; flash_attention's backward) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dkv |
+| K8 | attention.flash_attn_bwd (dq, first) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dq |
+
+The backwards of K2, K3 and K6 recompute through their plain versions
+(``_dispatch.plain_vjp``), as the JAX package's custom VJPs do.
 """
 
 from v3d_tpu_torch.ops._dispatch import (

@@ -10,29 +10,33 @@ its launches in ``LAUNCHES``, where it launches and nowhere else.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 from typing import Dict
 
 import torch
 
 LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "temporal_block": 0,
                             "temporal_core": 0, "gs_composite_fwd": 0,
-                            "gs_composite_bwd": 0}
+                            "gs_composite_bwd": 0, "group_norm": 0,
+                            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_REFERENCE = contextvars.ContextVar("v3d_tpu_torch_reference_mode",
-                                    default=False)
+# Process-wide, not a ContextVar: the autograd engine runs a CUDA backward,
+# and the forward recomputed by activation checkpointing, on threads of its
+# own, which do not see the context of the thread that entered the block.
+_REFERENCE = False
 
 
 @contextlib.contextmanager
 def reference_mode():
-    """Route CUDA tensors to the plain versions inside the block."""
-    token = _REFERENCE.set(True)
+    """Route CUDA tensors to the plain versions inside the block, in every
+    thread (the backward included) until the block exits."""
+    global _REFERENCE
+    saved, _REFERENCE = _REFERENCE, True
     try:
         yield
     finally:
-        _REFERENCE.reset(token)
+        _REFERENCE = saved
 
 
 def reset_launch_counts() -> None:
@@ -49,8 +53,28 @@ def use_plain(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return True
     if dev.type == "cuda":
-        return _REFERENCE.get()
+        return _REFERENCE
     raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd will want a gradient of one of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def plain_vjp(plain_fn, saved, needs_input_grad, grad, *args):
+    """Backward by recomputation: the vector-Jacobian product of
+    ``plain_fn(*saved, *args)`` with ``grad``, for the saved inputs autograd
+    asks for (None for the others and for ``args``), as the JAX package's
+    custom VJPs do with ``jax.vjp`` of their XLA formulas."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(saved, needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = plain_fn(*inputs, *args)
+        got = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(got) if t.requires_grad else None
+                 for t in inputs) + (None,) * len(args)
 
 
 def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> int:

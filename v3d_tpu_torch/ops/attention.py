@@ -1,20 +1,29 @@
-"""Multi-head attention: kernel K1 and the plain formula.
+"""Multi-head attention: kernels K1, K7, K8 and the plain formulas.
 
 Counterpart of v3d_tpu/ops/attention.py.  The JAX package sends the
 spatial self-attention at >= 1024 tokens with d = 64 to the stock Pallas
 flash kernel (``attention_bhsd``, attention.py:142-168) and every other site
 to the plain formula (``xla_attention``, :213-219).  Here the first is
-``flash_attn_fwd`` (hand-written CUDA, csrc/flash_attn_fwd.cu) and the
-second ``attention_plain``: an f32 softmax between two matmuls.
+``flash_attention``: the forward ``flash_attn_fwd`` (K1, csrc/flash_attn_fwd.cu)
+and, under autograd, the backward ``flash_attn_bwd`` (K8 for dQ, then K7 for
+dK/dV, csrc/flash_attn_bwd.cu), the counterparts of the stock kernel's
+``_flash_attention_bwd_dq`` / ``_dkv``.  The second is ``attention_plain``:
+an f32 softmax between two matmuls.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from v3d_tpu_torch.ops._dispatch import check_kernel_inputs, launch, use_plain
+from v3d_tpu_torch.ops._dispatch import (
+    check_kernel_inputs,
+    launch,
+    needs_grad,
+    use_plain,
+)
 
 _LOGIT_BYTES_PER_CHUNK = 1 << 30
 
@@ -26,12 +35,14 @@ def _batch_chunks(b: int, logit_bytes_per_item: int):
     return [slice(i, min(b, i + step)) for i in range(0, b, step)]
 
 
-def _softmax_attention(q, k, v, logits_eq: str, out_eq: str):
+def _softmax_attention(q, k, v, logits_eq: str, out_eq: str,
+                       with_lse: bool = False):
     dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum(logits_eq, q.float(), k.float()) * scale
     weights = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.einsum(out_eq, weights, v)
+    out = torch.einsum(out_eq, weights, v)
+    return (out, torch.logsumexp(logits, dim=-1)) if with_lse else out
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -46,43 +57,163 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def flash_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                         ) -> torch.Tensor:
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def flash_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         with_lse: bool = False):
     """Plain version of K1: q (b, h, sq, d), k/v (b, h, sk, d) -> (b, h, sq, d)
-    (the bhsd formula of attention.py:180-186)."""
+    (the bhsd formula of attention.py:180-186); with ``with_lse`` also each
+    row's f32 log-sum-exp of the scaled logits, (b, h, sq)."""
     b, h, sq, _ = q.shape
     per = h * sq * k.shape[2] * 4
     outs = [_softmax_attention(q[sl], k[sl], v[sl], "bhqd,bhkd->bhqk",
-                               "bhqk,bhkd->bhqd")
+                               "bhqk,bhkd->bhqd", with_lse)
             for sl in _batch_chunks(b, per)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+    if with_lse:
+        return _cat([o for o, _ in outs]), _cat([m for _, m in outs])
+    return _cat(outs)
 
 
-def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                   ) -> torch.Tensor:
+def _check_bhsd(name: str, q, k, v) -> int:
+    code = check_kernel_inputs(name, q, k, v)
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"{name}: bad shapes {q.shape} {k.shape} {v.shape}")
+    b, h, sq, d = q.shape
+    if d != 64 or k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
+        raise ValueError(f"{name}: needs (b, h, s, 64) q/k/v, got "
+                         f"{q.shape} {k.shape}")
+    sk = k.shape[2]
+    if min(b, h, sq, sk) == 0 or b * h > 65535:
+        raise ValueError(f"{name}: batch*heads must be in "
+                         f"[1, 65535], got {q.shape} {k.shape}")
+    return code
+
+
+def _like_projection(b, s, h, d, ref):
+    """A (b, h, s, d) view of a (b, s, h, d)-contiguous buffer: the layout
+    the projections write and the output projection reads."""
+    return torch.empty((b, s, h, d), dtype=ref.dtype,
+                       device=ref.device).transpose(1, 2)
+
+
+def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   with_lse: bool = False):
     """softmax(q k^T / sqrt(d)) v on the (b, h, s, d) layout, d = 64.
 
     q/k/v may be strided views (unit stride on d), as the projection output
     is.  The result is a (b, h, sq, d) view of a (b, sq, h, d)-contiguous
-    buffer, so merging the heads for the output projection is free."""
+    buffer, so merging the heads for the output projection is free.  With
+    ``with_lse`` the kernel also writes each row's log-sum-exp (b, h, sq),
+    the residual the backward needs; the inference path does not ask."""
     if use_plain(q, k, v):
-        return flash_attn_fwd_plain(q, k, v)
-    code = check_kernel_inputs("flash_attn_fwd", q, k, v)
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attn_fwd: bad shapes {q.shape} {k.shape} "
-                         f"{v.shape}")
+        return flash_attn_fwd_plain(q, k, v, with_lse)
+    code = _check_bhsd("flash_attn_fwd", q, k, v)
     b, h, sq, d = q.shape
-    if d != 64 or k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
-        raise ValueError(f"flash_attn_fwd: needs (b, h, s, 64) q/k/v, got "
-                         f"{q.shape} {k.shape}")
-    sk = k.shape[2]
-    if min(b, h, sq, sk) == 0 or b * h > 65535:
-        raise ValueError(f"flash_attn_fwd: batch*heads must be in "
-                         f"[1, 65535], got {q.shape} {k.shape}")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    o = o.transpose(1, 2)
+    o = _like_projection(b, sq, h, d, q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     launch("flash_attn_fwd", "v3d_flash_attn_fwd", q.device, code,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq,
-           sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *o.stride()[:3])
-    return o
+           k.shape[2], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *o.stride()[:3], None if lse is None else lse.data_ptr())
+    return (o, lse) if with_lse else o
+
+
+def flash_attn_bwd_plain(q, k, v, o, lse, do):
+    """Plain version of K7/K8: the analytic softmax-attention gradient on
+    the (b, h, s, d) layout, in f32, in the batch chunks of the forward.
+    P = exp(q k^T / sqrt(d) - lse), D = rowsum(do * o),
+    dS = P * (do v^T - D); dq = dS k / sqrt(d), dk = dS^T q / sqrt(d),
+    dv = P^T do.  Returns (dq, dk, dv) in q's dtype."""
+    b, h, sq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    parts = []
+    for sl in _batch_chunks(b, h * sq * k.shape[2] * 4):
+        qf, kf, vf, of, dof = (x[sl].float() for x in (q, k, v, o, do))
+        p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+                      - lse[sl, ..., None])
+        dsum = (dof * of).sum(-1, keepdim=True)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - dsum)
+        parts.append((torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale,
+                      torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale,
+                      torch.einsum("bhqk,bhqd->bhkd", p, dof)))
+    return tuple(_cat([pt[i] for pt in parts]).to(q.dtype) for i in range(3))
+
+
+def flash_attn_bwd(q, k, v, o, lse, do):
+    """Gradients (dq, dk, dv) of ``flash_attn_fwd`` given the output ``o``,
+    its log-sum-exp ``lse`` and the incoming gradient ``do``, all (b, h, s,
+    64) with unit stride on d.  K8 (dq, and D = rowsum(do * o)) runs first,
+    then K7 (dk, dv); the gradients are (b, h, s, d) views of (b, s, h, d)
+    buffers, like q/k/v.  The kernels take bf16 only."""
+    if use_plain(q, k, v, o, do):
+        return flash_attn_bwd_plain(q, k, v, o, lse, do)
+    _check_bhsd("flash_attn_bwd", q, k, v)
+    if q.dtype != torch.bfloat16 or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"flash_attn_bwd: the kernels take bfloat16 q/k/v/o/do, "
+                        f"got {q.dtype} {o.dtype} {do.dtype}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or o.stride(-1) != 1
+            or do.stride(-1) != 1):
+        raise ValueError(f"flash_attn_bwd: o/do must be unit-stride {q.shape}, "
+                         f"got {o.shape} {o.stride()} {do.shape} {do.stride()}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attn_bwd: lse must be contiguous float32 "
+                         f"{(b, h, sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (_like_projection(b, s, h, d, q) for s in (sq, sk, sk))
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _bwd_dq(q, k, v, o, lse, do, dsum, dq)
+    _bwd_dkv(q, k, v, do, lse, dsum, dk, dv)
+    return dq, dk, dv
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(*[
+        x for t in tensors for x in t.stride()[:3]])
+
+
+def _bwd_dq(q, k, v, o, lse, do, dsum, dq) -> None:
+    """K8: dq, and dsum = rowsum(do * o) for K7 (checked by the caller)."""
+    b, h, sq, _ = q.shape
+    launch("flash_attn_bwd_dq", "v3d_flash_attn_bwd_dq", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), b, h,
+           sq, k.shape[2], _strides(q, k, v, o, do, dq))
+
+
+def _bwd_dkv(q, k, v, do, lse, dsum, dk, dv) -> None:
+    """K7: dk and dv, reading K8's dsum (checked by the caller)."""
+    b, h, sq, _ = q.shape
+    launch("flash_attn_bwd_dkv", "v3d_flash_attn_bwd_dkv", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+           sq, k.shape[2], _strides(q, k, v, do, dk, dv))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward with its log-sum-exp; backward K8 + K7 (plain versions for
+    CPU tensors or in reference_mode)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attn_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attn_bwd(*ctx.saved_tensors, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """``flash_attn_fwd`` with a gradient: under autograd the forward also
+    keeps its log-sum-exp and the backward runs K8/K7; otherwise it is the
+    inference forward alone."""
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attn_fwd(q, k, v)

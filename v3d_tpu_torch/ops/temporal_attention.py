@@ -11,6 +11,10 @@ Counterpart of v3d_tpu/ops/temporal_attention.py.  Tokens keep the
   the attention alone, on q/k/v in the ``(b, t, s, heads * dh)`` layout the
   projection matmul writes.
 
+Both are differentiable: as the JAX package's custom VJPs (``_block_bwd``,
+``_core_bwd``, temporal_attention.py:232-235, :373-377), the backward
+recomputes through the plain formula; there is no backward kernel.
+
 Weights are in the torch Linear layout, ``(out, in)``.
 """
 
@@ -20,7 +24,13 @@ import math
 
 import torch
 
-from v3d_tpu_torch.ops._dispatch import check_kernel_inputs, launch, use_plain
+from v3d_tpu_torch.ops._dispatch import (
+    check_kernel_inputs,
+    launch,
+    needs_grad,
+    plain_vjp,
+    use_plain,
+)
 
 # per-block shared memory the card grants (bytes)
 _MAX_SMEM = 232448
@@ -46,6 +56,27 @@ def temporal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """18-frame softmax attention per (b, pixel, head) on (b, t, s, heads*dh)
     q/k/v (any b/t/s strides, unit channel stride).  Returns a contiguous
     (b, t, s, heads*dh) tensor."""
+    if needs_grad(q, k, v):
+        return _TemporalCore.apply(q, k, v, heads)
+    return temporal_core_fwd(q, k, v, heads)
+
+
+class _TemporalCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        return temporal_core_fwd(q, k, v, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(temporal_core_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, ctx.heads)
+
+
+def temporal_core_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      heads: int) -> torch.Tensor:
+    """The forward of ``temporal_core``: K3, or its plain version."""
     if use_plain(q, k, v):
         return temporal_core_plain(q, k, v, heads)
     code = check_kernel_inputs("temporal_core", q, k, v)
@@ -82,7 +113,32 @@ def temporal_block_attention(x: torch.Tensor, wq: torch.Tensor,
                              wo: torch.Tensor, bo: torch.Tensor,
                              heads: int) -> torch.Tensor:
     """Fused temporal self-attention layer: x (b, t, s, c) post-norm tokens ->
-    (b, t, s, c).  wq/wk/wv (heads*dh, c), wo (c, heads*dh), bo (c,)."""
+    (b, t, s, c).  wq/wk/wv (heads*dh, c), wo (c, heads*dh), bo (c,), all in
+    x's dtype (the caller casts them, as ``_pallas_block`` does,
+    temporal_attention.py:332-335)."""
+    if needs_grad(x, wq, wk, wv, wo, bo):
+        return _TemporalBlock.apply(x, wq, wk, wv, wo, bo, heads)
+    return temporal_block_fwd(x, wq, wk, wv, wo, bo, heads)
+
+
+class _TemporalBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, wo, bo, heads):
+        ctx.save_for_backward(x, wq, wk, wv, wo, bo)
+        ctx.heads = heads
+        return temporal_block_fwd(x, wq, wk, wv, wo, bo, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(temporal_block_attention_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, ctx.heads)
+
+
+def temporal_block_fwd(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                       wv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                       heads: int) -> torch.Tensor:
+    """The forward of ``temporal_block_attention``: K2, or its plain
+    version."""
     if use_plain(x, wq, wk, wv, wo, bo):
         return temporal_block_attention_plain(x, wq, wk, wv, wo, bo, heads)
     code = check_kernel_inputs("temporal_block", x, wq, wk, wv, wo, bo)
