@@ -34,15 +34,24 @@ Phases, each printing lines before the last:
    ``reference_mode()`` on the same batch and draws, then
    ``v3d_tpu_torch.apps.train_diffusion.train`` for a few AdamW steps
    (ms per step, peak memory, loss and gradient norm per step, launches per
-   step), a step without checkpointing, and a profile of two steps.
+   step), a step without checkpointing, and a profile of two steps;
+9. the JAX package's other attention routings (run after phase 5, on its
+   engine): under each of ``ROUTE_CONFIGS`` (the projection layout and the
+   backend setters) one full-width UNet forward against
+   ``reference_mode()``; the 18-frame VAE decode under "flash" (K9, d =
+   512) and CLIP under "packed" (K9, d = 80); then the generation twice
+   under ``set_default_backend("flash")``.  Phase 3 also holds the routes
+   T2-T6 (``ops/flash_attention.py``, ``ops/temporal_attention.py``) on K1,
+   K3 and K9 at their shapes.
 
-Each path (phases 5, 6 and 8) is run with the launch counts set to 0 just
-before it and read just after; a kernel of the path launched no time, or
-another number of times than the path needs (counted from the modules, see
-``unet_sites``), fails the run.  Then one JSON line with every kernel's
-numbers, and last the line ``{"ok": true, "device": {...}}``.  Any failure
-exits non-zero before that line.  No CUDA device: exit 2 at once.  Nothing
-here imports JAX or v3d_tpu.
+Each path (phases 5, 6, 8 and each run of 9) is run with the launch counts
+set to 0 just before it and read just after; a kernel of the path launched
+no time, or another number of times than the path needs (counted from the
+modules and their routing rules, see ``unet_sites``), fails the run.
+Then one JSON line with every kernel's numbers, and last the line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line.  No CUDA device: exit 2 at once.  Nothing here imports JAX or
+v3d_tpu.
 
 TF32: both ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False, so float32 products and
@@ -125,12 +134,18 @@ KERNELS = {
         replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
                  "(_flash_attention_bwd_dq, T1-dq, pallas_call :1456; run "
                  "by v3d_tpu/ops/attention.py:154 under jax.grad)"),
+    "flash_attn_fwd_wide": dict(
+        label="K9", source="v3d_tpu_torch/csrc/flash_attn_fwd_wide.cu",
+        replaces="v3d_tpu/ops/flash_attention.py:68 (_flash_forward, T2, at "
+                 "d = 80/128/512; also _flash_packed_forward :196, T4)"),
 }
-# the path whose launches each kernel's JSON entry reports
+# the path whose launches each kernel's JSON entry reports ("routes": the
+# generation under set_default_backend("flash"), phase 9)
 KERNEL_PATH = {"flash_attn_fwd": "gen", "temporal_block": "gen",
                "temporal_core": "gen", "gs_composite_fwd": "fit",
                "gs_composite_bwd": "fit", "group_norm": "gen",
-               "flash_attn_bwd_dkv": "train", "flash_attn_bwd_dq": "train"}
+               "flash_attn_bwd_dkv": "train", "flash_attn_bwd_dq": "train",
+               "flash_attn_fwd_wide": "routes"}
 
 
 class SmokeFailure(RuntimeError):
@@ -201,6 +216,19 @@ def phase_build() -> None:
         + " | ".join(ptxas_summary(build.LOG_PATH.read_text())))
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name (a length-prefixed
+    source name; the digits before it may run on from the namespace's)."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group(0))):
+            name = mangled[m.end():m.end() + int(m.group(0)[i:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                return name
+    return mangled
+
+
 def ptxas_summary(log: str) -> list:
     """'kernel<type>: registers, spill bytes' for each entry function."""
     import re
@@ -210,10 +238,10 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"[a-z_]+_kernel", mangled.replace("_GLOBAL__N_", ""))
-            name = (base.group(0).lstrip("_0123456789") if base else mangled) + (
+            width = re.search(r"ILi(\d+)E", mangled)
+            name = _kernel_name(mangled) + (
                 "<bf16>" if "bfloat16" in mangled else "<f32>" if "IfE" in mangled
-                else "")
+                else "") + (f"<d={width.group(1)}>" if width else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -345,10 +373,113 @@ def phase_kernels() -> dict:
                 lambda: temporal_core_plain(*up, heads),
                 (4 * n * 18 * 18 * 64, 4 * n * 18 * 64 * size),
                 lambda: F.scaled_dot_product_attention(*lib)))
+    results["flash_attn_fwd_wide"] = wide_checks(randn)
+    for name, checks in route_checks(randn).items():
+        results[name] += checks
     results["group_norm"] = group_norm_checks(randn)
     results.update(flash_bwd_checks(randn))
     results.update(phase_gs_kernels())
     return results
+
+
+def _attention_work(b, h, sq, sk, d, size):
+    """(FLOPs, bytes) of softmax(q k^T) v: two products; q, k, v read once,
+    o written once."""
+    return 4 * b * h * sq * sk * d, (2 * b * h * sq * d + 2 * b * h * sk * d) * size
+
+
+def wide_checks(randn) -> list:
+    """K9 against its plain version, q/k/v as (b, h, s, d) views of (b, s, h,
+    d) buffers: T2's VAE decode (18, 4096, 1, 512), CLIP ViT-H under
+    "packed" (1, 257, 16, 80), d = 128, and one key (sk = 1); library:
+    scaled_dot_product_attention on the same views."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.kernels.build import library
+    from v3d_tpu_torch.ops._dispatch import DTYPE_CODES
+    from v3d_tpu_torch.ops.flash_attention import (
+        WIDE_HEAD_DIMS,
+        flash_attn_fwd_wide,
+        flash_attn_fwd_wide_plain,
+    )
+
+    say("3 kernels", "K9 flash_attn_fwd_wide shared memory per block: " + ", ".join(
+        f"d={d} {str(dt).split('.')[-1]} "
+        f"{library().v3d_flash_attn_fwd_wide_smem(DTYPE_CODES[dt], d)} B"
+        for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float32)))
+    out = []
+    for tag, (b, sq, sk, h, d) in (("T2 VAE decode", (18, 4096, 4096, 1, 512)),
+                                   ("T4 CLIP", (1, 257, 257, 16, 80)),
+                                   ("d128", (4, 1024, 1024, 4, 128)),
+                                   ("sk=1", (18, 4096, 1, 1, 512))):
+        x32 = [randn(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t_.to(dtype) for t_ in x32)
+            up = [t_.float() for t_ in (q, k, v)]
+            out.append(_check(
+                "flash_attn_fwd_wide", f"{tag} {(b, sq, h, d)} sk={sk}", dtype,
+                lambda: flash_attn_fwd_wide(q, k, v),
+                lambda: flash_attn_fwd_wide_plain(q, k, v),
+                lambda: flash_attn_fwd_wide_plain(*up),
+                _attention_work(b, h, sq, sk, d, 4 if dtype == torch.float32 else 2),
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+            del q, k, v, up
+        del x32
+        torch.cuda.empty_cache()
+    return out
+
+
+def route_checks(randn) -> dict:
+    """The JAX package's other routes onto K1 and K3, through the port's
+    public functions on (b, s, h, d) / (B, t, h, d) inputs: T2's bh route
+    (``flash_attention``) at ds1, T3 (``heads_resident=True``) and T4
+    (``flash_attention_packed``) at ds1 and ds2, each on K1; T5
+    (``temporal_attention``) and T6 (``temporal_attention_mxu``) at ds1's
+    (8192, 18, 5, 64), each on K3.  Plain: the bshd formula; library:
+    scaled_dot_product_attention on the (b, h, s, d) views."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops import flash_attention as fa
+    from v3d_tpu_torch.ops import temporal_attention as ta
+
+    res = {"flash_attn_fwd": [], "temporal_core": []}
+    routes = [("T2 bh", "ds1", (2, 4096, 5),
+               lambda q, k, v: fa.flash_attention(q, k, v, 512, 1024))]
+    for tag, shape in (("ds1", (2, 4096, 5)), ("ds2", (2, 1024, 10))):
+        routes += [("T3 heads-resident", tag, shape, lambda q, k, v: fa.flash_attention(
+                        q, k, v, 512, 1024, heads_resident=True)),
+                   ("T4 packed", tag, shape, lambda q, k, v: fa.flash_attention_packed(
+                        q, k, v, 512, 1024))]
+    batched = [("T5 temporal_attention", ta.temporal_attention),
+               ("T6 temporal_attention_mxu", ta.temporal_attention_mxu)]
+    for route, tag, (b, s, h), fn in routes:
+        x32 = [randn(b, s, h, 64) for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t_.to(dtype) for t_ in x32)
+            up = [t_.float() for t_ in (q, k, v)]
+            res["flash_attn_fwd"].append(_check(
+                "flash_attn_fwd", f"{route} {tag} {(b, s, h, 64)}", dtype,
+                lambda: fn(q, k, v), lambda: fa.xla_reference_bshd(q, k, v),
+                lambda: fa.xla_reference_bshd(*up),
+                _attention_work(b, h, s, s, 64, 4 if dtype == torch.float32 else 2),
+                lambda: F.scaled_dot_product_attention(
+                    *(t_.transpose(1, 2) for t_ in (q, k, v)))))
+    big_b, t, h = 8192, 18, 5
+    x32 = [randn(big_b, t, h, 64) for _ in range(3)]
+    for route, fn in batched:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t_.to(dtype) for t_ in x32)
+            up = [t_.float() for t_ in (q, k, v)]
+            res["temporal_core"].append(_check(
+                "temporal_core", f"{route} {(big_b, t, h, 64)}", dtype,
+                lambda: fn(q, k, v), lambda: ta.temporal_attention_packed(q, k, v),
+                lambda: ta.temporal_attention_packed(*up),
+                _attention_work(big_b, h, t, t, 64, 4 if dtype == torch.float32 else 2),
+                lambda: F.scaled_dot_product_attention(
+                    *(t_.transpose(1, 2) for t_ in (q, k, v)))))
+    return res
 
 
 def group_norm_checks(randn) -> list:
@@ -576,20 +707,30 @@ def phase_gs_kernels() -> dict:
                                   bound_ms=bwd_bound[0], bound_by=bwd_bound[1])]}
 
 
-def unet_sites(unet, hw: int) -> dict:
-    """What one VideoUNet forward at hw^2 latents launches, counted from the
-    modules and their own routing rules: spatial self-attentions that take
-    K1 (``CrossAttention.takes_flash``), temporal self-attentions that take
-    K2 (``TemporalSelfAttention.takes_block``) or else K3, and the
-    GroupNorms (K6) inside the blocks that
-    ``use_checkpoint`` recomputes (VideoResBlock, SpatialVideoTransformer)
-    and outside them."""
+ATTENTION_KERNELS = ("flash_attn_fwd", "flash_attn_fwd_wide")
+
+
+def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
+    """What one VideoUNet forward at hw^2 latents (activations in ``dtype``,
+    default bf16) launches under the attention routing set now, counted
+    from the modules and their own routing rules: each spatial self- and
+    cross-attention (on ``context_tokens`` tokens) by
+    ``CrossAttention.route`` (K1 or K9, or none; ``k1_grad``: the K1 sites
+    whose backward is K8/K7, the "flash_jax" route), temporal
+    self-attentions that take K2
+    (``TemporalSelfAttention.takes_block``) or else K3, and the GroupNorms
+    (K6) inside the blocks that ``use_checkpoint`` recomputes
+    (VideoResBlock, SpatialVideoTransformer) and outside them."""
+    import torch
+
     from v3d_tpu_torch.models.layers import Downsample, GroupNorm32, Upsample
     from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
     from v3d_tpu_torch.models.video_unet import VideoResBlock
+    from v3d_tpu_torch.ops.attention import route_kernel
 
-    sites = dict(flash=0, temporal_block=0, temporal_core=0, gn_blocks=0,
-                 gn_other=0)
+    sites = dict.fromkeys(ATTENTION_KERNELS + ("k1_grad", "temporal_block",
+                                               "temporal_core", "gn_blocks",
+                                               "gn_other"), 0)
     res = hw
     blocks = list(unet.input_blocks) + [unet.middle_block] + list(unet.output_blocks)
     for layer in [m for block in blocks for m in block] + [unet.out]:
@@ -601,7 +742,12 @@ def unet_sites(unet, hw: int) -> dict:
         if isinstance(layer, SpatialVideoTransformer):
             tokens = res * res
             for blk in layer.transformer_blocks:
-                sites["flash"] += blk.attn1.takes_flash(tokens)
+                for attn, ctx in ((blk.attn1, None), (blk.attn2, context_tokens)):
+                    _, route = attn.route(tokens, ctx, dtype or torch.bfloat16, True)
+                    kernel = route_kernel(route, attn.dim_head)
+                    if kernel:
+                        sites[kernel] += 1
+                    sites["k1_grad"] += kernel == "flash_attn_fwd" and route == "flash_jax"
             for tb in layer.time_stack:
                 fused = tb.attn1.takes_block(tokens)
                 sites["temporal_block" if fused else "temporal_core"] += 1
@@ -612,6 +758,42 @@ def unet_sites(unet, hw: int) -> dict:
     return sites
 
 
+def _attention_kernel(sq: int, d: int):
+    """The kernel a bf16 ``attention`` self-attention call over sq tokens at
+    head width d launches on the card under the routing set now."""
+    import torch
+
+    from v3d_tpu_torch.ops.attention import attention_route, route_kernel
+
+    return route_kernel(attention_route(sq, sq, d, torch.bfloat16, True), d)
+
+
+def vae_sites(vae, tokens: int) -> dict:
+    """Attention launches of one VAE encode or decode call: its AttnBlocks
+    (V3D: the mid block's, at the latent resolution, ``tokens`` tokens,
+    single-head d = channels)."""
+    from v3d_tpu_torch.models.vae import AttnBlock
+
+    out = dict.fromkeys(ATTENTION_KERNELS, 0)
+    for m in vae.modules():
+        kernel = isinstance(m, AttnBlock) and _attention_kernel(tokens, m.q.in_channels)
+        if kernel:
+            out[kernel] += 1
+    return out
+
+
+def clip_sites(clip) -> dict:
+    """Attention launches of one CLIP ViT forward: every residual block's
+    self-attention over the patches and the class token."""
+    out = dict.fromkeys(ATTENTION_KERNELS, 0)
+    tokens = (clip.image_size // clip.conv1.kernel_size[0]) ** 2 + 1
+    for blk in clip.transformer.resblocks:
+        kernel = _attention_kernel(tokens, clip.conv1.out_channels // blk.attn.heads)
+        if kernel:
+            out[kernel] += 1
+    return out
+
+
 def count_group_norms(module) -> int:
     from v3d_tpu_torch.models.layers import GroupNorm32
 
@@ -619,12 +801,16 @@ def count_group_norms(module) -> int:
 
 
 def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
-    """Launches of one generation: ``steps`` UNet forwards, one VAE encode
-    of the image and one decode of all frames; no backward, no 3DGS."""
+    """Launches of one generation under the routing set now: ``steps`` UNet
+    forwards, one CLIP forward and one VAE encode of the image and one
+    decode of all frames; no backward, no 3DGS."""
     u = unet_sites(engine.unet, hw)
+    cond = [clip_sites(engine.clip), vae_sites(engine.vae_encoder, hw * hw),
+            vae_sites(engine.vae_decoder, hw * hw)]
     out = {name: 0 for name in KERNELS}
-    out.update(flash_attn_fwd=steps * u["flash"],
-               temporal_block=steps * u["temporal_block"],
+    for name in ATTENTION_KERNELS:
+        out[name] = steps * u[name] + sum(c[name] for c in cond)
+    out.update(temporal_block=steps * u["temporal_block"],
                temporal_core=steps * u["temporal_core"],
                group_norm=steps * (u["gn_blocks"] + u["gn_other"])
                + count_group_norms(engine.vae_encoder)
@@ -632,15 +818,26 @@ def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
     return out
 
 
+def forward_launches(unet, hw: int = 64, dtype=None) -> dict:
+    """Launches of one UNet forward under the routing set now."""
+    u = unet_sites(unet, hw, dtype=dtype)
+    out = {name: 0 for name in KERNELS}
+    out.update({k: u[k] for k in ATTENTION_KERNELS + ("temporal_block", "temporal_core")},
+               group_norm=u["gn_blocks"] + u["gn_other"])
+    return out
+
+
 def train_launches(unet, hw: int = 64, use_checkpoint: bool = True) -> dict:
     """Launches of one fine-tune step: the forward, the blocks' forwards
     once more when checkpointing recomputes them, K8 and K7 once per K1
-    site; K2/K3/K6 backwards recompute through plain formulas."""
+    site of the "flash_jax" route; K2/K3/K6 and the other attention routes'
+    backwards recompute through plain formulas."""
     u = unet_sites(unet, hw)
     r = 2 if use_checkpoint else 1
     out = {name: 0 for name in KERNELS}
-    out.update(flash_attn_fwd=r * u["flash"], flash_attn_bwd_dq=u["flash"],
-               flash_attn_bwd_dkv=u["flash"],
+    out.update(flash_attn_fwd=r * u["flash_attn_fwd"],
+               flash_attn_fwd_wide=r * u["flash_attn_fwd_wide"],
+               flash_attn_bwd_dq=u["k1_grad"], flash_attn_bwd_dkv=u["k1_grad"],
                temporal_block=r * u["temporal_block"],
                temporal_core=r * u["temporal_core"],
                group_norm=r * u["gn_blocks"] + u["gn_other"])
@@ -660,12 +857,10 @@ def build_engine(device):
     return engine
 
 
-def phase_unet(engine, batch: int = 36, hw: int = 64) -> float:
-    """One full-width UNet forward with the kernels against the same forward
-    with every kernel replaced by its plain version."""
+def unet_forward_fn(engine, batch: int = 36, hw: int = 64):
+    """A no-grad UNet forward on seeded inputs of the sampling loop's shape
+    (a CFG-doubled video of ``batch`` frames at hw^2 latents)."""
     import torch
-
-    from v3d_tpu_torch.ops import reference_mode
 
     dev = engine.device
     t = engine.num_frames
@@ -681,6 +876,17 @@ def phase_unet(engine, batch: int = 36, hw: int = 64) -> float:
         with torch.no_grad():
             return engine.unet(x, c_noise, ctx, y, t, ind)
 
+    return fwd
+
+
+def phase_unet(engine) -> float:
+    """One full-width UNet forward with the kernels against the same forward
+    with every kernel replaced by its plain version."""
+    import torch
+
+    from v3d_tpu_torch.ops import reference_mode
+
+    fwd = unet_forward_fn(engine)
     out = fwd()
     with reference_mode():
         ref = fwd()
@@ -691,7 +897,7 @@ def phase_unet(engine, batch: int = 36, hw: int = 64) -> float:
     for name in ("kernels", "plain", "kernels", "plain"):
         with reference_mode() if name == "plain" else contextlib.nullcontext():
             times[name].append(round(cuda_ms(fwd, iters=3, warmup=1), 3))
-    say("4 unet", f"forward {tuple(x.shape)} bf16: kernels vs plain PSNR "
+    say("4 unet", f"forward {tuple(out.shape)} bf16: kernels vs plain PSNR "
         f"{quality:.2f} dB (>= {UNET_MIN_PSNR:g}), max_abs "
         f"{float((out - ref).abs().max()):.3e}, |ref| max "
         f"{float(ref.abs().max()):.3e} | median ms, in turns: kernels "
@@ -715,9 +921,10 @@ def synthetic_image(size: int = 512, seed: int = 0):
     return img
 
 
-def phase_generate(engine, requests: int = 2) -> dict:
+def phase_generate(engine, requests: int = 2, phase: str = "5 generate") -> dict:
     """The main path through its user entry point, ``requests`` times on one
-    engine; each run's launch counts must equal the path's."""
+    engine, under the attention routing set now; each run's launch counts
+    must equal the path's."""
     import torch
 
     from v3d_tpu_torch.apps.generate import sample_one
@@ -737,7 +944,7 @@ def phase_generate(engine, requests: int = 2) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         shape_ok = frames.shape == (engine.num_frames, 512, 512, 3)
         counts_ok = counts == expect
-        say("5 generate", f"request {r}: {wall:.3f} s (cond "
+        say(phase, f"request {r}: {wall:.3f} s (cond "
             f"{timings['cond_s']:.3f}, sample {timings['sample_s']:.3f}, "
             f"decode {timings['decode_s']:.3f}) | peak "
             f"{peak:.2f} GiB | frames {frames.shape} {frames.dtype} "
@@ -747,7 +954,106 @@ def phase_generate(engine, requests: int = 2) -> dict:
         if not (shape_ok and counts_ok):
             raise SmokeFailure(f"request {r}: frames {frames.shape}, "
                                f"launches {counts}")
-        out = {"launches": counts, "timings": timings, "peak_gib": peak}
+        out = {"launches": counts, "timings": timings, "peak_gib": peak,
+               "seconds": wall}
+    return out
+
+
+# phase 9's attention routings: (name, projection layout, default backend,
+# spatial override), each the port's counterpart of a JAX package setting
+ROUTE_CONFIGS = (
+    ("default", "bhsd", "auto", None),
+    ("bshd (r4)", "bshd", "auto", None),
+    ("flash", "bhsd", "flash", None),
+    ("flash, bshd", "bshd", "flash", None),
+    ("packed", "bhsd", "packed", None),
+    ("spatial override packed", "bhsd", "auto", "packed"),
+)
+
+
+@contextlib.contextmanager
+def routing(layout: str = "bhsd", backend: str = "auto", override=None):
+    """Set the three routing setters for the block; restore the defaults."""
+    from v3d_tpu_torch.models.attention_blocks import set_proj_layout
+    from v3d_tpu_torch.ops.attention import set_default_backend, set_spatial_override
+
+    set_proj_layout(layout)
+    set_default_backend(backend)
+    set_spatial_override(override)
+    try:
+        yield
+    finally:
+        set_proj_layout("bhsd")
+        set_default_backend("auto")
+        set_spatial_override(None)
+
+
+def _routed_run(phase: str, what: str, fn, expect: dict) -> dict:
+    """``fn`` with the kernels (launches counted) against ``fn`` in
+    reference_mode(): exact launches, finite, PSNR >= UNET_MIN_PSNR."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    with reference_mode():
+        ref = fn()
+    ms = cuda_ms(fn, iters=5, warmup=2)
+    quality = psnr(out, ref)
+    ok = counts == expect and bool(torch.isfinite(out).all()) and quality >= UNET_MIN_PSNR
+    say(phase, f"{what}: launches { {k: v for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in expect.items() if v} }) | kernels vs reference_mode() "
+        f"PSNR {quality:.2f} dB (>= {UNET_MIN_PSNR:g}) | {ms:.3f} ms (median of 5) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{what}: launches {counts} (expect {expect}), PSNR {quality}")
+    return {"launches": counts, "psnr": quality, "ms": ms}
+
+
+def phase_routes(engine) -> dict:
+    """The JAX package's attention routings on the port: for each of
+    ROUTE_CONFIGS one full-width bf16 UNet forward against reference_mode()
+    with exact launches per kernel (``unet_sites``); the 18-frame VAE decode
+    under "flash" (K9 at d = 512) and CLIP under "packed" (K9 at d = 80);
+    then the generation under "flash", twice."""
+    import torch
+
+    from v3d_tpu_torch.models.clip_vit import clip_preprocess
+
+    phase = "9 routes"
+    t0 = time.perf_counter()
+    fwd = unet_forward_fn(engine)
+    for name, layout, backend, override in ROUTE_CONFIGS:
+        with routing(layout, backend, override):
+            _routed_run(phase, f"UNet forward (36, 8, 64, 64), {name} (layout "
+                        f"{layout}, backend {backend}, override {override})", fwd,
+                        forward_launches(engine.unet))
+    dev, t = engine.device, engine.num_frames
+    gen = torch.Generator(device=dev).manual_seed(2)
+    z = torch.randn(t, 64, 64, 4, device=dev, generator=gen)
+    image = torch.rand(1, 512, 512, 3, device=dev, generator=gen) * 2 - 1
+    pixels = clip_preprocess(image).permute(0, 3, 1, 2)
+    with routing(backend="flash"):
+        expect = {name: 0 for name in KERNELS}
+        expect.update(vae_sites(engine.vae_decoder, 64 * 64),
+                      group_norm=count_group_norms(engine.vae_decoder))
+        _routed_run(phase, f"VAE decode of {t} frames, flash", lambda: engine.decode_latents(z, t),
+                    expect)
+    with routing(backend="packed"):
+        expect = {name: 0 for name in KERNELS}
+        expect.update(clip_sites(engine.clip))
+
+        def clip():
+            with torch.no_grad():
+                return engine.clip(pixels)
+
+        _routed_run(phase, "CLIP ViT-H (1, 3, 224, 224), packed", clip, expect)
+    with routing(backend="flash"):
+        out = phase_generate(engine, 2, phase)
+    say(phase, f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1182,7 +1488,7 @@ def train_ab(trainer, batch) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -1200,10 +1506,11 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
-    engine = build_engine(torch.device("cuda")) if phases & {4, 5} else None
+    engine = build_engine(torch.device("cuda")) if phases & {4, 5, 9} else None
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
+    routes = phase_routes(engine) if 9 in phases else {}
     del engine
     torch.cuda.empty_cache()
     fit = {}
@@ -1215,7 +1522,7 @@ def main(argv=None) -> int:
         fit = phase_fit(frames, torch.device("cuda"))
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
-    paths = {"gen": gen, "fit": {"launches": fit.get("launches", {})}}
+    paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})}}
     del fit
     torch.cuda.empty_cache()
     paths["train"] = phase_train(torch.device("cuda")) if 8 in phases else {}

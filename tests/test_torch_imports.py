@@ -1,7 +1,8 @@
 """The port stands alone: in a fresh interpreter, importing every module of
 v3d_tpu_torch (found by walking the package) and chip_smoke, and running a
-tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, loads
-neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, or
+the attention routes under every routing setting, loads neither jax,
+jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -53,6 +54,34 @@ print("FOREIGN", bad)
 """
 
 
+_ROUTES_PROBE = r"""
+import sys
+import torch
+import chip_smoke
+from v3d_tpu_torch.apps.generate import sample_one
+from v3d_tpu_torch.engines.builder import build_tiny_engine
+from v3d_tpu_torch.ops import attention as A, flash_attention as F, temporal_attention as T
+
+q = torch.randn(2, 128, 2, 64)
+for name, layout, backend, override in chip_smoke.ROUTE_CONFIGS:
+    with chip_smoke.routing(layout, backend, override):
+        outs = [A.attention(q, q, q), A.attention_bhsd(*(x.transpose(1, 2) for x in (q, q, q))
+                                                       ).transpose(1, 2)]
+        assert all(torch.allclose(o, outs[0], atol=1e-5) for o in outs), name
+for fn in (F.flash_attention, F.flash_attention_packed, A.jax_flash_attention):
+    assert torch.allclose(fn(q, q, q), A.xla_attention(q, q, q), atol=1e-5)
+x = torch.randn(4, 18, 3, 16)
+assert torch.allclose(T.temporal_attention(x, x, x), T.temporal_attention_mxu(x, x, x))
+with chip_smoke.routing(backend="flash"):
+    frames, _, _ = sample_one(chip_smoke.synthetic_image(96), resolution=64,
+                              engine=build_tiny_engine(num_frames=4, num_steps=1, device="cpu"))
+assert frames.shape == (4, 64, 64, 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -68,6 +97,16 @@ def test_port_path_imports_no_jax_and_generates_on_cpu():
     assert "FOREIGN []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 50, out.stdout
+
+
+def test_attention_routes_run_without_jax():
+    """Every routing of chip_smoke.ROUTE_CONFIGS through ``attention`` /
+    ``attention_bhsd``, the T2-T6 entry points, and a tiny generation under
+    "flash", on the CPU with no jax loaded."""
+    out = subprocess.run([sys.executable, "-c", _ROUTES_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
 
 
 def _last_json(stdout: str):

@@ -83,6 +83,69 @@ def test_flash_kernel_ragged(dev, dtype, b, h, sq, sk, pad):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [80, 128, 512])
+@pytest.mark.parametrize("b,h,sq,sk,pad", [(1, 2, 100, 130, 0), (2, 1, 64, 1, 0),
+                                           (1, 3, 1, 257, 0), (2, 2, 70, 45, 3)])
+def test_flash_wide_kernel_ragged(dev, dtype, d, b, h, sq, sk, pad):
+    """K9 at each head width: ragged sq and sk (sk down to 1), strided
+    (b, h, s, d) views, odd row strides for the scalar-load path."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.flash_attention import (
+        flash_attn_fwd_wide,
+        flash_attn_fwd_wide_plain,
+    )
+
+    q = _strided((b, sq, h, d), dev, dtype, pad).transpose(1, 2)
+    k = _strided((b, h, sk, d), dev, dtype, pad)
+    v = _strided((b, sk, h, d), dev, dtype, pad).transpose(1, 2)
+    before = LAUNCHES["flash_attn_fwd_wide"]
+    _close(flash_attn_fwd_wide, flash_attn_fwd_wide_plain, q, k, v)
+    assert LAUNCHES["flash_attn_fwd_wide"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("route,d", [("bh", 64), ("heads", 64), ("packed", 64),
+                                     ("bh", 512), ("packed", 80), ("packed", 128)])
+def test_flash_routes_launch_their_kernel(dev, dtype, route, d):
+    """T2 (bh), T3 (heads-resident) and T4 (packed) on (b, s, h, d) input:
+    K1 at d = 64, K9 otherwise, one launch each, against the bshd formula."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops import flash_attention as fa
+
+    fn = {"bh": lambda q, k, v: fa.flash_attention(q, k, v, 64, 64),
+          "heads": lambda q, k, v: fa.flash_attention(q, k, v, 64, 64, heads_resident=True),
+          "packed": lambda q, k, v: fa.flash_attention_packed(q, k, v, 128, 128)}[route]
+    s = 257 if route == "packed" else 192
+    q, k, v = (torch.randn(2, s, 3, d, device=dev).to(dtype) for _ in range(3))
+    name = "flash_attn_fwd" if d == 64 else "flash_attn_fwd_wide"
+    before = LAUNCHES[name]
+    _close(fn, fa.xla_reference_bshd, q, k, v)
+    assert LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("mxu", [False, True])
+def test_temporal_batched_routes_launch_k3(dev, dtype, mxu):
+    """T5 / T6 on (B, t, h, d): K3 on the (B, t, 1, h*d) view, one launch."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops import temporal_attention as ta
+
+    fn = ta.temporal_attention_mxu if mxu else ta.temporal_attention
+    q, k, v = (torch.randn(40, 18, 5, 64, device=dev).to(dtype) for _ in range(3))
+    before = LAUNCHES["temporal_core"]
+    _close(fn, ta.temporal_attention_packed, q, k, v)
+    assert LAUNCHES["temporal_core"] == before + 1
+
+
+def test_flash_wide_refuses_other_widths(dev):
+    from v3d_tpu_torch.ops.flash_attention import flash_attn_fwd_wide
+
+    q = torch.randn(1, 2, 8, 96, device=dev)
+    with pytest.raises(ValueError, match="80, 128, 512"):
+        flash_attn_fwd_wide(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("t,s,heads,dh", [(18, 7, 3, 64), (5, 3, 2, 100), (32, 2, 1, 16)])
 def test_temporal_core_kernel(dev, dtype, t, s, heads, dh):
     from v3d_tpu_torch.ops.temporal_attention import temporal_core, temporal_core_plain

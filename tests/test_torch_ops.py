@@ -116,7 +116,7 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     assert LAUNCHES == {"flash_attn_fwd": 0, "temporal_block": 0, "temporal_core": 0,
                         "gs_composite_fwd": 0, "gs_composite_bwd": 0,
                         "group_norm": 0, "flash_attn_bwd_dkv": 0,
-                        "flash_attn_bwd_dq": 0}
+                        "flash_attn_bwd_dq": 0, "flash_attn_fwd_wide": 0}
 
 
 def test_reference_mode_is_scoped():

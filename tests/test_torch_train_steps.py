@@ -50,6 +50,7 @@ from v3d_tpu_torch.engines.trainer import (
     prune_checkpoints,
 )
 from v3d_tpu_torch.engines.video_diffusion import VideoDiffusionEngine
+from v3d_tpu_torch.models import attention_blocks
 from v3d_tpu_torch.models.video_unet import VideoUNet
 from v3d_tpu_torch.ops import attention, group_norm, temporal_attention
 
@@ -173,6 +174,9 @@ def test_chip_smoke_launch_counts(monkeypatch, hw, use_checkpoint):
 
         monkeypatch.setattr(mod, fn_name, wrapped)
 
+    # route as on the card: CPU tensors take the pickers' "xla" route
+    monkeypatch.setattr(attention, "_on_card", lambda *tensors: True)
+    monkeypatch.setattr(attention_blocks, "use_plain", lambda *tensors: False)
     counting(attention, "flash_attn_fwd", "flash_attn_fwd")
     counting(attention, "flash_attn_bwd", "flash_attn_bwd")
     counting(temporal_attention, "temporal_block_fwd", "temporal_block")

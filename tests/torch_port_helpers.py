@@ -10,6 +10,7 @@ same numpy inputs in float32 on the CPU.
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import torch
 
@@ -81,3 +82,16 @@ MAP_CLIP = jc._convert_clip_key
 
 def map_resblock(dims: int):
     return lambda k: jc._map_plain_resblock(k, (), dims)
+
+
+class TPUJax:
+    """``jax`` as a module of the JAX package sees it on a TPU, for the
+    attention pickers (``monkeypatch.setattr(v3d_tpu.ops.attention, "jax",
+    TPUJax())``): only ``default_backend`` differs."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"

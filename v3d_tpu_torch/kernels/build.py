@@ -38,6 +38,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "v3d_flash_attn_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I]
                            + [_L] * 12 + [_P, _P], _I),
+    "v3d_flash_attn_fwd_wide": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _I]
+                                + [_L] * 12 + [_P], _I),
+    "v3d_flash_attn_fwd_wide_smem": ([_I, _I], _L),
     "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "v3d_flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 5

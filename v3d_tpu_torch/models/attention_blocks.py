@@ -5,26 +5,44 @@ softmax run in float32, products in the module dtype.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from v3d_tpu_torch.models.layers import GroupNorm32, LayerNormF32, Linear
-from v3d_tpu_torch.ops.attention import attention_plain, flash_attention
+from v3d_tpu_torch.ops._dispatch import use_plain
+from v3d_tpu_torch.ops.attention import (
+    attention,
+    attention_bhsd,
+    attention_bhsd_route,
+    attention_route,
+)
+
+# The self-attention projection layout (attention_blocks.py:19-35): "bhsd",
+# the JAX package's default since r5, or "bshd", the r4 routing.  The
+# V3D_ATTN_PROJ_LAYOUT environment switch is not read.
+_PROJ_LAYOUT = "bhsd"
+
+
+def set_proj_layout(name: str) -> None:
+    global _PROJ_LAYOUT
+    if name not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown projection layout {name!r}")
+    _PROJ_LAYOUT = name
 
 
 class CrossAttention(nn.Module):
     """attention.py:260-351: MHA with no-bias QKV and a linear out; self-
     attention when ``context`` is None.
 
-    Self-attention with dim_head 64 over >= 1024 tokens (a multiple of 512)
-    runs kernel K1 (and K8/K7 for its gradient), where the JAX package runs
-    the Pallas flash kernel (attention_blocks.py:98-108, attention.py:137-138):
-    q/k/v go to it as (b, h, s, d) views of the projection output, no
-    copies.  Every other site (cross-attention, short sequences) uses the
-    plain formula."""
+    Routed as attention_blocks.py:98-118: in the "bhsd" layout, self-
+    attention with dim_head 64 over >= 1024 tokens goes to
+    ``attention_bhsd`` on (b, h, s, d) views of the projection output (by
+    default K1, with K8/K7 for its gradient); every other call to
+    ``attention`` on (b, s, h, d).  The projections and ``state_dict`` are
+    the same on both routes."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64):
@@ -36,9 +54,19 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.Sequential(Linear(inner, query_dim), nn.Dropout(0.0))
 
-    def takes_flash(self, tokens: int) -> bool:
-        """Whether self-attention over ``tokens`` tokens runs K1."""
-        return self.dim_head == 64 and tokens >= 1024 and tokens % 512 == 0
+    def route(self, tokens: int, context_tokens: Optional[int],
+              dtype: torch.dtype, on_card: bool) -> Tuple[str, str]:
+        """(layout, backend) of a call over ``tokens`` query tokens, on
+        ``context_tokens`` context tokens (None: self-attention), with
+        activations of ``dtype``, on the card or not: the layout "bhsd" or
+        "bshd", the backend as ``attention_bhsd_route`` / ``attention_route``
+        resolve it ("xla" is the plain formula)."""
+        d = self.dim_head
+        if (_PROJ_LAYOUT == "bhsd" and context_tokens is None and d == 64
+                and tokens >= 1024):
+            return "bhsd", attention_bhsd_route(tokens, tokens, d, on_card)
+        sk = tokens if context_tokens is None else context_tokens
+        return "bshd", attention_route(tokens, sk, d, dtype, on_card)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -46,14 +74,16 @@ class CrossAttention(nn.Module):
         h, d = self.heads, self.dim_head
         ctx = x if context is None else context
         sk = ctx.shape[1]
+        layout, backend = self.route(sq, None if context is None else sk,
+                                     x.dtype, not use_plain(x))
         q = self.to_q(x).view(b, sq, h, d)
         k = self.to_k(ctx).view(b, sk, h, d)
         v = self.to_v(ctx).view(b, sk, h, d)
-        if context is None and self.takes_flash(sq):
-            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2)).transpose(1, 2)
+        if layout == "bhsd":
+            o = attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), backend).transpose(1, 2)
         else:
-            o = attention_plain(q, k, v)
+            o = attention(q, k, v, backend)
         return self.to_out(o.reshape(b, sq, h * d))
 
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from v3d_tpu_torch.models.layers import LayerNormF32
-from v3d_tpu_torch.ops.attention import attention_plain
+from v3d_tpu_torch.ops.attention import attention
 
 # CLIP normalisation (modules.py:631-636)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -27,7 +27,9 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 class CLIPAttention(nn.Module):
     """nn.MultiheadAttention's parameters: packed in_proj (with bias) and
-    out_proj.  d = 80 at ViT-H: the plain formula, as in the JAX package."""
+    out_proj.  Through the ``attention`` dispatcher, as in the JAX package
+    (clip_vit.py:43): d = 80 at ViT-H takes the plain formula by default and
+    under "flash", K9 under "packed"."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -41,7 +43,7 @@ class CLIPAttention(nn.Module):
         d = c // self.heads
         q, k, v = (t.reshape(b, s, self.heads, d) for t in
                    F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1))
-        return self.out_proj(attention_plain(q, k, v).reshape(b, s, c))
+        return self.out_proj(attention(q, k, v).reshape(b, s, c))
 
 
 class CLIPBlock(nn.Module):

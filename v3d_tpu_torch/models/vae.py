@@ -23,7 +23,7 @@ from v3d_tpu_torch.models.layers import (
     from_video,
     to_video,
 )
-from v3d_tpu_torch.ops.attention import attention_plain
+from v3d_tpu_torch.ops.attention import attention
 
 
 def vae_norm(channels: int, act=None) -> GroupNorm32:
@@ -55,8 +55,9 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """model.py:161-203: single-head self-attention over the h*w tokens with
     d = channels; q/k/v/proj_out are 1x1 convs in the checkpoint, applied as
-    matmuls on the tokens.  The plain formula, as in the JAX package (its
-    flash pick needs d = 64)."""
+    matmuls on the tokens, through the ``attention`` dispatcher as in the
+    JAX package (vae.py:80-83): the plain formula by default (the auto pick
+    needs d = 64), K9 under the "flash" and "packed" backends."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -75,7 +76,7 @@ class AttnBlock(nn.Module):
         tok = to_tokens(self.norm(x))
         q, k, v = (self._dense(m, tok).view(n, h * w, 1, c)
                    for m in (self.q, self.k, self.v))
-        out = attention_plain(q, k, v).reshape(n, h * w, c)
+        out = attention(q, k, v).reshape(n, h * w, c)
         return x + from_tokens(self._dense(self.proj_out, out), h, w)
 
 

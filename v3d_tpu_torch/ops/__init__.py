@@ -10,9 +10,17 @@
 | K6 | group_norm.group_norm_fwd (via group_norm_act) | group_norm.group_norm_act_plain | ops/fused_groupnorm.py _pallas_group_norm |
 | K7 | attention.flash_attn_bwd (dk, dv; flash_attention's backward) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dkv |
 | K8 | attention.flash_attn_bwd (dq, first) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dq |
+| K9 | flash_attention.flash_attn_fwd_wide (d = 80, 128, 512) | flash_attention.flash_attn_fwd_wide_plain | ops/flash_attention.py _flash_forward / _flash_packed_forward |
 
-The backwards of K2, K3 and K6 recompute through their plain versions
-(``_dispatch.plain_vjp``), as the JAX package's custom VJPs do.
+The JAX package's other attention kernels are routes onto these:
+``flash_attention.flash_attention`` (T2, and T3 with ``heads_resident``) and
+``flash_attention_packed`` (T4) on K1 or K9, ``temporal_attention`` /
+``temporal_attention_mxu`` (T5, T6) on K3; ``attention.attention`` and
+``attention_bhsd`` dispatch by the backend setters.
+
+The backwards of K2, K3, K6 and of the T2-T4 routes recompute through their
+plain versions (``_dispatch.plain_vjp``), as the JAX package's custom VJPs
+do.
 """
 
 from v3d_tpu_torch.ops._dispatch import (
@@ -20,5 +28,7 @@ from v3d_tpu_torch.ops._dispatch import (
     reference_mode,
     reset_launch_counts,
 )
+from v3d_tpu_torch.ops.attention import set_default_backend, set_spatial_override
 
-__all__ = ["LAUNCHES", "reference_mode", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "reference_mode", "reset_launch_counts",
+           "set_default_backend", "set_spatial_override"]

@@ -1,7 +1,8 @@
-"""Multi-head attention: kernels K1, K7, K8 and the plain formulas.
+"""Multi-head attention: kernels K1, K7, K8, the plain formulas and the
+backend dispatcher.
 
-Counterpart of v3d_tpu/ops/attention.py.  The JAX package sends the
-spatial self-attention at >= 1024 tokens with d = 64 to the stock Pallas
+Counterpart of v3d_tpu/ops/attention.py.  By default the JAX package sends
+the spatial self-attention at >= 1024 tokens with d = 64 to the stock Pallas
 flash kernel (``attention_bhsd``, attention.py:142-168) and every other site
 to the plain formula (``xla_attention``, :213-219).  Here the first is
 ``flash_attention``: the forward ``flash_attn_fwd`` (K1, csrc/flash_attn_fwd.cu)
@@ -9,12 +10,22 @@ and, under autograd, the backward ``flash_attn_bwd`` (K8 for dQ, then K7 for
 dK/dV, csrc/flash_attn_bwd.cu), the counterparts of the stock kernel's
 ``_flash_attention_bwd_dq`` / ``_dkv``.  The second is ``attention_plain``:
 an f32 softmax between two matmuls.
+
+``attention`` / ``attention_bhsd`` are the dispatcher, ported line for line
+with its setters (``set_default_backend``, ``set_spatial_override``) and
+pickers: the "flash" and "packed" backends go to ops/flash_attention.py
+(T2-T4 on K1 or K9).  Tensors on the card stand where the JAX package asks
+"on TPU"; CPU tensors and ``reference_mode()`` make the pickers answer
+"xla", as the JAX package's do off the TPU.  The environment switches
+``V3D_SPATIAL_ATTN`` / ``V3D_ATTN_PROJ_LAYOUT`` are not read: the setters are
+the API.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,13 +87,15 @@ def flash_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _cat(outs)
 
 
-def _check_bhsd(name: str, q, k, v) -> int:
+def _check_bhsd(name: str, q, k, v, head_dims=(64,)) -> int:
     code = check_kernel_inputs(name, q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"{name}: bad shapes {q.shape} {k.shape} {v.shape}")
     b, h, sq, d = q.shape
-    if d != 64 or k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
-        raise ValueError(f"{name}: needs (b, h, s, 64) q/k/v, got "
+    if (d not in head_dims or k.shape[0] != b or k.shape[1] != h
+            or k.shape[3] != d):
+        raise ValueError(f"{name}: needs (b, h, s, d) q/k/v with d one of "
+                         f"{', '.join(map(str, head_dims))}, got "
                          f"{q.shape} {k.shape}")
     sk = k.shape[2]
     if min(b, h, sq, sk) == 0 or b * h > 65535:
@@ -217,3 +230,153 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     return flash_attn_fwd(q, k, v)
+
+
+# -- the backend dispatcher (attention.py:23-219) ------------------------------
+
+BACKENDS = ("auto", "xla", "flash", "flash_jax", "packed")
+_DEFAULT_BACKEND = "auto"
+# routes the >= 1024-token self-attention levels (None: the measured picks)
+_SPATIAL_OVERRIDE: Optional[str] = None
+
+
+def set_default_backend(name: str) -> None:
+    global _DEFAULT_BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"unknown attention backend {name!r}, not in {BACKENDS}")
+    _DEFAULT_BACKEND = name
+
+
+def set_spatial_override(name: Optional[str]) -> None:
+    """Route the >= 1024-token self-attention levels to ``name`` (None: the
+    measured picks)."""
+    global _SPATIAL_OVERRIDE
+    if name not in (None, "packed", "flash", "flash_jax"):
+        raise ValueError(f"unknown spatial override {name!r}")
+    _SPATIAL_OVERRIDE = name
+
+
+def flash_blocks(dtype: torch.dtype, sq: int, sk: int) -> Tuple[int, int]:
+    """The TPU block sizes the "flash" and "packed" routes pass on
+    (attention.py:54-59, :75-83): (512, 1024) for bf16, (256, 512)
+    otherwise, halved (not below 128) until they divide the sequence.  On the
+    card they only decide flash_attention's fallback."""
+    bq, bk = (512, 1024) if dtype == torch.bfloat16 else (256, 512)
+    while bq > 128 and sq % bq != 0:
+        bq //= 2
+    while bk > 128 and sk % bk != 0:
+        bk //= 2
+    return bq, bk
+
+
+def _pick_backend_dims(sq: int, sk: int, d: int, on_card: bool) -> str:
+    """The auto pick for the (b, s, h, d) layout (attention.py:88-105)."""
+    if not (on_card and d == 64 and sq == sk):
+        return "xla"
+    if _SPATIAL_OVERRIDE and sq >= 1024:
+        return _SPATIAL_OVERRIDE
+    if sq >= 2048 and sq % 512 == 0:
+        return "flash"
+    if sq == 1024:
+        return "flash_jax"
+    return "xla"
+
+
+def _pick_backend_bhsd(sq: int, sk: int, d: int, on_card: bool) -> str:
+    """The auto pick for the (b, h, s, d) layout (attention.py:122-139)."""
+    if not (on_card and d == 64 and sq == sk):
+        return "xla"
+    if _SPATIAL_OVERRIDE and sq >= 1024:
+        return _SPATIAL_OVERRIDE
+    if sq >= 1024 and sq % 512 == 0:
+        return "flash_jax"
+    return "xla"
+
+
+def attention_route(sq: int, sk: int, d: int, dtype: torch.dtype,
+                    on_card: bool, backend: Optional[str] = None) -> str:
+    """The route ``attention`` takes: "xla", "flash", "flash_jax" or
+    "packed".  A "flash" call whose blocks do not tile the sequence, or
+    whose d flash_attention does not take, is "xla" (its fallback)."""
+    from v3d_tpu_torch.ops.flash_attention import flash_tiles
+
+    backend = backend or _DEFAULT_BACKEND
+    if backend == "auto":
+        backend = _pick_backend_dims(sq, sk, d, on_card)
+    if backend == "flash" and not flash_tiles(sq, sk, d,
+                                              *flash_blocks(dtype, sq, sk)):
+        return "xla"
+    return backend
+
+
+def attention_bhsd_route(sq: int, sk: int, d: int, on_card: bool,
+                         backend: Optional[str] = None) -> str:
+    """The route ``attention_bhsd`` takes: "xla", "flash", "flash_jax" or
+    "packed" (the last two run the same kernel there)."""
+    backend = backend or _DEFAULT_BACKEND
+    if backend in ("auto", "packed"):
+        backend = _pick_backend_bhsd(sq, sk, d, on_card)
+    return backend
+
+
+def route_kernel(route: str, d: int) -> Optional[str]:
+    """The ``LAUNCHES`` key of the kernel a route launches at head width d
+    (on the card), or None for the plain formula."""
+    if route == "xla":
+        return None
+    return "flash_attn_fwd" if d == 64 else "flash_attn_fwd_wide"
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """The JAX pickers' "on TPU": CUDA tensors outside reference_mode()."""
+    return not use_plain(*tensors)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """q (b, sq, h, d), k/v (b, sk, h, d) -> (b, sq, h, d), through the
+    backend ``backend`` (default: the one ``set_default_backend`` chose)."""
+    from v3d_tpu_torch.ops import flash_attention as fa
+
+    sq, d = q.shape[1], q.shape[3]
+    sk = k.shape[1]
+    route = attention_route(sq, sk, d, q.dtype, _on_card(q, k, v), backend)
+    if route == "packed":
+        return fa.flash_attention_packed(q, k, v, *flash_blocks(q.dtype, sq, sk))
+    if route == "flash_jax":
+        return jax_flash_attention(q, k, v)
+    if route == "flash":
+        return fa.flash_attention(q, k, v, *flash_blocks(q.dtype, sq, sk))
+    return xla_attention(q, k, v)
+
+
+def attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   backend: Optional[str] = None) -> torch.Tensor:
+    """Attention on the (b, h, s, d) layout (attention.py:142-186): "flash_jax"
+    is K1 with its K7/K8 backward, "flash"/"packed" T2's route (the kernel,
+    the backward recomputed), "xla" the plain formula."""
+    from v3d_tpu_torch.ops import flash_attention as fa
+
+    d = q.shape[3]
+    route = attention_bhsd_route(q.shape[2], k.shape[2], d,
+                                 _on_card(q, k, v), backend)
+    if route == "flash_jax" and d == 64:
+        return flash_attention(q, k, v)
+    if route in ("flash_jax", "flash", "packed"):
+        return fa.flash_bh(q, k, v)
+    return flash_attn_fwd_plain(q, k, v)
+
+
+def jax_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                        ) -> torch.Tensor:
+    """The stock kernel's route on (b, s, h, d) (attention.py:189-210): K1
+    (and K7/K8 under autograd) on (b, h, s, d) views, so its transposes are
+    free.  At d != 64, T2's route."""
+    from v3d_tpu_torch.ops import flash_attention as fa
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = flash_attention(qt, kt, vt) if q.shape[3] == 64 else fa.flash_bh(qt, kt, vt)
+    return out.transpose(1, 2)
+
+
+xla_attention = attention_plain

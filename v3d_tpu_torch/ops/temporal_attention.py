@@ -10,8 +10,11 @@ Counterpart of v3d_tpu/ops/temporal_attention.py.  Tokens keep the
 - ``temporal_core`` (K3, csrc/temporal_core.cu; replaces ``_pallas_core``):
   the attention alone, on q/k/v in the ``(b, t, s, heads * dh)`` layout the
   projection matmul writes.
+- ``temporal_attention`` / ``temporal_attention_mxu`` (T5, T6): the public
+  (B, t, h, d) APIs, the same function as ``_pallas_core``, so K3 on a
+  (B, t, 1, h * d) view; no model calls them.
 
-Both are differentiable: as the JAX package's custom VJPs (``_block_bwd``,
+K2 and K3 are differentiable: as the JAX package's custom VJPs (``_block_bwd``,
 ``_core_bwd``, temporal_attention.py:232-235, :373-377), the backward
 recomputes through the plain formula; there is no backward kernel.
 
@@ -31,6 +34,7 @@ from v3d_tpu_torch.ops._dispatch import (
     plain_vjp,
     use_plain,
 )
+from v3d_tpu_torch.ops.attention import attention_plain
 
 # per-block shared memory the card grants (bytes)
 _MAX_SMEM = 232448
@@ -172,3 +176,49 @@ def temporal_block_fwd(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
            wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, t, s, c, heads,
            dh, *x.stride()[:3])
     return out
+
+
+# -- the batched (B, t, h, d) APIs (temporal_attention.py:50-168) -------------
+
+
+def _frames_view(x: torch.Tensor) -> torch.Tensor:
+    """(B, t, h, d) -> a (B, t, 1, h*d) view for K3 (one copy where (h, d)
+    are not contiguous, as T5's own ``prep`` transposes)."""
+    b, t, h, d = x.shape
+    if x.stride(3) != 1 or x.stride(2) != d:
+        x = x.contiguous()
+    return x.view(b, t, 1, h * d)
+
+
+def _batched_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> torch.Tensor:
+    b, t, h, d = q.shape
+    o = temporal_core(_frames_view(q), _frames_view(k), _frames_view(v), h)
+    return o.view(b, t, h, d)
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       block_b: int = 512) -> torch.Tensor:
+    """T5 (``temporal_attention``, :50-77): q/k/v (B, t, h, d) -> (B, t, h,
+    d), softmax over the key frames, f32 throughout on the TPU.  K3 with
+    heads = h on (B, t, 1, h*d) views; ``block_b`` (the TPU's lane block)
+    chooses nothing."""
+    return _batched_core(q, k, v)
+
+
+def temporal_attention_mxu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pack: int = 7, inner: int = 8) -> torch.Tensor:
+    """T6 (``temporal_attention_mxu``, :137-168): T5's function, which the TPU
+    packs 7 samples to a block-diagonal 126 x 126 product.  K3 as T5; K3
+    keeps P in f32 where T6 rounds it to q's dtype before P V (:131), so
+    the two differ by bf16 rounding.  ``pack`` and ``inner`` choose
+    nothing."""
+    return _batched_core(q, k, v)
+
+
+def temporal_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, pack: int = 7) -> torch.Tensor:
+    """``temporal_attention_packed`` (:80-107), pure XLA in the JAX package:
+    the block-diagonal mask makes it exactly the plain attention formula over
+    the t frames, P in q's dtype; the plain version of T5 and T6."""
+    return attention_plain(q, k, v)
