@@ -14,7 +14,9 @@ Phases, each printing lines before the last:
    over the peak of their type, whichever is larger) and, where one PyTorch
    call computes the same function, that call's time;
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
-   kernels against the same forward in ``reference_mode()`` (plain versions);
+   kernels against the same forward in ``reference_mode()`` (plain versions),
+   and a ``torch.profiler`` trace of two forwards (device time by kernel
+   class, busy share);
 5. the generation path twice: ``v3d_tpu_torch.apps.generate.sample_one`` on
    a synthetic 512^2 RGBA image, 18 frames, 25 steps, CFG 3.5, seeded random
    bf16 weights; launch counts per generation, timings, peak memory;
@@ -157,21 +159,29 @@ def say(phase: str, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, in ms."""
+    """Median CUDA-event time of one call, in ms: each of ``iters`` samples
+    times a run of back-to-back calls between two events (enough calls for
+    ~2 ms, at most 20), so a short kernel's time is the card's and not the
+    host's launch path, which a lone call after a sync would include."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per = max(1, min(20, int(2e-3 / max(time.perf_counter() - t0, 1e-6))))
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -315,8 +325,10 @@ def phase_kernels() -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    # K1: 2-sample slices of ds1 and ds2, the layout the projection gives;
-    # library: scaled_dot_product_attention on the same (b, h, s, 64) tensors
+    results["flash_attn_fwd"] += flash_main_checks(randn)
+    # K1: 2-sample slices of ds1 and ds2, the layout the projection gives,
+    # both dtypes; library: scaled_dot_product_attention on the same (b, h,
+    # s, 64) tensors
     for tag, (b, h, s) in (("ds1", (2, 5, 4096)), ("ds2", (2, 10, 1024))):
         x32 = [randn(b, s, h, 64).transpose(1, 2) for _ in range(3)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -350,6 +362,18 @@ def phase_kernels() -> dict:
             (8 * tokens * c * c + 4 * b * s * heads * t * t * 64,
              (2 * tokens * c + 4 * c * c + c) * size)))
 
+    from v3d_tpu_torch.kernels.build import library
+    from v3d_tpu_torch.ops.temporal_attention import temporal_core_plan
+
+    smem = library().v3d_temporal_core_smem(18, 64)
+    plan = temporal_core_plan(2, 18, 1024, 10, 64)
+    grid = library().v3d_temporal_core_grid(18, 64, plan["items"])
+    say("3 kernels", f"K3 bf16 block: {plan['threads']} threads, {smem} B of shared "
+        f"memory at t = 18, dh = 64 (plan {plan['smem']}); {grid} blocks (at most "
+        f"{plan['max_blocks']}) at ds2 n={plan['items']}")
+    if smem != plan["smem"]:
+        raise SmokeFailure(f"K3 shared memory {smem} B, temporal_core_plan says "
+                           f"{plan['smem']}")
     # K3: n = b*s*heads = 20480 (ds2), 10240 (ds4), 2560 (ds8), projection
     # output layout (b, t, s, heads*64) as strided views of one buffer;
     # library: scaled_dot_product_attention on the frames reshaped to
@@ -386,6 +410,85 @@ def _attention_work(b, h, sq, sk, d, size):
     """(FLOPs, bytes) of softmax(q k^T) v: two products; q, k, v read once,
     o written once."""
     return 4 * b * h * sq * sk * d, (2 * b * h * sq * d + 2 * b * h * sk * d) * size
+
+
+# K1 at the shapes generation launches (the UNet's ds1 / ds2 self-attention,
+# b = 36 frames of the CFG-doubled video), then what the "flash" routing also
+# sends to K1: one context token (sk = 1) and the ds4 / ds8 self-attention
+K1_MAIN_SHAPES = (("ds1", (36, 5, 4096, 4096)), ("ds2", (36, 10, 1024, 1024)),
+                  ("flash cross ds1", (36, 5, 4096, 1)),
+                  ("flash self ds4", (36, 20, 256, 256)),
+                  ("flash self ds8", (36, 20, 64, 64)))
+LSE_MAX_ABS = 1e-3       # K1's log-sum-exp against the plain one
+WGMMA_MAX_REL = 1e-3     # K1's products alone against torch.matmul in f32
+
+
+def wgmma_checks(randn) -> None:
+    """K1's two wgmma products alone against torch.matmul on the same bf16
+    inputs (f32 sums): S = Q K^T (both K-major) and O = P V (P from
+    registers, V MN-major); layout faults give errors of O(1)."""
+    import torch
+
+    from v3d_tpu_torch.ops.attention import wgmma_probe
+
+    errs = []
+    for which, (sa, sb) in enumerate((((64, 64), (128, 64)), ((64, 128), (128, 64)))):
+        a = randn(*sa).to(torch.bfloat16)
+        b = randn(*sb).to(torch.bfloat16)
+        got = wgmma_probe(which, a, b)
+        want = a.float() @ (b.float().t() if which == 0 else b.float())
+        errs.append(float((got - want).abs().max()) / float(want.abs().max()))
+    ok = max(errs) <= WGMMA_MAX_REL
+    say("3 kernels", f"K1 wgmma products alone vs torch.matmul: Q K^T (K-major) "
+        f"max_rel {errs[0]:.2e}, P V (MN-major V) max_rel {errs[1]:.2e} "
+        f"(<= {WGMMA_MAX_REL:g}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"K1 wgmma products disagree with torch.matmul: {errs}")
+
+
+def flash_main_checks(randn) -> list:
+    """K1 (bf16) at K1_MAIN_SHAPES against its plain version, with its
+    log-sum-exp, the bound and SDPA on the same (b, h, s, d) views of (b, s,
+    h, d) buffers; before them the products alone and the block's shared
+    memory against ``flash_fwd_plan``."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.kernels.build import library
+    from v3d_tpu_torch.ops.attention import (
+        flash_attn_fwd,
+        flash_attn_fwd_plain,
+        flash_fwd_plan,
+    )
+
+    wgmma_checks(randn)
+    smem = library().v3d_flash_attn_fwd_smem()
+    plan = flash_fwd_plan(*K1_MAIN_SHAPES[0][1])
+    say("3 kernels", f"K1 bf16 block: {plan['threads']} threads, {smem} B of shared "
+        f"memory (plan {plan['smem']}), grid {plan['grid']} at ds1")
+    if smem != plan["smem"]:
+        raise SmokeFailure(f"K1 shared memory {smem} B, flash_fwd_plan says {plan['smem']}")
+    out = []
+    for tag, (b, h, sq, sk) in K1_MAIN_SHAPES:
+        q, k, v = (randn(b, s, h, 64).to(torch.bfloat16).transpose(1, 2)
+                   for s in (sq, sk, sk))
+        up = [t_.float() for t_ in (q, k, v)]
+        out.append(_check(
+            "flash_attn_fwd", f"{tag} {(b, h, sq, 64)} sk={sk}", torch.bfloat16,
+            lambda: flash_attn_fwd(q, k, v), lambda: flash_attn_fwd_plain(q, k, v),
+            lambda: flash_attn_fwd_plain(*up), _attention_work(b, h, sq, sk, 64, 2),
+            lambda: F.scaled_dot_product_attention(q, k, v)))
+        _, lse = flash_attn_fwd(q, k, v, with_lse=True)
+        _, lse_ref = flash_attn_fwd_plain(*up, with_lse=True)
+        err = float((lse - lse_ref).abs().max())
+        say("3 kernels", f"K1 {tag} log-sum-exp max_abs {err:.3e} (<= {LSE_MAX_ABS:g}) "
+            f"| {'ok' if err <= LSE_MAX_ABS else 'FAIL'}")
+        if not err <= LSE_MAX_ABS:
+            raise SmokeFailure(f"K1 {tag} log-sum-exp off by {err}")
+        out[-1]["lse_max_abs"] = err
+        del q, k, v, up, lse, lse_ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def wide_checks(randn) -> list:
@@ -904,6 +1007,8 @@ def phase_unet(engine) -> float:
         f"{times['kernels']} plain {times['plain']} | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"UNet forward with kernels disagrees: {quality} dB")
+    profile_steps("4 profile", "UNet forward", fwd, 2, statistics.median(times["kernels"]),
+                  TRAIN_KERNEL_CLASSES, FORWARD_OTHER)
     return quality
 
 
@@ -1222,6 +1327,7 @@ TRAIN_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match 
     ("copies / casts / fills", ("memcpy", "memset", "copy", "fill")),
 )
 TRAIN_OTHER = "elementwise (activations, the plain backwards' arithmetic, loss)"
+FORWARD_OTHER = "elementwise (activations, norms' affine, residuals, embeddings)"
 
 
 def phase_profile(trainer, step_ms: float, steps: int = 5) -> None:

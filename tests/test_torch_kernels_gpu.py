@@ -82,6 +82,69 @@ def test_flash_kernel_ragged(dev, dtype, b, h, sq, sk, pad):
     assert LAUNCHES["flash_attn_fwd"] == before + 1
 
 
+@pytest.mark.parametrize("which", [0, 1], ids=["qk_k_major", "pv_mn_major"])
+def test_k1_wgmma_product_alone(dev, which):
+    """Each wgmma product of K1's bf16 kernel alone against torch.matmul on
+    the same bf16 inputs (f32 sums): Q K^T with both operands K-major, P V
+    with P in registers and V MN-major; a descriptor or fragment-layout
+    fault gives errors of the order of the values."""
+    from v3d_tpu_torch.ops.attention import wgmma_probe
+
+    gen = torch.Generator(device=dev).manual_seed(which)
+    sa, sb = ((64, 64), (128, 64)) if which == 0 else ((64, 128), (128, 64))
+    a, b = (torch.randn(*s_, device=dev, generator=gen).to(torch.bfloat16)
+            for s_ in (sa, sb))
+    got = wgmma_probe(which, a, b)
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float().t() if which == 0 else b.float())
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,h,sq,sk,pad", [(1, 3, 1, 257, 0), (2, 2, 70, 200, 0),
+                                           (2, 3, 100, 1, 0), (2, 2, 70, 200, 3),
+                                           (1, 2, 300, 129, 3)])
+def test_flash_bf16_lse_and_aligned_copy(dev, b, h, sq, sk, pad):
+    """K1's bf16 kernel at ragged and tiny sequences (sq = 1, sk = 1, 70 x
+    200): PSNR >= 40 dB and log-sum-exp within 1e-3 of the plain version.
+    With pad 3 the row strides are no 16-byte multiple, so no tensor map
+    can read the views: the wrapper makes aligned copies and launches the
+    same kernel once."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops import attention as A
+
+    dt = torch.bfloat16
+    q = _strided((b, sq, h, 64), dev, dt, pad).transpose(1, 2)
+    k = _strided((b, h, sk, 64), dev, dt, pad)
+    v = _strided((b, sk, h, 64), dev, dt, pad).transpose(1, 2)
+    for x in (q, k, v):
+        copied = A.tma_operand(x) is not x
+        assert copied == (pad == 3) == (A.tma_strides(x) is None)
+    before = LAUNCHES["flash_attn_fwd"]
+    o, lse = A.flash_attn_fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attn_fwd"] == before + 1
+    ref, lse_ref = A.flash_attn_fwd_plain(q.float(), k.float(), v.float(), with_lse=True)
+    assert torch.isfinite(o).all() and _psnr(o, ref) >= BF16_MIN_PSNR, _psnr(o, ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("s,heads,pad", [(7, 3, 3), (9, 2, 0), (40, 5, 3)])
+def test_temporal_core_kernel_strided(dev, dtype, s, heads, pad):
+    """K3 at t = 18, dh = 64 on q/k/v that are slices of one (2, 18, s,
+    3 heads*64 + pad) buffer: pad 3 makes the strides odd (element loads),
+    pad 0 leaves 16-byte strides (cp.async); one launch."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.temporal_attention import temporal_core, temporal_core_plain
+
+    hd = heads * 64
+    qkv = _strided((2, 18, s, 3 * hd), dev, dtype, pad)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    before = LAUNCHES["temporal_core"]
+    _close(temporal_core, temporal_core_plain, q, k, v, heads)
+    assert LAUNCHES["temporal_core"] == before + 1
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [80, 128, 512])
 @pytest.mark.parametrize("b,h,sq,sk,pad", [(1, 2, 100, 130, 0), (2, 1, 64, 1, 0),

@@ -6,20 +6,43 @@
 // Main path: spatial self-attention of the VideoUNet at ds1 (b*t=36, 5 heads,
 // 4096 tokens) and ds2 (36, 10, 1024), 10 calls per UNet forward.
 //
-// What bounds it on the H100: arithmetic.  One ds1 call is ~7.7e11 FLOP over
-// 9.4e7 bytes of q/k/v/o, far right of the ~295 FLOP/byte ridge.  Two
-// variants, picked per call by dtype:
+// What bounds it on the H100: arithmetic.  One ds1 call (36, 5, 4096, 64) is
+// 7.7e11 FLOP over 3.8e8 bytes of q/k/v/o: 0.782 ms at the 989 TFLOP/s bf16
+// peak against 0.113 ms of bytes; a ds2 call (36, 10, 1024, 64) 0.098 ms.
+// Two variants, picked per call by dtype:
 //
-// - bf16 (the main path): both products on the tensor cores with
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate; no wgmma/TMA yet), in the
-//   register layout of FlashAttention-2.  One block of 4 warps per
-//   (batch*head, 64-row q tile); each warp owns 16 query rows, holds its Q
-//   fragments, the 16 x 64 scores and the 16 x 64 f32 output accumulator in
-//   registers.  K and V tiles of 64 keys are copied into shared memory by
-//   cp.async in two stages, the next tile's copy overlapping this tile's
-//   products, and every fragment is read with ldmatrix (V's transposed).
-//   The score accumulators are reused as P's A fragments (packed to bf16),
-//   and the online softmax reduces each row over the 4 lanes that share it.
+// - bf16 (the main path): the forward of FlashAttention-3 on wgmma and TMA.
+//   One block of 384 threads per (batch*head, 128 query rows): warpgroups 0
+//   and 1 are consumers of 64 query rows each, warpgroup 2 the producer,
+//   whose one elected thread issues every load (setmaxnreg gives the
+//   producer 40 registers a thread and the consumers 232).  The producer
+//   loads the Q tile once, then each 128-key K and V tile (16 KB each)
+//   into a ring of STAGES slots, each slot with a K-full, a V-full and an
+//   empty mbarrier; every load is one cp.async.bulk.tensor of a 4-D tensor
+//   map (d, s, h, b) built per call from the caller's strides, with the
+//   128-byte swizzle (one 64-wide bf16 row is 128 bytes), so any (b, h, s)
+//   view with 16-byte strides is read in place; rows past the sequence come
+//   in as zeros.  A consumer computes S = Q K^T with four
+//   wgmma.m64n128k16 (Q and K both K-major from shared memory), runs the
+//   online softmax in base 2 on the accumulator registers (a row spans the
+//   4 lanes of a quad; keys past sk are set to -inf), converts P to bf16 A
+//   fragments in registers (the accumulator layout of two 8-key chunks is
+//   the A fragment of one 16-key chunk) and adds P V with eight
+//   wgmma.m64n64k16, A from registers and B = V from shared memory,
+//   MN-major.  It then releases the slot.  The epilogue divides by the row
+//   sum, stores O in bf16 through the caller's strides and writes the
+//   log-sum-exp (natural log, f32, contiguous (b, h, sq)) that K7/K8 read.
+//   The wrapper (ops/attention.py tma_operand) copies an operand whose base
+//   or strides are not 16-byte multiples into an aligned buffer first.
+//   Each warpgroup runs its tile's products and softmax in turn (S, wait,
+//   softmax, P V, wait); the two warpgroups and the producer overlap one
+//   another.  Issuing S of the next tile before P V of this one, and
+//   FlashAttention-3's ping-pong of the two warpgroups, measured no faster
+//   on the card (PERF.md).
+//   Per block: 384 threads, 168 registers a thread at entry (ptxas, 0
+//   spilled; chip_smoke.py phase 2), 115,792 bytes of dynamic shared memory
+//   (Q 16 KB + 3 x (K + V) 96 KB + barriers + alignment; phase 3), so one
+//   block per SM.
 // - f32: the CUDA cores, f32 FMA, described below.
 //
 // f32 design: one block per (batch*head, 64-row q tile), 256 threads.  The block
@@ -36,6 +59,8 @@
 // unit-stride), so the strided projection output needs no copy, and o lands
 // in the (b, s, h, d) order the output projection reads.
 #include <cstdint>
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -191,207 +216,467 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 
-// ---- tensor-core variant (bf16) -------------------------------------------
+// ---- wgmma + TMA variant (bf16) --------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_WARPS = 4;               // 16 query rows each
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int LDH = D + 8;                // bf16 row pitch of the smem tiles
-constexpr int TILE = 64 * LDH;            // elements of one 64-row tile
-constexpr size_t TC_SMEM = 4 * TILE * sizeof(bf16);  // K and V tiles, two stages each
+constexpr int CONSUMERS = 2;              // warpgroups of 64 query rows
+constexpr int BM = 64 * CONSUMERS;        // query rows per block
+constexpr int BN = 128;                   // keys per K/V tile
+constexpr int STAGES = 3;                 // K/V ring slots
+constexpr int WG_THREADS = 128;
+constexpr int TC_THREADS = (CONSUMERS + 1) * WG_THREADS;  // the producer last
+// registers a thread after setmaxnreg, within the SM's 65,536
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert((CONSUMERS * CONSUMER_REGS + PRODUCER_REGS) * WG_THREADS <= 65536,
+              "setmaxnreg asks for more registers than an SM has");
+constexpr uint32_t TILE_BYTES = BN * D * 2;  // 16 KB: one 128 x 64 bf16 tile
+constexpr uint32_t Q_BYTES = BM * D * 2;
+// Q, STAGES x (K, V), the barriers, and 1 KB to align the tiles to the
+// 1024-byte period of the 128-byte swizzle
+constexpr size_t TC_SMEM = Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * (1 + 3 * STAGES) + 1024;
 
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long long stride, int rows_left,
-                                           bool vec) {
-  stage_tile64<TC_THREADS, LDH>(dst, src, stride, rows_left, vec);
+// -- mbarriers and TMA --
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
-// K and V tiles go through two shared-memory stages: tile kt + 1 is copied
-// by cp.async while tile kt is computed.  All fragments come from ldmatrix:
-// Q and K non-transposed from their [row][d] tiles, V transposed from its
-// [key][d] tile (so V needs no transpose while it is staged).  With the mma
-// fragment layout (common.cuh, mma_bf16), the S accumulator of two 8-key
-// tiles is already P's A fragment.  Registers are capped so that 4 blocks
-// (16 warps) share an SM: at the UNet's (36, 5, 4096, 64) that ran 18%
-// faster than 3 blocks without the cap, despite 12 B of spills.
-__global__ void __launch_bounds__(TC_THREADS, 4)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int heads, int sq, int sk, Strides qs,
-                    Strides ks, Strides vs, Strides os, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [2][64 keys][LDH]
-  bf16* Vt = Kt + 2 * TILE;                      // [2][64 keys][LDH]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, u = lane % 4;
+// One box of a 4-D tensor map (d, s, h, b) at (0, row, h, b) into shared
+// memory; completion (the box's bytes) is reported to ``bar``.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// -- wgmma --
+
+// Shared-memory matrix descriptor of a tile of 128-byte rows written by TMA
+// with the 128-byte swizzle (8-row atoms of 1024 bytes, tile 1024-aligned).
+// K-major (the reduction dim is the contiguous one, Q and K): SBO = 1024 B
+// between 8-row groups, LBO unused (1).  MN-major (V: keys are the
+// reduction dim, rows; d contiguous): SBO = 1024 B between 8-key groups,
+// LBO the stride between 64-wide column atoms, of which d = 64 has one.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return sw128_desc(addr, 16);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return sw128_desc(addr, TILE_BYTES);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator registers across the async
+// products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d(64 x 128, f32) (+)= A(64 x 16) B(16 x 128), A and B K-major in shared
+// memory.  Accumulator layout (warp w of the warpgroup, g = lane / 4,
+// u = lane % 4): d[4n + 2r + e] is row 16w + g + 8r, column 8n + 2u + e.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x 64, f32) += A(64 x 16) B(16 x 64): A from registers in the
+// mma.sync m16n8k16 A-fragment layout of each warp's 16 rows, B MN-major in
+// shared memory.  Accumulator layout as wgmma_qk's, with 8 column chunks.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S(64 x 128) = Q(64 x 64) K^T: four k-steps of 16 head dims, each 32
+// bytes further along the swizzled 128-byte rows.
+__device__ __forceinline__ void product_qk(float (&s)[64], uint32_t q_addr,
+                                           uint32_t k_addr) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_qk(s, desc_k_major(q_addr + 32 * kk), desc_k_major(k_addr + 32 * kk), kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+}
+
+// O(64 x 64) += P(64 x 128) V: eight k-steps of 16 keys, each 16 rows
+// (2048 bytes) further down the V tile.
+__device__ __forceinline__ void product_pv(float (&o)[32], const uint32_t (&p)[8][4],
+                                           uint32_t v_addr) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc) wgmma_pv(o, p[kc], desc_mn_major(v_addr + 2048 * kc));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+}
+
+// P's A fragments for the P V product from the S accumulator: key chunk kc
+// (keys 16kc..16kc+15) is S's column chunks 2kc and 2kc + 1.
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    p[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+    p[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    p[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    p[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       float* __restrict__ lse, int heads, int sq, int sk, Strides os,
+                       float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* q_tile = base;
+  unsigned char* k_tiles = base + Q_BYTES;
+  unsigned char* v_tiles = k_tiles + STAGES * TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_tiles + STAGES * TILE_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int wg = threadIdx.x / WG_THREADS;
   const int bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
-  const int q0 = blockIdx.x * 64;
-  const bf16* qb = q + bi * qs.b + hi * qs.h;
-  const bf16* kb = k + bi * ks.b + hi * ks.h;
-  const bf16* vb = v + bi * vs.b + hi * vs.h;
-  const bool vec = vec_ok(q, qs.b, qs.h, qs.s) && vec_ok(k, ks.b, ks.h, ks.s) &&
-                   vec_ok(v, vs.b, vs.h, vs.s);
-  // ldmatrix row addresses of this lane (bytes).  Q: row warp*16 + lane % 16,
-  // d half lane / 16.  K: key lane % 8 + 8 * (lane / 16), d half (lane / 8) % 2
-  // (registers 0-1 / 2-3: b0, b1 of two 8-key tiles).  V: key lane % 8 +
-  // 8 * ((lane / 8) % 2), d half lane / 16 (b0, b1 of two 8-dim tiles).
-  const uint32_t k_lane =
-      smem_u32(Kt + (lane % 8 + 8 * (lane / 16)) * LDH + 8 * ((lane / 8) % 2));
-  const uint32_t v_lane =
-      smem_u32(Vt + (lane % 8 + 8 * ((lane / 8) % 2)) * LDH + 8 * (lane / 16));
-  constexpr uint32_t TILE_B = TILE * sizeof(bf16);
-  // softmax in base 2: scores scaled by log2(e) / sqrt(d), so exp2f (one
-  // MUFU.EX2) gives the same probabilities as expf
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = (sk + BN - 1) / BN;
 
-  // Q tile through K stage 1 (free until tile 1 is staged), K/V tile 0 into
-  // stage 0
-  stage_tile(Kt + TILE, qb + q0 * qs.s, qs.s, sq - q0, vec);
-  stage_tile(Kt, kb, ks.s, sk, vec);
-  stage_tile(Vt, vb, vs.s, sk, vec);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, CONSUMERS * WG_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qa[4][4];
-  const uint32_t q_lane =
-      smem_u32(Kt + TILE + (warp * 16 + lane % 16) * LDH + 8 * (lane / 16));
-#pragma unroll
-  for (int ks_ = 0; ks_ < 4; ++ks_) ldmatrix_x4(qa[ks_], q_lane + 32 * ks_);
-  __syncthreads();  // Q read by every warp before stage 1 is refilled
 
-  float acc[8][4];  // O: 8 tiles of 8 head dims, rows g and g + 8
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
-
-  const int n_tiles = (sk + 63) / 64;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) {
-      const int nb = (kt + 1) & 1, k0n = (kt + 1) * 64;
-      stage_tile(Kt + nb * TILE, kb + k0n * ks.s, ks.s, sk - k0n, vec);
-      stage_tile(Vt + nb * TILE, vb + k0n * vs.s, vs.s, sk - k0n, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kt has landed
-    const int k0 = kt * 64;
-    const uint32_t kbase = k_lane + (kt & 1) * TILE_B;
-    const uint32_t vbase = v_lane + (kt & 1) * TILE_B;
-
-    float sc[8][4];  // S: 8 tiles of 8 keys
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-#pragma unroll
-      for (int ks_ = 0; ks_ < 4; ++ks_) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kbase + (16 * np * LDH + 16 * ks_) * sizeof(bf16));
-        mma_bf16(sc[2 * np], qa[ks_], b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], qa[ks_], b[2], b[3]);
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * WG_THREADS) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      tma_load_4d(q_tile, &tq, q_full, q0, hi, bi);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty + s, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full + s, TILE_BYTES);
+        tma_load_4d(k_tiles + s * TILE_BYTES, &tk, k_full + s, j * BN, hi, bi);
+        mbar_expect_tx(v_full + s, TILE_BYTES);
+        tma_load_4d(v_tiles + s * TILE_BYTES, &tv, v_full + s, j * BN, hi, bi);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % WG_THREADS, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, u = lane % 4;
+    const uint32_t q_addr = smem_u32(q_tile + wg * (Q_BYTES / CONSUMERS));
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    uint32_t pa[8][4];
+    float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
 
-    // online softmax for rows g (regs 0,1) and g + 8 (regs 2,3)
-    float mx[2] = {-INFINITY, -INFINITY};
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t parity = (j / STAGES) & 1;
+      mbar_wait(k_full + s, parity);
+      product_qk(sc, q_addr, smem_u32(k_tiles + s * TILE_BYTES));
+
+      // online softmax in base 2 on raw scores: p = 2^(s * scale_log2 - m),
+      // m the running max in scaled units (scale_log2 > 0 keeps the argmax)
+      const int k0 = j * BN;
+      if (k0 + BN > sk) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + 8 * n + 2 * u + (i & 1);
-        sc[n][i] = key < sk ? sc[n][i] * scale_log2 : -INFINITY;
-        mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
+        for (int i = 0; i < 64; ++i)
+          if (k0 + 8 * (i >> 2) + 2 * u + (i & 1) >= sk) sc[i] = -INFINITY;
       }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r] * scale_log2);
+        alpha[r] = exp2f(m_r[r] - m_new);
+        m_r[r] = m_new;
+        neg_m[r] = -m_new;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, neg_m[r]));
+        l_r[r] += sc[i];  // this lane's columns; the quad is summed at the end
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      pack_p(sc, pa);
+
+      mbar_wait(v_full + s, parity);
+      product_pv(acc, pa, smem_u32(v_tiles + s * TILE_BYTES));
+      mbar_arrive(empty + s);
     }
-    float alpha[2];
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+      if (row >= sq) continue;
+      const float inv = 1.f / l_r[r];
+      // natural log of the row's sum of exp(scaled logits); m_r is in log2
+      if (lse != nullptr && u == 0)
+        lse[(long long)bh * sq + row] = (m_r[r] + log2f(l_r[r])) * 0.6931471805599453f;
+      bf16* orow = o + bi * os.b + hi * os.h + row * os.s;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sc[n][i] = exp2f(sc[n][i] - m_r[i >> 1]);
-        l_r[i >> 1] += sc[n][i];  // partial over this lane's columns
-        acc[n][i] *= alpha[i >> 1];
-      }
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * u) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
     }
+  }
+}
 
-    // O += P V: P's A fragments straight from the S registers
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
-      pa[1] = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
-      pa[2] = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-      pa[3] = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vbase + (16 * j * LDH + 16 * dp) * sizeof(bf16));
-        mma_bf16(acc[2 * dp], pa, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // stage kt & 1 is free for tile kt + 2
-  }
+// -- host: tensor maps --
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    const float inv = 1.f / l_r[r];
-    // log-sum-exp of the scaled logits, natural log (m_r is in log2 units)
-    if (lse != nullptr && u == 0)
-      lse[(long long)bh * sq + row] = (m_r[r] + log2f(l_r[r])) * 0.6931471805599453f;
-    bf16* ob = o + bi * os.b + hi * os.h + row * os.s;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + 2 * u) =
-          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    }
-  }
+  return fn;
+}
+
+// Returned when a tensor map cannot be made: no cuTensorMapEncodeTiled, or a
+// base or stride that is not a multiple of 16 bytes (the wrapper copies such
+// an operand first, so this is a caller's fault).
+constexpr int TENSOR_MAP_ERROR = 9001;
+
+// A 4-D map (d, s, h, b) of a bf16 (b, h, s, 64) view with element strides
+// ``st``; boxes of ``box_rows`` x 64 with the 128-byte swizzle.
+int make_map(CUtensorMap* map, const void* ptr, int s, int heads, int b, Strides st,
+             int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return TENSOR_MAP_ERROR;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR;
 }
 
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
               int b, int heads, int sq, int sk, Strides qs, Strides ks, Strides vs,
               Strides os, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + 63) / 64, b * heads);
-  flash_fwd_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, heads, sq, sk, qs,
-      ks, vs, os, 1.f / sqrtf((float)D));
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, sq, heads, b, qs, BM);
+  if (err == 0) err = make_map(&tk, k, sk, heads, b, ks, BN);
+  if (err == 0) err = make_map(&tv, v, sk, heads, b, vs, BN);
+  if (err != 0) return err;
+  // the shared-memory attribute once per device, not at every launch
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev < 64 && !smem_set[dev]) {
+    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
+    smem_set[dev] = e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((sq + BM - 1) / BM, b * heads);
+  flash_fwd_wgmma_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, heads, sq, sk, os,
+      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+// -- the two products alone, for the card tests --
+
+// which = 0: S (64 x 128, f32, row-major) = Q (64 x 64) K^T (K 128 x 64),
+// both bf16 contiguous, loaded by TMA as the kernel loads them.
+// which = 1: O (64 x 64, f32) = P (64 x 128, bf16 contiguous, read into A
+// fragments) V (128 x 64, bf16 contiguous, loaded by TMA).
+__global__ void __launch_bounds__(WG_THREADS)
+wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb, const bf16* __restrict__ p,
+                   float* __restrict__ out, int which) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* a_tile = base;
+  unsigned char* b_tile = base + TILE_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(b_tile + TILE_BYTES);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, u = lane % 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, which == 0 ? TILE_BYTES / 2 + TILE_BYTES : TILE_BYTES);
+    if (which == 0) tma_load_4d(a_tile, &ta, bar, 0, 0, 0);
+    tma_load_4d(b_tile, &tb, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  if (which == 0) {
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    product_qk(s, smem_u32(a_tile), smem_u32(b_tile));
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      out[(warp * 16 + g + 8 * ((i >> 1) & 1)) * BN + 8 * (i >> 2) + 2 * u + (i & 1)] = s[i];
+  } else {
+    float s[64];  // P in the S accumulator layout, then packed as K1 packs it
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      s[i] = __bfloat162float(
+          p[(warp * 16 + g + 8 * ((i >> 1) & 1)) * BN + 8 * (i >> 2) + 2 * u + (i & 1)]);
+    uint32_t pa[8][4];
+    pack_p(s, pa);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    product_pv(acc, pa, smem_u32(b_tile));
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      out[(warp * 16 + g + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + 2 * u + (i & 1)] = acc[i];
+  }
 }
 
 }  // namespace
 
 // q/k/v/o: (b, h, s, 64) through element strides (b, h, s), unit stride on d.
 // lse: null, or (b, h, sq) f32 that receives each row's log-sum-exp of the
-// scaled logits (the residual of the backward, K7/K8).  Returns the
-// cudaError_t of the launch.
+// scaled logits (the residual of the backward, K7/K8).  bf16 q/k/v need
+// 16-byte aligned bases and (b, h, s) strides in multiples of 8 elements
+// (a dim of size 1 may carry any such stride).  Returns the cudaError_t of
+// the launch, or 9001 where a tensor map could not be made.
 extern "C" int v3d_flash_attn_fwd(int dtype, const void* q, const void* k,
                                   const void* v, void* o, int b, int heads,
                                   int sq, int sk, long long qsb, long long qsh,
@@ -409,4 +694,27 @@ extern "C" int v3d_flash_attn_fwd(int dtype, const void* q, const void* k,
     return launch_tc(q, k, v, o, static_cast<float*>(lse), b, heads, sq, sk, qs, ks,
                      vs, os, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one bf16 block, in bytes.
+extern "C" long long v3d_flash_attn_fwd_smem() { return (long long)TC_SMEM; }
+
+// One of the bf16 kernel's two products alone (see wgmma_probe_kernel):
+// which 0: out (64, 128) = a (64, 64) @ b (128, 64)^T; which 1: out (64, 64)
+// = a (64, 128) @ b (128, 64).  a, b contiguous bf16, out f32.
+extern "C" int v3d_flash_wgmma_probe(int which, const void* a, const void* b, void* out,
+                                     void* stream) {
+  CUtensorMap ta, tb;
+  int err = 0;
+  if (which == 0) err = make_map(&ta, a, 64, 1, 1, Strides{64 * 64, 64 * 64, 64}, 64);
+  if (err == 0) err = make_map(&tb, b, BN, 1, 1, Strides{BN * 64, BN * 64, 64}, BN);
+  if (err != 0) return err;
+  if (which != 0) ta = tb;
+  const int smem = 2 * TILE_BYTES + 64 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_probe_kernel<<<1, WG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, static_cast<const bf16*>(a), static_cast<float*>(out), which);
+  return (int)cudaGetLastError();
 }

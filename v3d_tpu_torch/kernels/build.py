@@ -40,6 +40,8 @@ SIGNATURES = {
                            + [_L] * 12 + [_P, _P], _I),
     "v3d_flash_attn_fwd_wide": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _I]
                                 + [_L] * 12 + [_P], _I),
+    "v3d_flash_attn_fwd_smem": ([], _L),
+    "v3d_flash_wgmma_probe": ([_I, _P, _P, _P, _P], _I),
     "v3d_flash_attn_fwd_wide_smem": ([_I, _I], _L),
     "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "v3d_flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
@@ -47,6 +49,8 @@ SIGNATURES = {
                        + [ctypes.c_float, _I, _P], _I),
     "v3d_temporal_core": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 9 + [_P], _I),
+    "v3d_temporal_core_smem": ([_I, _I], _L),
+    "v3d_temporal_core_grid": ([_I, _I, _L], _L),
     "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P], _I),
     "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
     "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 3 + [_P] * 6 + [_P], _I),

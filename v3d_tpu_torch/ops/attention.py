@@ -111,25 +111,108 @@ def _like_projection(b, s, h, d, ref):
                        device=ref.device).transpose(1, 2)
 
 
+# K1's bf16 kernel (csrc/flash_attn_fwd.cu): blocks of 64 query rows per
+# consumer warpgroup plus one producer warpgroup, K/V tiles of 128 keys in a
+# ring of 3 slots; dynamic shared memory = the Q tile + 3 x (K + V) tiles of
+# 16 KB, 10 mbarriers, 1 KB of alignment slack.
+K1_CONSUMERS = 2
+K1_BLOCK_Q = 64 * K1_CONSUMERS
+K1_BLOCK_K = 128
+K1_THREADS = 128 * (K1_CONSUMERS + 1)
+K1_STAGES = 3
+K1_SMEM = (K1_BLOCK_Q * 64 * 2 + 2 * K1_STAGES * K1_BLOCK_K * 64 * 2
+           + 8 * (1 + 3 * K1_STAGES) + 1024)
+TMA_ALIGN = 16  # bytes: a tensor map's base address and strides
+
+
+def flash_fwd_plan(b: int, h: int, sq: int, sk: int) -> dict:
+    """The launch of K1's bf16 kernel for a (b, h, sq, 64) x (b, h, sk, 64)
+    call: grid (query blocks, b*h), threads, shared memory, and the K/V
+    tiles each block walks."""
+    return {"grid": (-(-sq // K1_BLOCK_Q), b * h), "threads": K1_THREADS,
+            "smem": K1_SMEM, "kv_tiles": -(-sk // K1_BLOCK_K)}
+
+
+def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """The (b, h, s) element strides under which a tensor map can read the
+    (b, h, s, d) tensor ``t`` in place, or None: its base and every stride
+    must be a multiple of 16 bytes, d unit-stride.  A dim of size 1 is never
+    stepped, so its stride is replaced by the row width (a stride of 0 or an
+    odd one there does not matter)."""
+    size = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % TMA_ALIGN:
+        return None
+    out = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        if n == 1:
+            st = t.shape[-1]
+        if st <= 0 or (st * size) % TMA_ALIGN:
+            return None
+        out.append(st)
+    return tuple(out)
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where a tensor map can read it (``tma_strides``), else an
+    aligned contiguous copy of it (a new allocation, 16-byte aligned)."""
+    if tma_strides(t) is not None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def wgmma_probe(which: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One of K1's two bf16 products alone, on the card, in f32: ``which`` 0
+    is S = a (64, 64) @ b (128, 64)^T with both operands K-major (Q K^T),
+    1 is O = a (64, 128) @ b (128, 64) with a read into register fragments
+    and b MN-major (P V).  a, b contiguous bf16 on one CUDA device.  For
+    the card tests and chip_smoke.py; not K1, so not counted."""
+    from v3d_tpu_torch.kernels.build import library
+
+    shapes = {0: ((64, 64), (K1_BLOCK_K, 64), (64, K1_BLOCK_K)),
+              1: ((64, K1_BLOCK_K), (K1_BLOCK_K, 64), (64, 64))}
+    a_shape, b_shape, out_shape = shapes[which]
+    for name, x, shape in (("a", a, a_shape), ("b", b, b_shape)):
+        if (x.device.type != "cuda" or x.dtype != torch.bfloat16
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(f"wgmma_probe({which}): {name} must be contiguous "
+                             f"bf16 {shape} on the card, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = library().v3d_flash_wgmma_probe(
+            which, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_probe({which}): launch failed, error {err}")
+    return out
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    with_lse: bool = False):
     """softmax(q k^T / sqrt(d)) v on the (b, h, s, d) layout, d = 64.
 
     q/k/v may be strided views (unit stride on d), as the projection output
-    is.  The result is a (b, h, sq, d) view of a (b, sq, h, d)-contiguous
-    buffer, so merging the heads for the output projection is free.  With
-    ``with_lse`` the kernel also writes each row's log-sum-exp (b, h, sq),
-    the residual the backward needs; the inference path does not ask."""
+    is; in bf16 an operand whose base or strides are not 16-byte multiples
+    is copied to an aligned buffer first (``tma_operand``).  The result is
+    a (b, h, sq, d) view of a (b, sq, h, d)-contiguous buffer, so merging
+    the heads for the output projection is free.  With ``with_lse`` the
+    kernel also writes each row's log-sum-exp (b, h, sq), the residual the
+    backward needs; the inference path does not ask."""
     if use_plain(q, k, v):
         return flash_attn_fwd_plain(q, k, v, with_lse)
     code = _check_bhsd("flash_attn_fwd", q, k, v)
     b, h, sq, d = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_operand(x) for x in (q, k, v))
+        strides = [tma_strides(x) for x in (q, k, v)]
+    else:
+        strides = [x.stride()[:3] for x in (q, k, v)]
     o = _like_projection(b, sq, h, d, q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     launch("flash_attn_fwd", "v3d_flash_attn_fwd", q.device, code,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq,
-           k.shape[2], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           k.shape[2], *strides[0], *strides[1], *strides[2],
            *o.stride()[:3], None if lse is None else lse.data_ptr())
     return (o, lse) if with_lse else o
 

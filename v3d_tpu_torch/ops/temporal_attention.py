@@ -40,6 +40,25 @@ from v3d_tpu_torch.ops.attention import attention_plain
 _MAX_SMEM = 232448
 
 
+# K3's bf16 kernel (csrc/temporal_core.cu): 4 warps a block, each walking
+# (pixel, head) items through 2 shared-memory slots of three t x dh bf16
+# slabs (head width padded to a multiple of 32, rows 8 elements wider),
+# after one zero row; the grid is what fits on the card at once, or fewer.
+K3_WARPS = 4
+K3_SLOTS = 2
+
+
+def temporal_core_plan(b: int, t: int, s: int, heads: int, dh: int) -> dict:
+    """K3's bf16 launch: (pixel, head) items, the most blocks it takes (one
+    item a slot), threads and dynamic shared memory per block; the card's
+    occupancy caps the blocks (``v3d_temporal_core_grid``)."""
+    items = b * s * heads
+    pitch = -(-dh // 32) * 32 + 8
+    return {"items": items, "max_blocks": -(-items // (K3_WARPS * K3_SLOTS)),
+            "threads": 32 * K3_WARPS,
+            "smem": 2 * pitch * (1 + K3_WARPS * K3_SLOTS * 3 * t)}
+
+
 def temporal_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         heads: int) -> torch.Tensor:
     """Plain version of K3: (b, t, s, heads*dh) x3 -> (b, t, s, heads*dh),
