@@ -12,7 +12,11 @@ Phases, each printing lines before the last:
    paths' shapes, with error, median CUDA-event time of both, the bound
    (the least time the card could take: bytes over HBM rate or operations
    over the peak of their type, whichever is larger) and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time (K2: the model's
+   unfused route, as no single call computes T8); K6 at every shape of a
+   UNet forward (``K6_FORWARD_SHAPES``) with the forward's summed time
+   against its summed bound; each redesigned kernel's launch plan against
+   the library's shared-memory figure, and K2's and K6's clock64 phases;
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
    kernels against the same forward in ``reference_mode()`` (plain versions),
    and a ``torch.profiler`` trace of two forwards (device time by kernel
@@ -150,6 +154,25 @@ KERNEL_PATH = {"flash_attn_fwd": "gen", "temporal_block": "gen",
                "flash_attn_fwd_wide": "routes"}
 
 
+# K6's calls in one full-width V3D-512 UNet forward (bf16, the CFG-doubled
+# video of 36 frames at 64^2 latents): (B, C, *spatial) of the GroupNorm
+# input, fused SiLU, calls.  105 calls, 18 shapes; the list a meta-device
+# forward of VideoUNet gives (tests/test_torch_k6_k2_plans.py holds it so).
+K6_FORWARD_SHAPES = (
+    ((36, 320, 64, 64), False, 5), ((36, 320, 64, 64), True, 8),
+    ((36, 640, 32, 32), False, 5), ((36, 640, 32, 32), True, 6),
+    ((36, 1280, 16, 16), False, 5), ((36, 1280, 16, 16), True, 6),
+    ((36, 1280, 8, 8), False, 1), ((36, 1280, 8, 8), True, 11),
+    ((36, 2560, 8, 8), True, 3), ((36, 640, 64, 64), True, 2),
+    ((36, 1920, 32, 32), True, 1), ((36, 960, 32, 32), True, 1),
+    ((36, 320, 32, 32), True, 1), ((36, 2560, 16, 16), True, 2),
+    ((36, 960, 64, 64), True, 1), ((36, 1280, 32, 32), True, 1),
+    ((36, 1920, 16, 16), True, 1), ((36, 640, 16, 16), True, 1),
+    ((2, 320, 18, 64, 64), True, 10), ((2, 640, 18, 32, 32), True, 10),
+    ((2, 1280, 18, 16, 16), True, 10), ((2, 1280, 18, 8, 8), True, 14),
+)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -182,6 +205,40 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Median CUDA-event time of one call, in ms, replayed from a CUDA graph
+    of back-to-back calls (enough for ~2 ms, at most 20): the card's time
+    alone.  ``cuda_ms`` of a call whose host path (the Python wrapper, tens
+    of us) outlasts its kernels times the host; in a forward the host runs
+    ahead of the card, which then pays only the kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per = max(1, min(20, int(2e-3 / max(time.perf_counter() - t0, 1e-6))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    del graph
+    torch.cuda.empty_cache()
     return statistics.median(times)
 
 
@@ -343,24 +400,7 @@ def phase_kernels() -> dict:
                 (4 * b * h * s * s * 64, 4 * b * h * s * 64 * size),
                 lambda: F.scaled_dot_product_attention(q, k, v)))
 
-    # K2: the ds1 temporal layer, x (2, 18, 4096, 320), 5 heads of 64; no
-    # single library call computes projections + attention + projection
-    b, t, s, c, heads = 2, 18, 4096, 320, 5
-    x32 = randn(b, t, s, c)
-    w32 = [randn(c, c, scale=c ** -0.5) for _ in range(4)] + [randn(c, scale=0.1)]
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype)
-        ws = [w.to(dtype) for w in w32]
-        up = [x.float()] + [w.float() for w in ws]
-        size = 4 if dtype == torch.float32 else 2
-        tokens = b * t * s
-        results["temporal_block"].append(_check(
-            "temporal_block", f"ds1 {(b, t, s, c)} h{heads}", dtype,
-            lambda: temporal_block_attention(x, *ws, heads),
-            lambda: temporal_block_attention_plain(x, *ws, heads),
-            lambda: temporal_block_attention_plain(*up, heads),
-            (8 * tokens * c * c + 4 * b * s * heads * t * t * 64,
-             (2 * tokens * c + 4 * c * c + c) * size)))
+    results["temporal_block"] = temporal_block_checks(randn)
 
     from v3d_tpu_torch.kernels.build import library
     from v3d_tpu_torch.ops.temporal_attention import temporal_core_plan
@@ -585,11 +625,170 @@ def route_checks(randn) -> dict:
     return res
 
 
+def unfused_temporal_layer(x, wq, wk, wv, wo, bo, heads):
+    """The temporal layer as the model runs it at the other levels
+    (models/video_attention.py): three torch.matmul projections, K3, the
+    output projection and the bias.  K2's yardstick: no single PyTorch call
+    computes T8."""
+    import torch
+
+    from v3d_tpu_torch.ops.temporal_attention import temporal_core
+
+    q, k, v = (torch.matmul(x, w.t()) for w in (wq, wk, wv))
+    return torch.matmul(temporal_core(q, k, v, heads), wo.t()) + bo
+
+
+def _cycle_means(prof, names) -> str:
+    """Mean clock64 cycles per block of each phase (blocks that held rows)."""
+    p = prof.view(-1, len(names) + 1).double()
+    p = p[p[:, -1] > 0]
+    means = p[:, :-1].mean(0).tolist()
+    total = sum(means)
+    return ", ".join(f"{n} {m:,.0f} ({100 * m / total:.1f}%)" for n, m in zip(names, means))
+
+
+def temporal_block_checks(randn) -> list:
+    """K2 (T8) at the ds1 layer, x (2, 18, 4096, 320), 5 heads of 64, f32
+    (FMA variant) and bf16 (wgmma + TMA); library column: the unfused route
+    (``unfused_temporal_layer``); the bf16 block's plan against
+    ``v3d_temporal_block_smem`` and its clock64 phases."""
+    import torch
+
+    from v3d_tpu_torch.kernels.build import library
+    from v3d_tpu_torch.ops._dispatch import DTYPE_CODES
+    from v3d_tpu_torch.ops.temporal_attention import (
+        temporal_block_attention,
+        temporal_block_attention_plain,
+        temporal_block_fwd,
+        temporal_block_plan,
+    )
+
+    b, t, s, c, heads = 2, 18, 4096, 320, 5
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = temporal_block_plan(b, t, s, c, heads, 64, dtype)
+        smem = library().v3d_temporal_block_smem(DTYPE_CODES[dtype], t, c, heads, 64)
+        say("3 kernels", f"K2 {str(dtype).split('.')[-1]} plan at ds1: {plan} | "
+            f"v3d_temporal_block_smem {smem} B")
+        if smem != plan["smem"]:
+            raise SmokeFailure(f"K2 shared memory {smem} B, temporal_block_plan says "
+                               f"{plan['smem']}")
+    x32 = randn(b, t, s, c)
+    w32 = [randn(c, c, scale=c ** -0.5) for _ in range(4)] + [randn(c, scale=0.1)]
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        ws = [w.to(dtype) for w in w32]
+        up = [x.float()] + [w.float() for w in ws]
+        size = 4 if dtype == torch.float32 else 2
+        tokens = b * t * s
+        out.append(_check(
+            "temporal_block", f"ds1 {(b, t, s, c)} h{heads}", dtype,
+            lambda: temporal_block_attention(x, *ws, heads),
+            lambda: temporal_block_attention_plain(x, *ws, heads),
+            lambda: temporal_block_attention_plain(*up, heads),
+            (8 * tokens * c * c + 4 * b * s * heads * t * t * 64,
+             (2 * tokens * c + 4 * c * c + c) * size),
+            lambda: unfused_temporal_layer(x, *ws, heads)))
+    plan = temporal_block_plan(b, t, s, c, heads, 64)
+    prof = torch.zeros(plan["grid"] * 6, dtype=torch.int64, device=x.device)
+    temporal_block_fwd(x, *ws, heads, prof=prof)
+    torch.cuda.synchronize()
+    say("3 kernels", "K2 bf16 clock64 cycles per block (mean of "
+        f"{plan['grid']} blocks): " + _cycle_means(
+            prof, ("x wait", "QKV products", "softmax", "out projection", "store")))
+    return out
+
+
+def group_norm_forward_mix(randn) -> list:
+    """K6 at every shape of one UNet forward (``K6_FORWARD_SHAPES``), bf16
+    with bf16 scale and bias as the model holds them, each against its plain
+    version; its plan against ``v3d_group_norm_smem``; then the forward's and
+    a generation's summed kernel time against the summed bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.kernels.build import library
+    from v3d_tpu_torch.ops.group_norm import (
+        group_norm_act_plain,
+        group_norm_fwd,
+        group_norm_plan,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, total_ms, total_graph, total_bound, launches = [], 0.0, 0.0, 0.0, 0
+    for shape, silu, calls in K6_FORWARD_SHAPES:
+        B, C = shape[:2]
+        L = math.prod(shape[2:])
+        plan = group_norm_plan(B, L, C, 32, torch.bfloat16, sms)
+        smem = library().v3d_group_norm_smem(1, C, 32, plan["gpc"], plan["rows_per_block"],
+                                             plan["splits"])
+        if smem != plan["smem"]:
+            raise SmokeFailure(f"K6 {shape}: shared memory {smem} B, group_norm_plan "
+                               f"says {plan['smem']}")
+        fmt = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+        x = (randn(*shape) + 0.3).to(torch.bfloat16).contiguous(memory_format=fmt)
+        w = (1 + randn(C, scale=0.1)).to(torch.bfloat16)
+        bias = randn(C, scale=0.1).to(torch.bfloat16)
+        up = x.float()
+        say("3 kernels", f"K6 plan {shape}: {plan['path']}, {plan['launches']} "
+            f"launch(es), grid {plan['grid']}, cluster {plan['cluster']}, "
+            f"{plan['gpc']} groups a slice, {plan['rows_per_block']} rows a block of "
+            f"{plan['row_bytes']} B, smem {smem} B")
+        res = _check(
+            "group_norm", f"forward {shape}{' +SiLU' if silu else ''}",
+            torch.bfloat16,
+            lambda: group_norm_fwd(x, w, bias, 32, 1e-5, silu),
+            lambda: group_norm_act_plain(x, w, bias, 32, 1e-5, silu),
+            lambda: group_norm_act_plain(up, w, bias, 32, 1e-5, silu),
+            group_norm_work(shape, silu, 2, 2),
+            lambda: F.group_norm(x, 32, w, bias, 1e-5))
+        res.update(path=plan["path"],
+                   graph_ms=graph_ms(lambda: group_norm_fwd(x, w, bias, 32, 1e-5, silu)))
+        say("3 kernels", f"K6 forward {shape}{' +SiLU' if silu else ''}: "
+            f"{res['graph_ms']:.4f} ms a call replayed from a CUDA graph, {calls} "
+            f"calls a forward (K6_FORWARD_SHAPES)")
+        out.append(res)
+        total_ms += calls * res["ms"]
+        total_graph += calls * res["graph_ms"]
+        total_bound += calls * res["bound_ms"]
+        launches += calls
+        del x, up
+    say("3 kernels", f"K6 a UNet forward: {launches} launches (K6_FORWARD_SHAPES, "
+        f"the meta-device forward's list; phases 5 and 9 count the path's), summed kernel time "
+        f"{total_ms:.4f} ms against a summed bound of {total_bound:.4f} ms "
+        f"({100 * total_bound / total_ms:.1f}% of the bound), {total_graph:.4f} ms "
+        f"replayed from CUDA graphs ({100 * total_bound / total_graph:.1f}%); 25 "
+        f"forwards of a generation: {25 * total_ms:.3f} ms ({25 * total_graph:.3f} "
+        f"from graphs) against {25 * total_bound:.3f} ms (the VAE encode's and "
+        f"decode's calls not counted)")
+    shape = (36, 320, 64, 64)
+    plan = group_norm_plan(36, 4096, 320, 32, torch.bfloat16, sms)
+    x = (randn(*shape) + 0.3).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.ones(320, device=x.device, dtype=torch.bfloat16)
+    prof = torch.zeros(plan["grid"][0] * 4, dtype=torch.int64, device=x.device)
+    group_norm_fwd(x, w, w, 32, 1e-5, True, prof=prof)
+    torch.cuda.synchronize()
+    say("3 kernels", f"K6 one-launch clock64 cycles per block at {shape} (mean of "
+        f"{plan['grid'][0]} blocks): " + _cycle_means(
+            prof, ("load", "statistics + cluster combine", "normalise + store")))
+    return out
+
+
+def group_norm_work(shape, silu: bool, elem: int, param_elem: int):
+    """(FLOPs, bytes) of one K6 call on ``shape``: the statistics and the
+    affine (5 an element, 8 with SiLU); x read once, y written once, scale
+    and bias read once."""
+    n = math.prod(shape)
+    return (8 if silu else 5) * n, 2 * n * elem + 2 * shape[1] * param_elem
+
+
 def group_norm_checks(randn) -> list:
     """K6 (T9) at the UNet's ds1 map (36, 320, 64, 64), a temporal
     GroupNorm's (2, 320, 18, 64, 64) and the VAE decoder's largest (18, 128,
     512, 512), f32 and bf16, with and without SiLU; library:
-    F.group_norm on the same tensor; bound: 2 reads + 1 write of x."""
+    F.group_norm on the same tensor; bound: one read of x, scale and bias,
+    one write of y.  Then every shape of a UNet forward
+    (``group_norm_forward_mix``)."""
     import torch
     import torch.nn.functional as F
 
@@ -606,18 +805,17 @@ def group_norm_checks(randn) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             up = x.float()
-            n = x.numel()
             for silu in (False, True):
                 out.append(_check(
                     "group_norm", f"{tag} {shape}{' +SiLU' if silu else ''}", dtype,
                     lambda: group_norm_fwd(x, w32, b32, 32, 1e-5, silu),
                     lambda: group_norm_act_plain(x, w32, b32, 32, 1e-5, silu),
                     lambda: group_norm_act_plain(up, w32, b32, 32, 1e-5, silu),
-                    ((8 if silu else 5) * n, 3 * n * x.element_size()),
+                    group_norm_work(shape, silu, x.element_size(), 4),
                     lambda: F.group_norm(x, 32, w32.to(dtype), b32.to(dtype), 1e-5)))
             del x, up
         del x32
-    return out
+    return out + group_norm_forward_mix(randn)
 
 
 def flash_bwd_checks(randn) -> dict:
@@ -1317,7 +1515,7 @@ TRAIN_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match 
     ("K7 flash_attn_bwd_dkv", ("flash_bwd_dkv",)),
     ("K2 temporal_block", ("temporal_block",)),
     ("K3 temporal_core", ("temporal_core",)),
-    ("K6 group_norm", ("gn_stats", "gn_finalize", "gn_norm")),
+    ("K6 group_norm", ("gn_slice", "gn_stats", "gn_norm")),
     ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
     ("AdamW + EMA (foreach)", ("adam", "multi_tensor", "foreach", "lerp")),

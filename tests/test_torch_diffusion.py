@@ -178,24 +178,29 @@ def test_build_cond_matches_jax_engine():
     assert rep["concat"].flatten().tolist() == [0, 0, 0, 1, 1, 1]
 
 
-def _rgba(h, w, seed):
+def _rgba(h, w, seed, box=None):
+    """Random RGBA, opaque inside ``box`` (rows r0:r1, cols c0:c1)."""
     rng = np.random.RandomState(seed)
     img = (rng.rand(h, w, 4) * 255).astype(np.uint8)
+    r0, r1, c0, c1 = box or (h // 4, 3 * h // 4, w // 5, 4 * w // 5)
     img[..., 3] = 0
-    img[h // 4: 3 * h // 4, w // 5: 4 * w // 5, 3] = 255
+    img[r0:r1, c0:c1, 3] = 255
     return img
 
 
 @pytest.mark.parametrize("case", ["rgba", "rgb_matte", "no_border"])
 def test_preprocess_matches_jax_without_cv2(case, monkeypatch):
-    """The port never uses cv2; the JAX module falls back to the same index
-    sampling when cv2 is absent, so patch it away there."""
+    """Without cv2 the JAX module resizes by index sampling; at unit scales
+    (a 64^2 image whose object spans the border's 44 pixels, resolution 64)
+    every resize of both modules is the identity, so matte, recentring and
+    compositing must agree exactly."""
     monkeypatch.setattr(jpre, "cv2", None)
-    img = _rgba(90, 70, 5)
+    img = _rgba(64, 64, 5, box=(7, 52, 12, 43))  # bbox extent 44 x 30
     kw = dict(border_ratio=0.3, resolution=64)
     if case == "rgb_matte":
         img = img[..., :3].copy()
-        img[:10] = 255  # a white band the luminance matte removes
+        img[img[..., 0] >= 250, 0] = 249
+        img[_rgba(64, 64, 5, box=(7, 52, 12, 43))[..., 3] == 0] = 255  # matted out
         kw["remove_bg"] = jpre.luminance_matte
     if case == "no_border":
         kw["border_ratio"] = 0.0
@@ -204,3 +209,118 @@ def test_preprocess_matches_jax_without_cv2(case, monkeypatch):
     got = ppre.preprocess_image(img, **kw)
     assert got.shape == (64, 64, 3) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def _smooth_rgba(h, w, seed, box):
+    """A smooth gradient with noise, opaque inside an ellipse filling ``box``
+    (rows r0:r1, cols c0:c1)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    img = np.zeros((h, w, 4), np.uint8)
+    img[..., :3] = np.clip(np.stack([200 * xx, 150 * yy, 120 + 60 * xx * yy], -1)
+                           + rng.rand(h, w, 3) * 50, 0, 255)
+    r0, r1, c0, c1 = box
+    cy, cx, ry, rx = (r0 + r1 - 1) / 2, (c0 + c1 - 1) / 2, (r1 - r0) / 2, (c1 - c0) / 2
+    inside = ((np.mgrid[:h, :w][0] - cy) / ry) ** 2 + ((np.mgrid[:h, :w][1] - cx) / rx) ** 2 <= 1
+    img[..., 3] = np.where(inside, 255, 0)
+    return img
+
+
+# (image size, opaque box, border ratio, resolution); the recentred crop is
+# scaled down (fractional), up, or by exactly 1/2
+C5_CASES = {
+    "downscale": ((600, 480), (100, 520, 60, 420), 0.3, 128),
+    "upscale": ((90, 70), (30, 60, 20, 45), 0.2, 64),
+    "integer": ((100, 100), (10, 91, 20, 61), 0.6, 50),
+    "matte": ((120, 96), (20, 100, 10, 80), 0.3, 64),
+    "no_border": ((90, 70), (10, 80, 10, 60), 0.0, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(C5_CASES))
+def test_preprocess_matches_jax_with_cv2(case):
+    """C5: the port's numpy resizes against the JAX module with cv2 present
+    (INTER_AREA in ``recenter``, INTER_LINEAR after): within one uint8 level
+    on the recentred canvas (OpenCV rounds its fixed-point and float sums in
+    other places) and 0.01 on the [-1, 1] output."""
+    pytest.importorskip("cv2")
+    assert jpre.cv2 is not None
+    (h, w), box, border, res = C5_CASES[case]
+    img = _smooth_rgba(h, w, 3, box)
+    if case == "integer":
+        # bbox extent 80 x 40 -> 40 x 20: the desired 40 is half of it
+        assert int(100 * (1 - border)) * 2 == box[1] - 1 - box[0]
+    kw = dict(border_ratio=border, resolution=res)
+    if case == "matte":
+        img = img[..., :3].copy()
+        img[img.min(-1) >= 250] = 249
+        outside = _smooth_rgba(h, w, 3, box)[..., 3] == 0
+        img[outside] = 255
+        kw["remove_bg"] = jpre.luminance_matte
+    if border > 0:
+        rgba = img if img.shape[-1] == 4 else jpre.luminance_matte(img)
+        ref_c = jpre.recenter(rgba, rgba[..., -1] > 0, border)
+        got_c = ppre.recenter(rgba, rgba[..., -1] > 0, border)
+        assert got_c.shape == ref_c.shape and got_c.dtype == np.uint8
+        assert np.abs(got_c.astype(int) - ref_c.astype(int)).max() <= 1
+    ref = jpre.preprocess_image(img, **kw)
+    kw.pop("remove_bg", None)
+    got = ppre.preprocess_image(img, **kw)
+    assert got.shape == (res, res, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=0, atol=0.01)
+
+
+@pytest.mark.parametrize("src,dst", [((37, 53), (11, 16)), ((40, 60), (20, 15)),
+                                     ((9, 13), (31, 22)), ((30, 20), (45, 12)),
+                                     ((64, 64), (64, 64))])
+def test_numpy_resizes_match_cv2(src, dst):
+    """``area_resize`` (uint8, INTER_AREA) within one level of cv2 and
+    ``linear_resize`` (float32, INTER_LINEAR) within float rounding, down,
+    up, by integer factors and at mixed scales."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(sum(src) + sum(dst))
+    x = (rng.rand(*src, 4) * 255).astype(np.uint8)
+    ref = cv2.resize(x, dst[::-1], interpolation=cv2.INTER_AREA)
+    got = ppre.area_resize(x, *dst)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    xf = rng.rand(*src, 3).astype(np.float32)
+    ref = cv2.resize(xf, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_allclose(ppre.linear_resize(xf, *dst), ref, rtol=0, atol=1e-6)
+
+
+def _area_weights(n_in, n_out):
+    """(n_out, n_in) weights of a box filter: the share of output cell i's
+    source interval [i s, (i + 1) s), s = n_in / n_out, that source pixel j
+    covers."""
+    s = n_in / n_out
+    lo = np.arange(n_out)[:, None] * s
+    j = np.arange(n_in)[None, :]
+    return np.clip(np.minimum(lo + s, j + 1) - np.maximum(lo, j), 0, None) / s
+
+
+def _tent_weights(n_in, n_out):
+    """(n_out, n_in) weights of a unit tent at each output pixel's source
+    position, half-pixel centres, clamped to the edge pixels' centres."""
+    pos = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0, n_in - 1)
+    return np.clip(1 - np.abs(pos[:, None] - np.arange(n_in)[None, :]), 0, None)
+
+
+@pytest.mark.parametrize("src,dst", [((37, 53), (11, 16)), ((40, 60), (20, 15)),
+                                     ((9, 13), (31, 22)), ((12, 10), (36, 25))])
+def test_numpy_resizes_match_box_and_tent_filters(src, dst):
+    """Without cv2: ``area_resize`` at a fractional downscale, an integer
+    one and upscales against an explicit box filter (each output pixel the
+    area-weighted mean of the source it covers; within one level for
+    rounding), and ``linear_resize`` against an explicit tent filter."""
+    rng = np.random.RandomState(sum(src) + sum(dst))
+    x = (rng.rand(*src, 4) * 255).astype(np.uint8)
+    wy, wx = _area_weights(src[0], dst[0]), _area_weights(src[1], dst[1])
+    ref = np.clip(np.rint(np.einsum("ai,bj,ijc->abc", wy, wx, x.astype(np.float64))), 0, 255)
+    got = ppre.area_resize(x, *dst)
+    assert got.shape == (*dst, 4) and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    xf = rng.rand(*src, 3).astype(np.float32)
+    wy, wx = _tent_weights(src[0], dst[0]), _tent_weights(src[1], dst[1])
+    ref = np.einsum("ai,bj,ijc->abc", wy, wx, xf.astype(np.float64))
+    np.testing.assert_allclose(ppre.linear_resize(xf, *dst), ref, rtol=0, atol=1e-6)

@@ -131,9 +131,11 @@ def test_wrapper_validates_and_counts(kernel_path):
     assert y.shape == x.shape and y.is_contiguous(memory_format=torch.channels_last)
     fn, args = kernel_path[0]
     assert fn == "v3d_group_norm" and args[0] == 0 and args[5] == 0
-    B, L, C, G, splits = args[7:12]
-    assert (B, L, C, G) == (3, 35, 64, 32) and 1 <= splits <= L
-    assert args[12:] == (1e-5, 1)
+    B, L, C, G = args[7:11]
+    assert (B, L, C, G) == (3, 35, 64, 32) and args[11:13] == (1e-5, 1)
+    plan = gn.group_norm_plan(B, L, C, G, torch.float32)
+    assert args[13:17] == (plan["gpc"], plan["cluster"], plan["rows_per_block"],
+                           plan["splits"]) and args[17] is None
     v = torch.randn(2, 32, 18, 4, 4).contiguous(memory_format=torch.channels_last_3d)
     gn.group_norm_fwd(v.bfloat16(), torch.ones(32).bfloat16(), torch.ones(32).bfloat16())
     assert kernel_path[1][1][7:10] == (2, 18 * 16, 32) and kernel_path[1][1][5] == 1

@@ -7,8 +7,9 @@ so without the repository's conftest):
 
 Ragged, strided and narrow shapes that the main path does not reach
 (chip_smoke.py phase 3 covers the main path's shapes), in both dtypes, so
-that the f32 FMA variants and the bf16 tensor-core variants, and the 16-byte
-and the scalar load paths of the latter, each run.  Tolerances:
+that the f32 FMA variants and the bf16 tensor-core variants, and the
+in-place and the copied operands of the TMA kernels, each run; K6's one-
+and two-launch paths.  Tolerances:
 
 - float32: max |kernel - plain| <= 1e-4 * max |plain| (f32 sums in another
   order than cuBLAS);
@@ -233,6 +234,66 @@ def test_temporal_block_kernel(dev, dtype, t, s, c, heads, pad):
     _close(temporal_block_attention, temporal_block_attention_plain, x, *w, bo, heads)
 
 
+def _k2_inputs(dev, t, s, layout, c=320, heads=5, b=2):
+    """bf16 x (b, t, s, c) contiguous, as a (b, s, t, c) buffer's transpose
+    (strides in place for TMA), or with rows 3 elements wider (odd strides:
+    the wrapper copies); weights of the ds1 layer."""
+    if layout == "transposed":
+        x = torch.randn(b, s, t, c, device=dev).to(torch.bfloat16).transpose(1, 2)
+    else:
+        x = _strided((b, t, s, c), dev, torch.bfloat16, 3 if layout == "odd" else 0)
+    w = [(torch.randn(c, c, device=dev) * c ** -0.5).to(torch.bfloat16) for _ in range(4)]
+    bo = (torch.randn(c, device=dev) * 0.1).to(torch.bfloat16)
+    return x, w, bo
+
+
+@pytest.mark.parametrize("t,s,layout", [(18, 4096, "contiguous"), (18, 4097, "contiguous"),
+                                        (18, 509, "odd"), (14, 4096, "contiguous"),
+                                        (14, 509, "transposed"), (18, 100, "transposed")])
+def test_temporal_block_wgmma_kernel(dev, t, s, layout):
+    """K2's bf16 wgmma + TMA kernel at the ds1 layer's width: ds1 itself, a
+    ragged s (4096 + 1 and the prime 509: the last block's pixels past s
+    are zero-filled and not stored), t = 14 and 18, strides read in place
+    or copied first; one launch counted a call."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.temporal_attention import (
+        temporal_block_attention,
+        temporal_block_attention_plain,
+        temporal_block_plan,
+    )
+
+    x, w, bo = _k2_inputs(dev, t, s, layout)
+    assert temporal_block_plan(2, t, s, 320, 5, 64)["path"] == "wgmma"
+    before = LAUNCHES["temporal_block"]
+    _close(temporal_block_attention, temporal_block_attention_plain, x, *w, bo, 5)
+    assert LAUNCHES["temporal_block"] == before + 1
+
+
+def test_temporal_block_wgmma_under_autograd(dev):
+    """K2 forward under autograd: the output is the kernel's (one launch) and
+    the gradients of x and every weight are the plain recompute's
+    (``_block_bwd``), equal to autograd through the plain version."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.temporal_attention import (
+        temporal_block_attention,
+        temporal_block_attention_plain,
+    )
+
+    x, w, bo = _k2_inputs(dev, 18, 300, "contiguous")
+    args = [a.detach().requires_grad_() for a in (x, *w, bo)]
+    before = LAUNCHES["temporal_block"]
+    out = temporal_block_attention(*args, 5)
+    assert LAUNCHES["temporal_block"] == before + 1
+    cot = torch.randn(out.shape, device=dev).to(out.dtype)
+    got = torch.autograd.grad(out, args, cot)
+    ref_args = [a.detach().requires_grad_() for a in args]
+    ref_out = temporal_block_attention_plain(*ref_args, 5)
+    want = torch.autograd.grad(ref_out, ref_args, cot)
+    assert _psnr(out, ref_out) >= BF16_MIN_PSNR
+    for g, r in zip(got, want):
+        assert torch.allclose(g.float(), r.float(), rtol=0, atol=1e-6 * float(r.abs().max()))
+
+
 def test_kernels_refuse_instead_of_falling_back(dev):
     from v3d_tpu_torch.ops import reference_mode
     from v3d_tpu_torch.ops.attention import flash_attn_fwd
@@ -356,6 +417,65 @@ def test_group_norm_kernel(dev, dtype, shape, silu, scale_dtype):
     _close(group_norm_fwd, group_norm_act_plain, x, scale, bias, 32, 1e-5, silu)
     assert LAUNCHES["group_norm"] == before + 1
     assert group_norm_fwd(x, scale, bias, 32, 1e-5, silu).is_contiguous(memory_format=fmt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,C,spatial,silu,scale_dtype,path", [
+    (1, 128, (8, 8), True, torch.float32, "one_launch"),
+    (1, 128, (96, 96), False, torch.bfloat16, "one_launch"),
+    (2, 320, (18, 64, 64), True, torch.float32, "two_launch"),   # L = 73,728
+    (2, 640, (18, 8, 8), True, torch.bfloat16, "one_launch"),
+    (36, 2560, (8, 8), False, torch.float32, "one_launch"),
+    (36, 320, (16, 16), True, torch.bfloat16, "one_launch"),
+    (2, 1280, (18, 16, 16), False, torch.float32, "one_launch"),
+    (36, 960, (64, 64), True, torch.bfloat16, "one_launch"),     # clusters of 16
+    (2, 640, (18, 32, 32), True, torch.bfloat16, "one_launch"),  # 16, one an SM (bf16)
+    (1, 256, (288, 256), True, torch.bfloat16, "two_launch")])
+def test_group_norm_one_and_two_launch_paths(dev, dtype, B, C, spatial, silu,
+                                             scale_dtype, path):
+    """K6's two paths (``group_norm_plan``) against the plain version, one
+    launch counted a call; a second call gives the same bits (fixed
+    summation order; the two-launch path's tickets are back at 0)."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.group_norm import (
+        group_norm_act_plain,
+        group_norm_fwd,
+        group_norm_plan,
+    )
+
+    fmt = torch.channels_last if len(spatial) == 2 else torch.channels_last_3d
+    x = (torch.randn(B, C, *spatial, device=dev) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=fmt)
+    assert group_norm_plan(B, x[0, 0].numel(), C, 32, dtype)["path"] == path
+    scale = (1 + 0.1 * torch.randn(C, device=dev)).to(scale_dtype)
+    bias = (0.1 * torch.randn(C, device=dev)).to(scale_dtype)
+    before = LAUNCHES["group_norm"]
+    _close(group_norm_fwd, group_norm_act_plain, x, scale, bias, 32, 1e-5, silu)
+    assert LAUNCHES["group_norm"] == before + 1
+    first = group_norm_fwd(x, scale, bias, 32, 1e-5, silu)
+    assert torch.equal(first, group_norm_fwd(x, scale, bias, 32, 1e-5, silu))
+    assert LAUNCHES["group_norm"] == before + 3
+
+
+def test_group_norm_two_launch_on_two_streams(dev):
+    """Two-launch calls running at once on two streams: each call zeroes
+    the tickets in its own scratch, so both give the one-stream bits."""
+    from v3d_tpu_torch.ops.group_norm import group_norm_fwd, group_norm_plan
+
+    xs = [(torch.randn(2, 320, 18, 64, 64, device=dev) + k).to(torch.bfloat16)
+          .contiguous(memory_format=torch.channels_last_3d) for k in range(2)]
+    assert group_norm_plan(2, 73728, 320, 32, torch.bfloat16)["path"] == "two_launch"
+    w = torch.ones(320, device=dev)
+    want = [group_norm_fwd(x, w, w, 32, 1e-5, True) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    got = [None, None]
+    for _ in range(3):
+        for k, (x, st) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(st):
+                got[k] = group_norm_fwd(x, w, w, 32, 1e-5, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, want))
 
 
 def test_group_norm_refuses_nchw(dev):

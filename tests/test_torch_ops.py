@@ -188,15 +188,7 @@ def test_temporal_core_wrapper_validates_and_counts(kernel_path):
     assert LAUNCHES["temporal_core"] == 1
 
 
-def test_temporal_block_wrapper_validates_and_counts(kernel_path, monkeypatch):
-    class FakeLib:
-        @staticmethod
-        def v3d_temporal_block_smem(code, tt, c, heads, dh):
-            return 1000 if c <= 64 else 10 ** 6
-
-    import v3d_tpu_torch.kernels.build as build
-
-    monkeypatch.setattr(build, "library", lambda: FakeLib)
+def test_temporal_block_wrapper_validates_and_counts(kernel_path):
     x = torch.randn(1, 18, 64, 32)
     w = [torch.randn(32, 32) for _ in range(4)] + [torch.randn(32)]
     out = ttemp.temporal_block_attention(x, *w, 2)
@@ -206,8 +198,10 @@ def test_temporal_block_wrapper_validates_and_counts(kernel_path, monkeypatch):
     with pytest.raises(ValueError, match="wo"):
         ttemp.temporal_block_attention(x, *w[:3], w[3][:, :16].contiguous(),
                                        w[4], 2)
-    big = torch.randn(1, 18, 64, 128)
-    wb = [torch.randn(128, 128) for _ in range(4)] + [torch.randn(128)]
+    # f32, c = 704 in 11 heads of 64: the FMA kernel's tiles need 242,016 B
+    big = torch.randn(1, 18, 64, 704)
+    wb = [torch.randn(704, 704) for _ in range(4)] + [torch.randn(704)]
+    assert ttemp.temporal_block_plan(1, 18, 64, 704, 11, 64, torch.float32)["smem"] > 232448
     with pytest.raises(ValueError, match="shared memory"):
-        ttemp.temporal_block_attention(big, *wb, 2)
+        ttemp.temporal_block_attention(big, *wb, 11)
     assert LAUNCHES["temporal_block"] == 1

@@ -39,6 +39,8 @@
 //   another.  Issuing S of the next tile before P V of this one, and
 //   FlashAttention-3's ping-pong of the two warpgroups, measured no faster
 //   on the card (PERF.md).
+//   The mbarrier, TMA, descriptor and wgmma helpers live in hopper.cuh,
+//   shared with K2 (temporal_block.cu).
 //   Per block: 384 threads, 168 registers a thread at entry (ptxas, 0
 //   spilled; chip_smoke.py phase 2), 115,792 bytes of dynamic shared memory
 //   (Q 16 KB + 3 x (K + V) 96 KB + barriers + alignment; phase 3), so one
@@ -60,9 +62,7 @@
 // in the (b, s, h, d) order the output projection reads.
 #include <cstdint>
 
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -237,138 +237,10 @@ constexpr uint32_t Q_BYTES = BM * D * 2;
 // 1024-byte period of the 128-byte swizzle
 constexpr size_t TC_SMEM = Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * (1 + 3 * STAGES) + 1024;
 
-// -- mbarriers and TMA --
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "bra.uni LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-D tensor map (d, s, h, b) at (0, row, h, b) into shared
-// memory; completion (the box's bytes) is reported to ``bar``.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row),
-      "r"(h), "r"(b)
-      : "memory");
-}
-
-// -- wgmma --
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows written by TMA
-// with the 128-byte swizzle (8-row atoms of 1024 bytes, tile 1024-aligned).
-// K-major (the reduction dim is the contiguous one, Q and K): SBO = 1024 B
-// between 8-row groups, LBO unused (1).  MN-major (V: keys are the
-// reduction dim, rows; d contiguous): SBO = 1024 B between 8-key groups,
-// LBO the stride between 64-wide column atoms, of which d = 64 has one.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return sw128_desc(addr, 16);
-}
+// V read MN-major (keys are the reduction dim; d contiguous): LBO is the
+// stride between 64-wide column atoms, of which d = 64 has one.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
   return sw128_desc(addr, TILE_BYTES);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accumulator registers across the async
-// products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d(64 x 128, f32) (+)= A(64 x 16) B(16 x 128), A and B K-major in shared
-// memory.  Accumulator layout (warp w of the warpgroup, g = lane / 4,
-// u = lane % 4): d[4n + 2r + e] is row 16w + g + 8r, column 8n + 2u + e.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
-      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d(64 x 64, f32) += A(64 x 16) B(16 x 64): A from registers in the
-// mma.sync m16n8k16 A-fragment layout of each warp's 16 rows, B MN-major in
-// shared memory.  Accumulator layout as wgmma_qk's, with 8 column chunks.
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // S(64 x 128) = Q(64 x 64) K^T: four k-steps of 16 head dims, each 32
@@ -379,9 +251,10 @@ __device__ __forceinline__ void product_qk(float (&s)[64], uint32_t q_addr,
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_qk(s, desc_k_major(q_addr + 32 * kk), desc_k_major(k_addr + 32 * kk), kk);
+    wgmma_m64n128k16_ss(s, desc_k_major(q_addr + 32 * kk),
+                        desc_k_major(k_addr + 32 * kk), kk);
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(s);
 }
 
@@ -392,9 +265,10 @@ __device__ __forceinline__ void product_pv(float (&o)[32], const uint32_t (&p)[8
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc) wgmma_pv(o, p[kc], desc_mn_major(v_addr + 2048 * kc));
+  for (int kc = 0; kc < BN / 16; ++kc)
+    wgmma_m64n64k16_rs(o, p[kc], desc_mn_major(v_addr + 2048 * kc));
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(o);
 }
 
@@ -408,11 +282,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[8][4]
     p[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
     p[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
   }
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
 }
 
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -454,14 +323,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS * WG_THREADS) {
       mbar_expect_tx(q_full, Q_BYTES);
-      tma_load_4d(q_tile, &tq, q_full, q0, hi, bi);
+      tma_load_4d(q_tile, &tq, q_full, 0, q0, hi, bi);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(empty + s, ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(k_full + s, TILE_BYTES);
-        tma_load_4d(k_tiles + s * TILE_BYTES, &tk, k_full + s, j * BN, hi, bi);
+        tma_load_4d(k_tiles + s * TILE_BYTES, &tk, k_full + s, 0, j * BN, hi, bi);
         mbar_expect_tx(v_full + s, TILE_BYTES);
-        tma_load_4d(v_tiles + s * TILE_BYTES, &tv, v_full + s, j * BN, hi, bi);
+        tma_load_4d(v_tiles + s * TILE_BYTES, &tv, v_full + s, 0, j * BN, hi, bi);
       }
     }
   } else {
@@ -546,48 +415,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- host: tensor maps --
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Returned when a tensor map cannot be made: no cuTensorMapEncodeTiled, or a
-// base or stride that is not a multiple of 16 bytes (the wrapper copies such
-// an operand first, so this is a caller's fault).
-constexpr int TENSOR_MAP_ERROR = 9001;
-
 // A 4-D map (d, s, h, b) of a bf16 (b, h, s, 64) view with element strides
 // ``st``; boxes of ``box_rows`` x 64 with the 128-byte swizzle.
 int make_map(CUtensorMap* map, const void* ptr, int s, int heads, int b, Strides st,
              int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return TENSOR_MAP_ERROR;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR;
+  return encode_bf16_map(map, ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -639,8 +476,8 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar, which == 0 ? TILE_BYTES / 2 + TILE_BYTES : TILE_BYTES);
-    if (which == 0) tma_load_4d(a_tile, &ta, bar, 0, 0, 0);
-    tma_load_4d(b_tile, &tb, bar, 0, 0, 0);
+    if (which == 0) tma_load_4d(a_tile, &ta, bar, 0, 0, 0, 0);
+    tma_load_4d(b_tile, &tb, bar, 0, 0, 0, 0);
   }
   mbar_wait(bar, 0);
   if (which == 0) {

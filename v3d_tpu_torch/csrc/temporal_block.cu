@@ -9,29 +9,53 @@
 // 5 heads of 64), 5 calls per UNet forward.  All three products run inside
 // this kernel, as they do inside the Pallas body: no cuBLAS.
 //
-// What bounds it on the H100: the projections.  Per pixel they cost
+// What bounds it on the H100: the products.  Per pixel they cost
 // 4 * 18 * 320 * 320 MACs (~15 MFLOP for ~23 KB of x in and out, ~640
-// FLOP/byte in bf16), right of the ridge, so the data moves once and the
-// product units set the time.  Two variants, picked per call:
+// FLOP/byte in bf16), right of the ridge: 0.126 ms at (2, 18, 4096, 320).
+// Two variants, picked per call (ops/temporal_attention.py
+// temporal_block_plan says which):
 //
-// - bf16 with c, dh multiples of 16, t <= 20 and 16-byte aligned weights (the
-//   main path): the products run on the tensor cores (mma.sync.m16n8k16, bf16
-//   in, f32 accumulate, fragments by ldmatrix; no wgmma yet).  A block of 16
-//   warps takes TC_PIX = 4 pixels x t frames (72 rows, pixel-major, padded to
-//   80 = 5 row tiles), keeps the x tile and the concatenated head outputs in
-//   shared memory as bf16 (rows padded by 16 B so ldmatrix does not
-//   conflict), and one head's q/k/v in f32.  The weights (800 KB, L2-resident)
-//   stream through shared memory in 32-deep chunks by cp.async,
-//   double-buffered (tc_pass); each warp owns one 16-column tile for all 5
-//   row tiles.  One pass computes a head's q, k and v together (192
-//   columns); the output projection is two passes after all heads, its tile
-//   written back through shared memory with 16-byte stores.  The 18-frame
-//   softmax runs on the CUDA cores in f32, one warp per pixel.
-//   A WMMA version of the same dataflow ran at ~3 ms: its fragment loads were
-//   generic loads, one row tile at a time behind a branch, so each warp waited
-//   on every load (clock64 per phase: the products took ~75% of the cycles).
-// - otherwise (f32, other widths): the same dataflow with f32 FMA products,
-//   described below.
+// - bf16 with dh = 64 and c a multiple of 160 whose tiles fit (the main
+//   path): wgmma + TMA.  A block of 384 threads takes P = 128 / t pixels x
+//   t frames (126 token rows at t = 18 or 14) and reads x through a 4-D
+//   tensor map (c, s, t, b) of its strides, boxes of 64 channels x P pixels
+//   x t frames with the 128-byte swizzle: a row is (frame, pixel), pixels
+//   past s arrive as zeros and the output, written back by TMA through a map
+//   of the same shape, is clipped there, so a ragged s needs no other path.
+//   Warpgroups 0 and 1 are consumers of 64 rows each, warpgroup 2 the
+//   producer (setmaxnreg 232 / 40), whose one thread issues every load: x
+//   once, then each head's Wq|Wk|Wv rows (192 x 16-deep chunks, 6 KB) and
+//   finally Wo's rows (160 x 16-deep, two passes of 160 output columns)
+//   through a 5-slot ring of mbarriers, 32-byte swizzle (the torch Linear
+//   layout (out, in) is the K-major B operand as it is).  Per head a
+//   consumer runs wgmma.m64n192k16 over the x tile (A from shared memory) to
+//   get q | k | v in registers and writes them as bf16 (XOR-swizzled
+//   128-byte rows): k and v into a tile pair, q into the head's slot of the
+//   concatenated head outputs.  Then one warp per pixel, all 8 consumer
+//   warps busy while pixels remain, runs the t-frame attention on mma.sync
+//   (pixel_attention) and writes o over the pixel's q rows.  The output
+//   projection (wgmma.m64n160k16, A = the head outputs, two passes) adds the
+//   bias and writes the tile into the x buffer, which TMA stores.
+//   Shared memory (c = heads*dh = 320): x 80 KB + head outputs 80 KB + k, v
+//   32 KB + ring 30 KB + barriers = 228,440 B of the 232,448, one block an
+//   SM.  x, the head outputs and k / v cannot shrink at 128 rows, so the
+//   ring gets what is left: five one-k-step slots, up to 24 KB of weights in
+//   flight while the consumers read the fifth.
+//   clock64 a block at ds1 (H100): x wait 6.3k cycles, QKV products 48.0k,
+//   softmax 23.3k, output projection 18.8k, store 3.6k.  The products take
+//   2.5x their tensor-core time (QKV 19.2k): they wait on the weight stream
+//   (800 KB a block from L2).  Measured and not kept: 112-row tiles with two
+//   24 KB slots (each weight byte serves 108 rows, not 126); sharing each
+//   chunk between the 2 blocks of a cluster (TMA multicast, each block
+//   loading half: 2.9x slower with a 2-slot ring, the two blocks waiting on
+//   each other at every slot).  Pallas keeps q/k/v in f32 and P in f32; here
+//   q, k, v and P are rounded to bf16 for the tensor cores (S and the
+//   softmax stay f32).
+// - otherwise (f32, other widths): f32 FMA products, described below.
+//
+// With a non-null ``prof`` the wgmma kernel's consumer thread 0 records
+// clock64 per block: waiting for x, the QKV products, the softmax, the
+// output projection, the store (chip_smoke.py phase 3 prints the means).
 //
 // FMA variant: a block takes PIX neighbouring pixels of one video and all t frames
 // (R = t * PIX token rows), reading x straight from (b, t, s, c) through its
@@ -49,7 +73,7 @@
 // block uses ~85 KB of shared memory in bf16, ~131 KB in f32.
 #include <cstdint>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -165,226 +189,392 @@ temporal_block_kernel(const T* __restrict__ x, const T* __restrict__ wq,
   }
 }
 
+// ---- wgmma + TMA variant (bf16, dh = 64) ------------------------------------
 
-// ---- tensor-core variant (bf16) -------------------------------------------
+constexpr int WG_THREADS = 128;
+constexpr int TB_CONSUMERS = 2;
+constexpr int TB_THREADS = (TB_CONSUMERS + 1) * WG_THREADS;  // the producer last
+constexpr int TB_ROWS = 64 * TB_CONSUMERS;  // rows of the wgmma products
+constexpr int TB_TILE_ROWS = 128;  // token rows a block: P = 128 // t pixels
+constexpr int TB_DH = 64;
+constexpr int TB_KCH = 16;      // depth of a weight chunk: 32-byte rows, one k-step
+constexpr int TB_OUT_N = 160;   // output columns of one output-projection pass
+constexpr int TB_STAGES = 5;
+constexpr uint32_t CHUNK = TB_TILE_ROWS * 128;  // 128 rows x 64 bf16, 128-byte swizzle
+constexpr uint32_t QKV_STAGE = 3 * TB_DH * TB_KCH * 2;  // 6 KB
+constexpr uint32_t OUT_STAGE = TB_OUT_N * TB_KCH * 2;   // 5 KB
+constexpr uint32_t STAGE_BYTES = QKV_STAGE > OUT_STAGE ? QKV_STAGE : OUT_STAGE;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PROF_SLOTS = 6;
+static_assert((TB_CONSUMERS * CONSUMER_REGS + PRODUCER_REGS) * WG_THREADS <= 65536,
+              "setmaxnreg asks for more registers than an SM has");
 
-constexpr int TC_WARPS = 16;
-constexpr int TC_THREADS = TC_WARPS * 32;
-constexpr int TC_PIX = 4;    // pixels per block
-constexpr int MT = 5;        // row tiles: t * TC_PIX <= 16 * MT
-constexpr int RP = 16 * MT;  // token rows, zero-padded
-constexpr int ROW_PAD = 8;   // bf16 elements (16 B) of padding per smem row
-constexpr int KCH = 32;      // depth of a staged weight chunk
-constexpr int LDW = KCH + ROW_PAD;
-constexpr int PASS_COLS = TC_WARPS * 16;  // columns of one product pass
-
-struct TcLayout {
-  int ldx, ldo, ldq;
-  size_t off_os, off_qkv, off_ps, off_w, total;
+// Byte offsets from the 1024-aligned base: x tile (c / 64 chunks), head
+// outputs (inner / 64 chunks), k and v (one chunk each), the ring, the
+// barriers; the total adds 1 KB of alignment slack.
+struct TbLayout {
+  size_t os, kv, ring, bars, total;
 };
 
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-__host__ __device__ inline TcLayout tc_layout(int t, int c, int inner, int dh) {
-  TcLayout L;
-  L.ldx = c + ROW_PAD;
-  L.ldo = inner + ROW_PAD;
-  L.ldq = dh + 4;
-  size_t off = align128((size_t)RP * L.ldx * sizeof(bf16));
-  L.off_os = off;
-  off = align128(off + (size_t)RP * L.ldo * sizeof(bf16));
-  L.off_qkv = off;
-  off = align128(off + (size_t)3 * RP * L.ldq * sizeof(float));
-  L.off_ps = off;
-  off = align128(off + (size_t)TC_PIX * t * (t + 1) * sizeof(float));
-  L.off_w = off;
-  L.total = off + (size_t)2 * PASS_COLS * LDW * sizeof(bf16);
+__host__ __device__ inline TbLayout tb_layout(int c, int inner) {
+  TbLayout L;
+  L.os = (size_t)(c / 64) * CHUNK;
+  L.kv = L.os + (size_t)(inner / 64) * CHUNK;
+  L.ring = L.kv + 2 * (size_t)CHUNK;
+  L.bars = L.ring + (size_t)TB_STAGES * STAGE_BYTES;
+  L.total = L.bars + 8 * (1 + 2 * TB_STAGES) + 1024;
   return L;
 }
 
-// One block-wide product: C[0:RP, 0:ncol] = A[0:RP, 0:K] B, where column j
-// of B is the bf16 row wrow(j) in global memory (torch Linear layout, length
-// K).  ncol <= PASS_COLS and K are multiples of 16.  The weight rows are
-// staged in shared memory in KCH-deep chunks by cp.async into two buffers, so
-// the next chunk's copy overlaps this chunk's products and every weight byte
-// is read from L2 once per block, in 16-byte pieces.  Warp w owns column
-// tile w for all MT row tiles: its B fragment feeds MT products, and the MT
-// A fragments are all loaded before the first product.  epi(row, col, c0, c1)
-// takes the results of columns col and col + 1 of one row.
-template <typename RowFn, typename Epi>
-__device__ __forceinline__ void tc_pass(const bf16* A, int lda, int K, int ncol,
-                                        RowFn wrow, bf16* wbuf, Epi epi) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool active = warp * 16 < ncol;
-  const int nk = (K + KCH - 1) / KCH;
-  float acc[MT][2][4] = {};
-  // ldmatrix row addresses of this lane (bytes in the shared window): A rows
-  // lane % 16, column half lane / 16; B (weight) rows lane % 8 + 8 * (lane / 16),
-  // k half (lane / 8) % 2, so registers 0-1 / 2-3 are the b0/b1 of the two
-  // 8-column halves of the warp's tile.
-  const uint32_t a_base = smem_u32(A + (lane % 16) * lda + 8 * (lane / 16));
-  const uint32_t b_base = smem_u32(
-      wbuf + (warp * 16 + lane % 8 + 8 * (lane / 16)) * LDW + 8 * ((lane / 8) % 2));
-  auto stage = [&](int kc) {
-    bf16* dst = wbuf + (kc & 1) * PASS_COLS * LDW;
-    const int k0 = kc * KCH, vpr = min(KCH, K - k0) / 8;  // 16-byte pieces per row
-    for (int e = tid; e < ncol * vpr; e += TC_THREADS) {
-      const int j = e / vpr, kk = (e % vpr) * 8;
-      cp_async16(dst + j * LDW + kk, wrow(j) + k0 + kk);
-    }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      stage(kc + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk kc has landed for every thread's copies
-    const int k0 = kc * KCH, kch = min(KCH, K - k0);
-    if (active) {
-      const uint32_t bb = b_base + (kc & 1) * PASS_COLS * LDW * sizeof(bf16);
-      for (int kk = 0; kk < kch; kk += 16) {
-        uint32_t b[4], a[MT][4];
-        ldmatrix_x4(b, bb + kk * sizeof(bf16));
+// Byte offset of bf16 column pair (8n + 2u, +1) of row r in a 128-byte-row
+// tile with the 128-byte swizzle (16-byte chunk n XOR r % 8).
+__device__ __forceinline__ uint32_t sw_off(int r, int n, int u) {
+  return r * 128 + ((n ^ (r & 7)) << 4) + 4 * u;
+}
+
+__device__ __forceinline__ void st_bf16x2(unsigned char* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Attention over the t <= 32 frames of pixel p, one warp, on mma.sync
+// m16n8k16 (bf16 in, f32 sums): frame j of pixel p is row j * pix + p of
+// the q, k and v tiles (bf16, 128-byte rows, sw_off).  S = q k^T as 2 x 4
+// tiles of 16 frames x 8 keys (keys past t set to -inf; frames past t read
+// frame 0's row and are not stored), the softmax in f32 on the S fragments
+// (a row spans the 4 lanes of a quad), P rounded to bf16 as the A fragments
+// of P v (the S layout of two 8-key tiles is the A layout of one 16-key
+// step), v by transposing ldmatrix.  o (scaled by 1 / row sum) is written
+// as bf16 over the pixel's q rows, which only this warp reads.
+__device__ __forceinline__ void pixel_attention(unsigned char* qo, const unsigned char* ks,
+                                                const unsigned char* vs, int t, int pix,
+                                                int p, float scale_log2) {
+  const int lane = threadIdx.x % 32, g = lane / 4, u = lane % 4;
+  const uint32_t q_a = smem_u32(qo), k_a = smem_u32(ks), v_a = smem_u32(vs);
+  auto row = [&](int j) { return (j < t ? j : 0) * pix + p; };
+  auto at = [](int r, int chunk) { return (uint32_t)(r * 128 + ((chunk ^ (r & 7)) << 4)); };
+  float S[2][4][4] = {};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(a[mt], a_base + (mt * 16 * lda + k0 + kk) * sizeof(bf16));
+  for (int kk = 0; kk < 4; ++kk) {  // head dims 16kk .. 16kk + 15
+    uint32_t a[2][4], b[2][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][1], a[mt], b[2], b[3]);
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4(a[mt], q_a + at(row(16 * mt + lane % 16), 2 * kk + lane / 16));
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+      ldmatrix_x4(b[nb], k_a + at(row(16 * nb + lane % 8 + 8 * (lane / 16)),
+                                  2 * kk + (lane / 8) % 2));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        mma_bf16(S[mt][nt], a[mt], b[nt / 2][2 * (nt % 2)], b[nt / 2][2 * (nt % 2) + 1]);
+  }
+  uint32_t pa[2][2][4];
+  float inv[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows 16mt + g + 8h
+      float m = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * nt + 2 * u + e >= t) S[mt][nt][2 * h + e] = -INFINITY;
+          m = fmaxf(m, S[mt][nt][2 * h + e]);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = exp2f((S[mt][nt][2 * h + e] - m) * scale_log2);
+          S[mt][nt][2 * h + e] = v;
+          sum += v;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[mt][h] = 1.f / sum;
+    }
+#pragma unroll
+    for (int ks2 = 0; ks2 < 2; ++ks2) {  // keys 16ks2 .. 16ks2 + 15
+      pa[mt][ks2][0] = pack_bf16(S[mt][2 * ks2][0], S[mt][2 * ks2][1]);
+      pa[mt][ks2][1] = pack_bf16(S[mt][2 * ks2][2], S[mt][2 * ks2][3]);
+      pa[mt][ks2][2] = pack_bf16(S[mt][2 * ks2 + 1][0], S[mt][2 * ks2 + 1][1]);
+      pa[mt][ks2][3] = pack_bf16(S[mt][2 * ks2 + 1][2], S[mt][2 * ks2 + 1][3]);
+    }
+  }
+  float O[2][8][4] = {};
+#pragma unroll
+  for (int ks2 = 0; ks2 < 2; ++ks2) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {  // head dims 16nb .. 16nb + 15
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, v_a + at(row(16 * ks2 + lane % 8 + 8 * ((lane / 8) % 2)),
+                                    2 * nb + lane / 16));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(O[mt][2 * nb], pa[mt][ks2], b[0], b[1]);
+        mma_bf16(O[mt][2 * nb + 1], pa[mt][ks2], b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * mt + g + 8 * h;
+      if (i < t) {
+        const int r = i * pix + p;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          st_bf16x2(qo + sw_off(r, nt, u), O[mt][nt][2 * h] * inv[mt][h],
+                    O[mt][nt][2 * h + 1] * inv[mt][h]);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(TB_THREADS, 1)
+temporal_block_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap twq,
+                            const __grid_constant__ CUtensorMap twk,
+                            const __grid_constant__ CUtensorMap twv,
+                            const __grid_constant__ CUtensorMap two,
+                            const __grid_constant__ CUtensorMap tout,
+                            const bf16* __restrict__ bo, int t, int s, int c, int heads,
+                            int pix, float scale_log2, long long* prof) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  const int inner = heads * TB_DH;
+  const TbLayout L = tb_layout(c, inner);
+  unsigned char* xs = base;  // the x tile, later the output tile
+  unsigned char* os = base + L.os;
+  unsigned char* ks = base + L.kv;
+  unsigned char* vs = ks + CHUNK;
+  unsigned char* ring = base + L.ring;
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* full = x_full + 1;
+  uint64_t* empty = full + TB_STAGES;
+
+  const int rows = pix * t;
+  const int n_sb = (s + pix - 1) / pix;
+  const int bi = blockIdx.x / n_sb, s0 = (blockIdx.x % n_sb) * pix;
+  const int xchunks = c / 64, nk = c / TB_KCH, nko = inner / TB_KCH;
+  const int passes = c / TB_OUT_N;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(x_full, 1);
+    for (int i = 0; i < TB_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, TB_CONSUMERS * WG_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the x tile's rows past the box are zero (TMA writes rows < P * t)
+  const int pad = (TB_TILE_ROWS - rows) * 8;
+  for (int e = threadIdx.x; e < xchunks * pad; e += TB_THREADS)
+    *reinterpret_cast<uint4*>(xs + (e / pad) * CHUNK + rows * 128 + (e % pad) * 16) =
+        make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
+
+  if (wg == TB_CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == TB_CONSUMERS * WG_THREADS) {
+      mbar_expect_tx(x_full, (uint32_t)(xchunks * rows * 128));
+      for (int k = 0; k < xchunks; ++k)
+        tma_load_4d(xs + k * CHUNK, &tx, x_full, 64 * k, s0, 0, bi);
+      const int n_stages = heads * nk + passes * nko;
+      for (int j = 0; j < n_stages; ++j) {
+        const int st = j % TB_STAGES;
+        if (j >= TB_STAGES) mbar_wait(empty + st, ((j / TB_STAGES) & 1) ^ 1);
+        unsigned char* dst = ring + st * STAGE_BYTES;
+        if (j < heads * nk) {
+          const int h = j / nk, k0 = (j % nk) * TB_KCH;
+          mbar_expect_tx(full + st, QKV_STAGE);
+          tma_load_2d(dst, &twq, full + st, k0, h * TB_DH);
+          tma_load_2d(dst + QKV_STAGE / 3, &twk, full + st, k0, h * TB_DH);
+          tma_load_2d(dst + 2 * QKV_STAGE / 3, &twv, full + st, k0, h * TB_DH);
+        } else {
+          const int jj = j - heads * nk;
+          mbar_expect_tx(full + st, OUT_STAGE);
+          tma_load_2d(dst, &two, full + st, (jj % nko) * TB_KCH, (jj / nko) * TB_OUT_N);
         }
       }
     }
-    __syncthreads();  // buffer kc & 1 is free for chunk kc + 2
-  }
-  if (active) {
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % WG_THREADS, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, u = lane % 4;
+    const uint32_t x_a = smem_u32(xs) + wg * 64 * 128;  // this warpgroup's 64 rows
+    const uint32_t o_a = smem_u32(os) + wg * 64 * 128;
+    const uint32_t ring_a = smem_u32(ring);
+    const bool timing = prof != nullptr && threadIdx.x == 0;
+    long long clk[PROF_SLOTS] = {};
+    long long t0 = timing ? clock64() : 0;
+    int j = 0;  // ring stages consumed
+
+    mbar_wait(x_full, 0);
+    if (timing) clk[0] = clock64() - t0;
+    for (int h = 0; h < heads; ++h) {
+      if (timing) t0 = clock64();
+      float acc[96];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+      for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+      for (int kc = 0; kc < nk; ++kc, ++j) {
+        const int st = j % TB_STAGES;
+        mbar_wait(full + st, (j / TB_STAGES) & 1);
+        // a 16-deep chunk is a quarter of a 64-wide x chunk's 128-byte rows
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_m64n192k16_ss(acc, desc_k_major(x_a + (kc >> 2) * CHUNK + (kc & 3) * 32),
+                            sw32_desc_k_major(ring_a + st * STAGE_BYTES), kc);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();  // stage j - 1 has been read
+          mbar_arrive(empty + (j - 1) % TB_STAGES);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + (j - 1) % TB_STAGES);
+      if (timing) {
+        clk[1] += clock64() - t0;
+        t0 = clock64();
+      }
+
+      // q (into head h's output tile), k and v of this warpgroup's rows, bf16,
+      // for every consumer to read
+      named_barrier(1, TB_CONSUMERS * WG_THREADS);  // the last head's are read
+      unsigned char* qo = os + h * CHUNK;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = warp * 16 + 8 * j + 2 * u;
-        epi(mt * 16 + g, col, acc[mt][j][0], acc[mt][j][1]);
-        epi(mt * 16 + g + 8, col, acc[mt][j][2], acc[mt][j][3]);
+      for (int r = 0; r < 2; ++r) {
+        const int R = wg * 64 + warp * 16 + g + 8 * r;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          st_bf16x2(qo + sw_off(R, n, u), acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+          st_bf16x2(ks + sw_off(R, n, u), acc[4 * (n + 8) + 2 * r],
+                    acc[4 * (n + 8) + 2 * r + 1]);
+          st_bf16x2(vs + sw_off(R, n, u), acc[4 * (n + 16) + 2 * r],
+                    acc[4 * (n + 16) + 2 * r + 1]);
+        }
+      }
+      named_barrier(1, TB_CONSUMERS * WG_THREADS);
+      // one warp a pixel: all 8 consumer warps while pixels remain
+      for (int p = wg * 4 + warp; p < pix; p += 2 * 4)
+        pixel_attention(qo, ks, vs, t, pix, p, scale_log2);
+      if (timing) clk[2] += clock64() - t0;
+    }
+
+    // output projection from the head outputs, two passes of 160 columns
+    fence_proxy_async();
+    named_barrier(1, TB_CONSUMERS * WG_THREADS);  // every head output is written
+    if (timing) t0 = clock64();
+    for (int pass = 0; pass < passes; ++pass) {
+      float acc[80];
+#pragma unroll
+      for (int i = 0; i < 80; ++i) acc[i] = 0.f;
+      for (int kc = 0; kc < nko; ++kc, ++j) {
+        const int st = j % TB_STAGES;
+        mbar_wait(full + st, (j / TB_STAGES) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_m64n160k16_ss(acc, desc_k_major(o_a + (kc >> 2) * CHUNK + (kc & 3) * 32),
+                            sw32_desc_k_major(ring_a + st * STAGE_BYTES), kc);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty + (j - 1) % TB_STAGES);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + (j - 1) % TB_STAGES);
+      // + bias, bf16, into the x buffer (free since the last head's product)
+#pragma unroll
+      for (int n = 0; n < TB_OUT_N / 8; ++n) {
+        const int col = pass * TB_OUT_N + 8 * n + 2 * u;
+        const float b0 = __bfloat162float(bo[col]), b1 = __bfloat162float(bo[col + 1]);
+        const int chunk8 = col / 8;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int R = wg * 64 + warp * 16 + g + 8 * r;
+          st_bf16x2(xs + (chunk8 / 8) * CHUNK + sw_off(R, chunk8 % 8, u),
+                    acc[4 * n + 2 * r] + b0, acc[4 * n + 2 * r + 1] + b1);
+        }
       }
     }
+    fence_proxy_async();
+    named_barrier(1, TB_CONSUMERS * WG_THREADS);  // the output tile is written
+    if (timing) {
+      clk[3] = clock64() - t0;
+      t0 = clock64();
+    }
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < xchunks; ++k)
+        tma_store_4d(&tout, xs + k * CHUNK, 64 * k, s0, 0, bi);
+      bulk_commit();
+      bulk_wait_read();
+    }
+    if (timing) {
+      clk[4] = clock64() - t0;
+      clk[5] = rows;
+      for (int i = 0; i < PROF_SLOTS; ++i)
+        prof[(long long)blockIdx.x * PROF_SLOTS + i] = clk[i];
+    }
   }
 }
 
-__global__ void __launch_bounds__(TC_THREADS, 1)
-temporal_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
-                         const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                         const bf16* __restrict__ wo, const bf16* __restrict__ bo,
-                         bf16* __restrict__ out, int t, int s, int c, int heads,
-                         int dh, long long xsb, long long xst, long long xss,
-                         float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int inner = heads * dh;
-  const int R = t * TC_PIX;
-  const TcLayout L = tc_layout(t, c, inner, dh);
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                 // [RP][ldx]
-  bf16* os = reinterpret_cast<bf16*>(smem_raw + L.off_os);      // [RP][ldo]
-  float* qkv = reinterpret_cast<float*>(smem_raw + L.off_qkv);  // [3][RP][ldq]
-  float* ps = reinterpret_cast<float*>(smem_raw + L.off_ps);    // [PIX][t][t+1]
-  bf16* wbuf = reinterpret_cast<bf16*>(smem_raw + L.off_w);     // [2][PASS_COLS][LDW]
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int n_sb = (s + TC_PIX - 1) / TC_PIX;
-  const int bi = blockIdx.x / n_sb;
-  const int s0 = (blockIdx.x % n_sb) * TC_PIX;
-  const bf16* xb = x + bi * xsb;
-  const bf16 zero = __float2bfloat16(0.f);
-
-  // token row r <-> (pixel s0 + r / t, frame r % t): a pixel's frames are
-  // consecutive rows.  Padding rows and pixels past s are zero.  16-byte
-  // loads where the layout allows.
-  const bool vec = ((xsb | xst | xss | c) % 8 == 0) &&
-                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  if (vec) {
-    const int cv = c / 8;
-    for (int e = tid; e < RP * cv; e += TC_THREADS) {
-      const int r = e / cv, cc = (e % cv) * 8;
-      const int f = r % t, si = s0 + r / t;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < R && si < s)
-        val = *reinterpret_cast<const uint4*>(xb + f * xst + si * xss + cc);
-      *reinterpret_cast<uint4*>(xs + r * L.ldx + cc) = val;
-    }
-  } else {
-    for (int e = tid; e < RP * c; e += TC_THREADS) {
-      const int r = e / c, cc = e % c;
-      const int f = r % t, si = s0 + r / t;
-      xs[r * L.ldx + cc] = (r < R && si < s) ? xb[f * xst + si * xss + cc] : zero;
-    }
-  }
-  for (int e = tid; e < (RP - R) * inner; e += TC_THREADS)
-    os[(R + e / inner) * L.ldo + e % inner] = zero;
-  __syncthreads();
-
-  for (int h = 0; h < heads; ++h) {
-    // q | k | v of head h side by side: 3 * dh columns, one pass
-    tc_pass(xs, L.ldx, c, 3 * dh,
-            [&](int j) {
-              const int m = j / dh;
-              return (m == 0 ? wq : m == 1 ? wk : wv) + (long long)(h * dh + j % dh) * c;
-            },
-            wbuf,
-            [&](int row, int col, float c0, float c1) {
-              const int m = col / dh;
-              const float sc = m == 0 ? scale : 1.f;
-              *reinterpret_cast<float2*>(qkv + (m * RP + row) * L.ldq + col % dh) =
-                  make_float2(c0 * sc, c1 * sc);
-            });
-    __syncthreads();
-    if (warp < TC_PIX) {
-      const int p = warp;
-      const int r0 = p * t;
-      warp_frame_attention(qkv + r0 * L.ldq, qkv + (RP + r0) * L.ldq,
-                           qkv + (2 * RP + r0) * L.ldq, 1, L.ldq,
-                           ps + p * t * (t + 1), t, dh,
-                           [&](int i, int cc, float val) {
-                             os[(r0 + i) * L.ldo + h * dh + cc] =
-                                 __float2bfloat16(val);
-                           });
-    }
-    __syncthreads();
-  }
-
-  // output projection + bias into the x tile (free now), then one coalesced
-  // store of the tile
-  bf16* ys = xs;
-  for (int n0 = 0; n0 < c; n0 += PASS_COLS) {
-    tc_pass(os, L.ldo, inner, min(PASS_COLS, c - n0),
-            [&](int j) { return wo + (long long)(n0 + j) * inner; }, wbuf,
-            [&](int row, int col, float c0, float c1) {
-              const int n = n0 + col;
-              *reinterpret_cast<__nv_bfloat162*>(ys + row * L.ldx + n) =
-                  __floats2bfloat162_rn(c0 + __bfloat162float(bo[n]),
-                                        c1 + __bfloat162float(bo[n + 1]));
-            });
-  }
-  __syncthreads();
-  bf16* ob = out + (long long)bi * t * s * c;
-  const int cv = c / 8;
-  for (int e = tid; e < R * cv; e += TC_THREADS) {
-    const int r = e / cv, cc = (e % cv) * 8;
-    const int f = r % t, si = s0 + r / t;
-    if (si < s)
-      *reinterpret_cast<uint4*>(ob + ((long long)f * s + si) * c + cc) =
-          *reinterpret_cast<const uint4*>(ys + r * L.ldx + cc);
-  }
+bool wgmma_eligible(int dtype, int t, int c, int heads, int dh) {
+  return dtype == V3D_BF16 && dh == TB_DH && c % TB_OUT_N == 0 && t >= 1 &&
+         t <= 32 && tb_layout(c, heads * dh).total <= 232448;
 }
 
-bool tc_eligible(int dtype, int t, int c, int heads, int dh) {
-  return dtype == V3D_BF16 && c % 16 == 0 && dh % 16 == 0 && t * TC_PIX <= RP &&
-         tc_layout(t, c, heads * dh, dh).total <= 232448;
+// x: (b, t, s, c) through element strides (b, t, s), all multiples of 8
+// (a dim of size 1 excepted), 16-byte aligned; out contiguous.
+int launch_wgmma(const void* x, const void* wq, const void* wk, const void* wv,
+                 const void* wo, const void* bo, void* out, int b, int t, int s, int c,
+                 int heads, long long xsb, long long xst, long long xss, long long* prof,
+                 cudaStream_t stream) {
+  const int inner = heads * TB_DH;
+  const int pix = TB_TILE_ROWS / t;
+  CUtensorMap tx, tq, tk, tv, to, tout;
+  const cuuint64_t xdims[4] = {(cuuint64_t)c, (cuuint64_t)s, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint32_t xbox[4] = {64, (cuuint32_t)pix, (cuuint32_t)t, 1};
+  const cuuint64_t xstr[3] = {(cuuint64_t)xss * 2, (cuuint64_t)xst * 2, (cuuint64_t)xsb * 2};
+  const cuuint64_t ostr[3] = {(cuuint64_t)c * 2, (cuuint64_t)s * c * 2,
+                              (cuuint64_t)t * s * c * 2};
+  const cuuint64_t wdims[2] = {(cuuint64_t)c, (cuuint64_t)inner};
+  const cuuint64_t wstr[1] = {(cuuint64_t)c * 2};
+  const cuuint32_t wbox[2] = {TB_KCH, TB_DH};
+  const cuuint64_t odims[2] = {(cuuint64_t)inner, (cuuint64_t)c};
+  const cuuint64_t owstr[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t obox[2] = {TB_KCH, TB_OUT_N};
+  int err = encode_bf16_map(&tx, x, 4, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = encode_bf16_map(&tout, out, 4, xdims, ostr, xbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) err = encode_bf16_map(&tq, wq, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err == 0) err = encode_bf16_map(&tk, wk, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err == 0) err = encode_bf16_map(&tv, wv, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err == 0) err = encode_bf16_map(&to, wo, 2, odims, owstr, obox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != 0) return err;
+  const size_t smem = tb_layout(c, inner).total;
+  auto kernel = temporal_block_wgmma_kernel;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)b * ((s + pix - 1) / pix);
+  kernel<<<blocks, TB_THREADS, smem, stream>>>(tx, tq, tk, tv, to, tout,
+                                               static_cast<const bf16*>(bo), t, s, c, heads,
+                                               pix, 1.4426950408889634f / sqrtf((float)TB_DH),
+                                               prof);
+  return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 size_t smem_bytes(int t, int c, int heads, int dh, size_t elem) {
   const int R = t * PIX;
@@ -411,40 +601,34 @@ int launch(const void* x, const void* wq, const void* wk, const void* wv,
 
 }  // namespace
 
-// Shared memory the launch needs (bytes) with 16-byte aligned weights; the
-// wrapper refuses shapes over the card's per-block limit before launching.
+// Shared memory the launch needs (bytes); ops/temporal_attention.py
+// temporal_block_plan computes the same, and the wrapper refuses shapes
+// over the card's per-block limit before launching.
 extern "C" long long v3d_temporal_block_smem(int dtype, int t, int c, int heads,
                                              int dh) {
-  if (tc_eligible(dtype, t, c, heads, dh))
-    return (long long)tc_layout(t, c, heads * dh, dh).total;
+  if (wgmma_eligible(dtype, t, c, heads, dh))
+    return (long long)tb_layout(c, heads * dh).total;
   return (long long)smem_bytes(t, c, heads, dh, dtype == V3D_F32 ? 4 : 2);
 }
 
-// x: (b, t, s, c) through element strides (b, t, s), unit channel stride.
-// wq/wk/wv: (heads*dh, c), wo: (c, heads*dh), bo: (c,), all contiguous, torch
-// Linear layout.  out: contiguous (b, t, s, c).  t * 2 <= 64, dh <= 64.
-// Returns the launch's cudaError_t.
+// x: (b, t, s, c) through element strides (b, t, s), unit channel stride
+// (for the bf16 wgmma variant 16-byte aligned with strides in multiples of
+// 8 elements: the wrapper copies other x first).  wq/wk/wv: (heads*dh, c),
+// wo: (c, heads*dh), bo: (c,), all contiguous and 16-byte aligned, torch
+// Linear layout.  out: contiguous (b, t, s, c).  t <= 32, dh <= 64.  prof:
+// null, or b * ceil(s / (128 / t)) * 6 int64 for the wgmma variant's
+// per-block cycles.  Returns the launch's cudaError_t, or 9001 where a
+// tensor map could not be made.
 extern "C" int v3d_temporal_block(int dtype, const void* x, const void* wq,
                                   const void* wk, const void* wv, const void* wo,
                                   const void* bo, void* out, int b, int t, int s,
                                   int c, int heads, int dh, long long xsb,
-                                  long long xst, long long xss, void* stream) {
+                                  long long xst, long long xss, void* prof,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc_eligible(dtype, t, c, heads, dh) && aligned16(wq) && aligned16(wk) &&
-      aligned16(wv) && aligned16(wo) && aligned16(out)) {
-    const size_t smem = tc_layout(t, c, heads * dh, dh).total;
-    cudaError_t err = cudaFuncSetAttribute(
-        temporal_block_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)b * ((s + TC_PIX - 1) / TC_PIX);
-    temporal_block_tc_kernel<<<blocks, TC_THREADS, smem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
-        static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
-        static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
-        static_cast<bf16*>(out), t, s, c, heads, dh, xsb, xst, xss,
-        1.f / sqrtf((float)dh));
-    return (int)cudaGetLastError();
-  }
+  if (wgmma_eligible(dtype, t, c, heads, dh))
+    return launch_wgmma(x, wq, wk, wv, wo, bo, out, b, t, s, c, heads, xsb, xst, xss,
+                        static_cast<long long*>(prof), st);
   if (dtype == V3D_F32)
     return launch<float>(x, wq, wk, wv, wo, bo, out, b, t, s, c, heads, dh, xsb,
                          xst, xss, st);

@@ -9,7 +9,9 @@ with a plain C interface, loaded with ctypes:
     nvcc -shared -o build/kernels/libv3d_tpu_torch_kernels.so build/kernels/*.o
 
 The library is built at first use and rebuilt when the hash of the sources
-changes.  A failed build raises.  Nothing here runs at import time.
+changes, headers included (``csrc/common.cuh``; ``csrc/hopper.cuh``, the
+mbarrier / TMA / wgmma helpers of K1 and K2).  A failed build raises.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -45,13 +47,14 @@ SIGNATURES = {
     "v3d_flash_attn_fwd_wide_smem": ([_I, _I], _L),
     "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "v3d_flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
-    "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 5
-                       + [ctypes.c_float, _I, _P], _I),
+    "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 4
+                       + [ctypes.c_float] + [_I] * 5 + [_P, _P], _I),
+    "v3d_group_norm_smem": ([_I] * 6, _L),
     "v3d_temporal_core": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 9 + [_P], _I),
     "v3d_temporal_core_smem": ([_I, _I], _L),
     "v3d_temporal_core_grid": ([_I, _I, _L], _L),
-    "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P], _I),
+    "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P, _P], _I),
     "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
     "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 3 + [_P] * 6 + [_P], _I),
     "v3d_gs_composite_bwd": ([_P] * 3 + [_I] * 3 + [_P] * 7 + [_P], _I),

@@ -97,8 +97,11 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     from v3d_tpu_torch.kernels.build import library
 
     fn = getattr(library(), fn_name)
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {err}")
     LAUNCHES[name] += 1

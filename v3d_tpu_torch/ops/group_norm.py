@@ -3,7 +3,9 @@
 Counterpart of v3d_tpu/ops/fused_groupnorm.py.  ``group_norm_act`` is the
 port of ``group_norm_act`` (fused_groupnorm.py:176-222): the forward is K6
 (csrc/group_norm.cu, the port of the two-pass ``_pallas_group_norm``,
-:90-138) and the backward recomputes through the plain formula, as
+:90-138; one launch where a slice of whole groups fits in a thread-block
+cluster's shared memory, else two, as ``group_norm_plan`` says) and the
+backward recomputes through the plain formula, as
 ``_gn_bwd`` (:214-219) does; the JAX package has no backward kernel here.
 
 Tensors are NCHW / NCTHW in ``channels_last`` / ``channels_last_3d`` memory,
@@ -13,6 +15,8 @@ kernel's (B, L, C) blocks.  Scale and bias may be float32 or bfloat16.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,9 +29,105 @@ from v3d_tpu_torch.ops._dispatch import (
     use_plain,
 )
 
-# blocks the statistics pass aims for, whatever B (the card has 132 SMs)
-_STATS_BLOCKS = 1024
 _MAX_CHANNELS = 4096
+
+# K6's launch plan (csrc/group_norm.cu), mirrored here so that the CPU tests
+# and chip_smoke.py can read it: 256 threads a block; a one-launch block
+# takes <= 100 KB of shared memory (two blocks an SM: with one, nothing
+# overlaps a block's load with its store); clusters of <= 8 blocks (the
+# portable size), or 16 where no slicing fits 8, and blocks of up to the
+# card's 227 KB (one an SM) where no slicing fits 100 KB; the two-launch
+# path runs at most 4 blocks an SM (its kernels' registers allow 4 of 256
+# threads), all in one wave.  Plans take the card's SM count (the H100
+# SXM's 132 where no card is asked).
+GN_THREADS = 256
+GN_SMEM_CAP = 100 * 1024
+GN_SMEM_MAX = 232448
+GN_SMS = 132
+GN_BLOCKS_PER_SM = 2
+GN_TWO_PASS_PER_SM = 4
+# a slice's rows are read as runs of W * elem contiguous bytes; below two
+# 32-byte sectors the two-launch path, which reads whole rows, moves fewer
+GN_MIN_ROW_BYTES = 64
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _slice_smem(W: int, gpc: int, rows: int, elem: int) -> int:
+    """``slice_smem`` of csrc/group_norm.cu: rows, (row step, channel)
+    partials, group sums, mean / inv."""
+    vpr = W * elem // 16
+    rstep = 1 if vpr >= GN_THREADS else GN_THREADS // vpr
+    return _align16(rows * W * elem) + rstep * W * 2 * 4 + 4 * gpc * 4
+
+
+def _slicings(B: int, L: int, C: int, G: int, elem: int, clusters,
+              cap: int = GN_SMEM_CAP) -> list:
+    """Every slicing of whole groups into clusters of one of ``clusters``
+    sizes whose blocks fit ``cap`` bytes, rows of >= 64 bytes."""
+    cpg = C // G
+    cands = []
+    for gpc in (d for d in range(1, G + 1) if G % d == 0):
+        W = gpc * cpg
+        if (W * elem) % 16 or W * elem < GN_MIN_ROW_BYTES:
+            continue
+        for cs in clusters:
+            rows = -(-L // cs)
+            if cs > 1 and rows * (cs - 1) >= L:
+                continue  # a block would hold no row
+            smem = _slice_smem(W, gpc, rows, elem)
+            if smem <= cap:
+                cands.append(dict(gpc=gpc, cluster=cs, rows_per_block=rows,
+                                  smem=smem, blocks=cs * B * G // gpc,
+                                  row_bytes=W * elem))
+    return cands
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_plan(B: int, L: int, C: int, G: int, dtype=torch.bfloat16,
+                    sms: int = GN_SMS) -> dict:
+    """How K6 runs a (B, L, C) GroupNorm(G) call on a card of ``sms`` SMs.
+
+    ``path`` "one_launch": slices of ``gpc`` whole groups of one sample (rows
+    of W = gpc * C / G channels, W * elem a multiple of 16 bytes), each held
+    by a cluster of ``cluster`` blocks of ``rows_per_block`` rows in
+    ``smem`` <= 100 KB of shared memory, rows of >= 64 bytes; clusters of
+    <= 8 blocks, of 16 where no slicing fits 8, and blocks of up to 227 KB
+    in clusters of 16 where no slicing fits 100 KB; among the slicings that fit,
+    the ones that give the most blocks up to two an SM, then the longest
+    contiguous rows (up to 256 bytes), then the smallest cluster.
+    "two_launch": statistics then normalisation over ``grid`` = (splits, B)
+    blocks, ``smem`` for the statistics kernel.  ``launches``: CUDA kernels
+    a call."""
+    elem = 4 if dtype == torch.float32 else 2
+    cands = (_slicings(B, L, C, G, elem, (1, 2, 4, 8))
+             or _slicings(B, L, C, G, elem, (16,))
+             or _slicings(B, L, C, G, elem, (16,), GN_SMEM_MAX))
+    if cands:
+        want = min(GN_BLOCKS_PER_SM * sms, max(c["blocks"] for c in cands))
+        best = max((c for c in cands if c["blocks"] >= want),
+                   key=lambda c: (min(c["row_bytes"], 256), -c["cluster"],
+                                  c["row_bytes"]))
+        return dict(path="one_launch", launches=1, threads=GN_THREADS,
+                    grid=(best["blocks"],), splits=0,
+                    **{k: best[k] for k in ("gpc", "cluster", "rows_per_block",
+                                            "smem", "row_bytes")})
+    ncv = C * elem // 16
+    rps = 1 if ncv >= GN_THREADS else GN_THREADS // ncv
+    # B * splits <= the blocks resident at once: a second, partial wave of
+    # blocks that each walk ~1/splits of a sample doubles the time
+    splits = max(1, min(GN_TWO_PASS_PER_SM * sms // B, L))
+    return dict(path="two_launch", launches=2, threads=rps * ncv,
+                grid=(splits, B), splits=splits, gpc=G, cluster=1,
+                rows_per_block=-(-L // splits), smem=2 * rps * C * 4,
+                row_bytes=C * elem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -63,21 +163,32 @@ def group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
 
 def channels_last_rows(x: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     """(B, L, C) when x (B, C, *spatial) lies in channels-last memory, so
-    that it reads as a contiguous (B, L, C) array; else None."""
+    that it reads as a contiguous (B, L, C) array; else None.  A dim of size
+    1 is never stepped, so its stride does not count."""
     if x.dim() < 3:
         return None
-    rows = x.permute(0, *range(2, x.dim()), 1)
-    if not rows.is_contiguous():
+    B, C = x.shape[:2]
+    L = math.prod(x.shape[2:])
+    expect = C
+    for d in range(x.dim() - 1, 1, -1):
+        if x.shape[d] > 1 and x.stride(d) != expect:
+            return None
+        expect *= x.shape[d]
+    if (C > 1 and x.stride(1) != 1) or (B > 1 and x.stride(0) != C * L):
         return None
-    return x.shape[0], x[0, 0].numel(), x.shape[1]
+    return B, L, C
 
 
 def group_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-5,
-                   silu: bool = False) -> torch.Tensor:
+                   silu: bool = False,
+                   prof: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm(num_groups) with f32 statistics (+ SiLU in f32), output in
     x.dtype and x's channels-last memory.  On a CUDA tensor K6; it raises on
-    memory that is not channels-last rather than copy."""
+    memory that is not channels-last rather than copy.  ``prof``: an int64
+    CUDA tensor of 4 per block of a one-launch plan that receives each
+    block's clock64 cycles (load, statistics + cluster combine, normalise +
+    store) and rows (chip_smoke.py phase 3)."""
     if use_plain(x, scale, bias):
         return group_norm_act_plain(x, scale, bias, num_groups, eps, silu)
     if x.dtype not in DTYPE_CODES:
@@ -101,14 +212,20 @@ def group_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise TypeError(f"group_norm: scale/bias must be contiguous ({C},) "
                         f"float32 or bfloat16, got {scale.dtype} "
                         f"{tuple(scale.shape)} {bias.dtype} {tuple(bias.shape)}")
-    splits = max(1, min(-(-_STATS_BLOCKS // B), L))
-    scratch = torch.empty(2 * B * splits * C + 2 * B * C, dtype=torch.float32,
-                          device=x.device)
+    sms = _sm_count(x.device.index) if x.is_cuda else GN_SMS
+    plan = group_norm_plan(B, L, C, num_groups, x.dtype, sms)
+    splits = plan["splits"]
+    scratch = None  # the two-launch path's partials, mean / inv and tickets
+    if splits:
+        scratch = torch.empty(2 * B * num_groups * (splits + 1) + B,
+                              dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     launch("group_norm", "v3d_group_norm", x.device, code, x.data_ptr(),
            y.data_ptr(), scale.data_ptr(), bias.data_ptr(), sdt,
-           scratch.data_ptr(), B, L, C, num_groups, splits, float(eps),
-           int(silu))
+           scratch.data_ptr() if splits else None, B, L, C, num_groups,
+           float(eps), int(silu), plan["gpc"], plan["cluster"],
+           plan["rows_per_block"], splits,
+           None if prof is None else prof.data_ptr())
     return y
 
 

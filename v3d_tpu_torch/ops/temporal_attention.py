@@ -6,7 +6,7 @@ Counterpart of v3d_tpu/ops/temporal_attention.py.  Tokens keep the
 - ``temporal_block_attention`` (K2, csrc/temporal_block.cu; replaces
   ``_pallas_block``): the whole temporal self-attention layer, QKV
   projection, per-(pixel, head) softmax over frames and output projection, in
-  one kernel.
+  one kernel (bf16 on wgmma + TMA, ``temporal_block_plan``).
 - ``temporal_core`` (K3, csrc/temporal_core.cu; replaces ``_pallas_core``):
   the attention alone, on q/k/v in the ``(b, t, s, heads * dh)`` layout the
   projection matmul writes.
@@ -24,6 +24,7 @@ Weights are in the torch Linear layout, ``(out, in)``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -34,7 +35,7 @@ from v3d_tpu_torch.ops._dispatch import (
     plain_vjp,
     use_plain,
 )
-from v3d_tpu_torch.ops.attention import attention_plain
+from v3d_tpu_torch.ops.attention import attention_plain, tma_operand, tma_strides
 
 # per-block shared memory the card grants (bytes)
 _MAX_SMEM = 232448
@@ -57,6 +58,43 @@ def temporal_core_plan(b: int, t: int, s: int, heads: int, dh: int) -> dict:
     return {"items": items, "max_blocks": -(-items // (K3_WARPS * K3_SLOTS)),
             "threads": 32 * K3_WARPS,
             "smem": 2 * pitch * (1 + K3_WARPS * K3_SLOTS * 3 * t)}
+
+
+# K2 (csrc/temporal_block.cu).  The bf16 wgmma + TMA kernel: 3 warpgroups
+# (two consumers of 64 token rows, one producer), 128 // t pixels x t frames
+# a block, a 5-slot ring of 6 KB weight chunks; x, the head outputs and k,
+# v in 16 KB tiles of 128 rows; out-projection passes of 160 columns.  The
+# FMA kernel: 256 threads, 2 pixels a block.
+K2_TILE_ROWS = 128
+K2_STAGES = 5
+K2_TILE = K2_TILE_ROWS * 128
+K2_STAGE_BYTES = 3 * 64 * 16 * 2
+K2_OUT_N = 160
+K2_FMA_PIX = 2
+
+
+def temporal_block_plan(b: int, t: int, s: int, c: int, heads: int, dh: int,
+                        dtype=torch.bfloat16) -> dict:
+    """K2's launch: ``path`` "wgmma" (bf16, dh = 64, c a multiple of 160 and
+    the tiles within the card's shared memory) or "fma"; ``pixels`` and
+    ``rows`` (token rows) a block, ``grid``, ``threads``, ring ``stages``,
+    dynamic shared memory ``smem`` (``v3d_temporal_block_smem``)."""
+    inner = heads * dh
+    smem = (c // 64 + inner // 64 + 2) * K2_TILE + K2_STAGES * K2_STAGE_BYTES \
+        + 8 * (1 + 2 * K2_STAGES) + 1024
+    if (dtype == torch.bfloat16 and dh == 64 and c % K2_OUT_N == 0
+            and 1 <= t <= 32 and smem <= _MAX_SMEM):
+        pix = K2_TILE_ROWS // t
+        return {"path": "wgmma", "pixels": pix, "rows": pix * t,
+                "grid": b * -(-s // pix), "threads": 384, "stages": K2_STAGES,
+                "smem": smem}
+    elem = 4 if dtype == torch.float32 else 2
+    rows = t * K2_FMA_PIX
+    smem = (4 * (3 * rows * (dh + 1) + 64 * 33 + K2_FMA_PIX * t * (t + 1))
+            + elem * (rows * c + rows * inner))
+    return {"path": "fma", "pixels": K2_FMA_PIX, "rows": rows,
+            "grid": b * -(-s // K2_FMA_PIX), "threads": 256, "stages": 0,
+            "smem": smem}
 
 
 def temporal_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,9 +197,12 @@ class _TemporalBlock(torch.autograd.Function):
 
 def temporal_block_fwd(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                        wv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
-                       heads: int) -> torch.Tensor:
+                       heads: int, prof: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """The forward of ``temporal_block_attention``: K2, or its plain
-    version."""
+    version.  ``prof``: an int64 CUDA tensor of 6 per block of the wgmma
+    kernel that receives each block's clock64 cycles (x wait, QKV products,
+    softmax, output projection, store) and rows (chip_smoke.py phase 3)."""
     if use_plain(x, wq, wk, wv, wo, bo):
         return temporal_block_attention_plain(x, wq, wk, wv, wo, bo, heads)
     code = check_kernel_inputs("temporal_block", x, wq, wk, wv, wo, bo)
@@ -183,17 +224,24 @@ def temporal_block_fwd(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     if not (1 <= t <= 32 and 1 <= dh <= 64 and b * s > 0):
         raise ValueError(f"temporal_block: needs 1 <= t <= 32, dh <= 64, got "
                          f"t={t} dh={dh} shape {x.shape}")
-    from v3d_tpu_torch.kernels.build import library
-
-    smem = library().v3d_temporal_block_smem(code, t, c, heads, dh)
-    if smem > _MAX_SMEM:
+    plan = temporal_block_plan(b, t, s, c, heads, dh, x.dtype)
+    if plan["smem"] > _MAX_SMEM:
         raise ValueError(f"temporal_block: shape {x.shape} with {heads} heads "
-                         f"needs {smem} B of shared memory (> {_MAX_SMEM})")
+                         f"needs {plan['smem']} B of shared memory (> {_MAX_SMEM})")
+    if plan["path"] == "wgmma":
+        # TMA reads x through its strides where they are 16-byte multiples
+        x = tma_operand(x)
+        strides = tma_strides(x)
+        for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+            if w.data_ptr() % 16:
+                raise ValueError(f"temporal_block: {name} is not 16-byte aligned")
+    else:
+        strides = x.stride()[:3]
     out = torch.empty((b, t, s, c), dtype=x.dtype, device=x.device)
     launch("temporal_block", "v3d_temporal_block", x.device, code,
            x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
            wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, t, s, c, heads,
-           dh, *x.stride()[:3])
+           dh, *strides, None if prof is None else prof.data_ptr())
     return out
 
 
