@@ -16,7 +16,10 @@ Phases, each printing lines before the last:
    unfused route, as no single call computes T8); K6 at every shape of a
    UNet forward (``K6_FORWARD_SHAPES``) with the forward's summed time
    against its summed bound; each redesigned kernel's launch plan against
-   the library's shared-memory figure, and K2's and K6's clock64 phases;
+   the library's shared-memory figure, and K2's, K6's, K7's and K8's
+   clock64 phases; K8 + K7 (the flash backward) also as a pair through
+   ``flash_attn_bwd`` against SDPA's backward and the bounds of the pair
+   (seven products) and of the function (five);
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
    kernels against the same forward in ``reference_mode()`` (plain versions),
    and a ``torch.profiler`` trace of two forwards (device time by kernel
@@ -463,27 +466,26 @@ LSE_MAX_ABS = 1e-3       # K1's log-sum-exp against the plain one
 WGMMA_MAX_REL = 1e-3     # K1's products alone against torch.matmul in f32
 
 
-def wgmma_checks(randn) -> None:
-    """K1's two wgmma products alone against torch.matmul on the same bf16
-    inputs (f32 sums): S = Q K^T (both K-major) and O = P V (P from
-    registers, V MN-major); layout faults give errors of O(1)."""
+def product_checks(randn, label: str, probe, cases) -> None:
+    """``label``'s wgmma products alone (``probe(which, a, b)``, case
+    ``which`` of ``cases``: name, a's shape, b's shape, whether b is
+    transposed) against torch.matmul on the same bf16 inputs (f32 sums);
+    layout faults give errors of O(1)."""
     import torch
 
-    from v3d_tpu_torch.ops.attention import wgmma_probe
-
     errs = []
-    for which, (sa, sb) in enumerate((((64, 64), (128, 64)), ((64, 128), (128, 64)))):
+    for which, (_, sa, sb, b_t) in enumerate(cases):
         a = randn(*sa).to(torch.bfloat16)
         b = randn(*sb).to(torch.bfloat16)
-        got = wgmma_probe(which, a, b)
-        want = a.float() @ (b.float().t() if which == 0 else b.float())
+        got = probe(which, a, b)
+        want = a.float() @ (b.float().t() if b_t else b.float())
         errs.append(float((got - want).abs().max()) / float(want.abs().max()))
     ok = max(errs) <= WGMMA_MAX_REL
-    say("3 kernels", f"K1 wgmma products alone vs torch.matmul: Q K^T (K-major) "
-        f"max_rel {errs[0]:.2e}, P V (MN-major V) max_rel {errs[1]:.2e} "
-        f"(<= {WGMMA_MAX_REL:g}) | {'ok' if ok else 'FAIL'}")
+    say("3 kernels", f"{label} wgmma products alone vs torch.matmul: " + ", ".join(
+        f"{case[0]} max_rel {e:.2e}" for case, e in zip(cases, errs))
+        + f" (<= {WGMMA_MAX_REL:g}) | {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SmokeFailure(f"K1 wgmma products disagree with torch.matmul: {errs}")
+        raise SmokeFailure(f"{label} wgmma products disagree with torch.matmul: {errs}")
 
 
 def flash_main_checks(randn) -> list:
@@ -499,9 +501,12 @@ def flash_main_checks(randn) -> list:
         flash_attn_fwd,
         flash_attn_fwd_plain,
         flash_fwd_plan,
+        wgmma_probe,
     )
 
-    wgmma_checks(randn)
+    product_checks(randn, "K1", wgmma_probe, (
+        ("Q K^T (K-major)", (64, 64), (128, 64), True),
+        ("P V (MN-major V)", (64, 128), (128, 64), False)))
     smem = library().v3d_flash_attn_fwd_smem()
     plan = flash_fwd_plan(*K1_MAIN_SHAPES[0][1])
     say("3 kernels", f"K1 bf16 block: {plan['threads']} threads, {smem} B of shared "
@@ -818,22 +823,50 @@ def group_norm_checks(randn) -> list:
     return out + group_norm_forward_mix(randn)
 
 
+# the fine-tune step's spatial self-attention, b = 18 frames
+FLASH_BWD_SHAPES = (("ds1", (18, 5, 4096)), ("ds2", (18, 10, 1024)))
+# products per (q, k) pair: K8 (S, dP, dQ), K7 (S^T, dP^T, dV, dK), and a
+# fused backward (S, dP, dV, dK, dQ), the least the function needs
+BWD_PRODUCTS = {"flash_attn_bwd_dq": 3, "flash_attn_bwd_dkv": 4, "fused": 5}
+
+
+def flash_bwd_work(b, h, s, products):
+    """(FLOPs, bytes) of backward work at (b, h, s, 64) self-attention:
+    ``products`` 64-deep products of 2 b h s^2 64 FLOP each; six (b, h, s,
+    64) bf16 tensors and two f32 row vectors moved once."""
+    return products * 2 * b * h * s * s * 64, 6 * b * h * s * 64 * 2 + 2 * b * h * s * 4
+
+
 def flash_bwd_checks(randn) -> dict:
-    """K8 (dq, D) and K7 (dk, dv) at the fine-tune step's (18, 5, 4096, 64)
-    and (18, 10, 1024, 64), bf16, q/k/v/do as (b, h, s, d) views of
-    (b, s, h, d) buffers, o and lse from K1; each against the plain backward
-    on the same inputs (PSNR vs the plain result in f32) and timed alone;
-    plain: the whole plain backward; library: the backward of
-    scaled_dot_product_attention alone (its forward run once before).
-    Bounds: K8 three products (S, dP, dQ), K7 four (S, dV, dP, dK), each
-    2 b h s^2 d FLOPs, at the bf16 tensor-core peak."""
+    """K8 (dq, the row statistics) and K7 (dk, dv) at FLASH_BWD_SHAPES,
+    bf16, q/k/v/do as (b, h, s, d) views of (b, s, h, d) buffers, o and lse
+    from K1; each against the plain backward on the same inputs (PSNR vs the
+    plain result in f32) and timed alone, then the pair through
+    ``flash_attn_bwd``; plain: the whole plain backward; library: the
+    backward of scaled_dot_product_attention alone (its forward run once
+    before).  Bounds (``flash_bwd_work``): K8 three products, K7 four, the
+    pair seven, the function five.  Before them K7's products alone and the
+    plans against the library's shared memory; at ds1 the clock64 phases."""
     import torch
     import torch.nn.functional as F
 
+    from v3d_tpu_torch.kernels.build import library
     from v3d_tpu_torch.ops import attention as A
 
+    product_checks(randn, "K7", A.flash_bwd_wgmma_probe, (
+        ("A regs x B K-major", (64, 64), (64, 64), True),
+        ("A regs x B MN-major (64 rows)", (64, 64), (64, 64), False)))
+    plan = A.flash_bwd_plan(*FLASH_BWD_SHAPES[0][1], FLASH_BWD_SHAPES[0][1][2])
+    for which, (label, key) in enumerate((("K8", "dq"), ("K7", "dkv"))):
+        smem = library().v3d_flash_attn_bwd_smem(which)
+        say("3 kernels", f"{label} block: {plan[key]['threads']} threads, {smem} B of "
+            f"shared memory (plan {plan[key]['smem']}), a ring of "
+            f"{plan[key]['stages']}, grid {plan[key]['grid']} at ds1")
+        if smem != plan[key]["smem"]:
+            raise SmokeFailure(f"{label} shared memory {smem} B, flash_bwd_plan says "
+                               f"{plan[key]['smem']}")
     res = {"flash_attn_bwd_dq": [], "flash_attn_bwd_dkv": []}
-    for tag, (b, h, s) in (("ds1", (18, 5, 4096)), ("ds2", (18, 10, 1024))):
+    for tag, (b, h, s) in FLASH_BWD_SHAPES:
         q, k, v, do = (randn(b, s, h, 64).to(torch.bfloat16).transpose(1, 2)
                        for _ in range(4))
         o, lse = A.flash_attn_fwd(q, k, v, with_lse=True)
@@ -846,23 +879,23 @@ def flash_bwd_checks(randn) -> dict:
         errs = [float((g.float() - p_.float()).abs().max()) for g, p_ in zip(got, plain)]
         ok = (all(bool(torch.isfinite(g).all()) for g in got)
               and min(quality) >= BF16_MIN_PSNR)
-        dsum = torch.empty(b, h, s, device=q.device)
+        stats = A.bwd_stats_scratch(b, h, s, q.device)
         dq, dk, dv = (A._like_projection(b, s, h, 64, q) for _ in range(3))
-        ms_dq = cuda_ms(lambda: A._bwd_dq(q, k, v, o, lse, do, dsum, dq))
-        ms_dkv = cuda_ms(lambda: A._bwd_dkv(q, k, v, do, lse, dsum, dk, dv))
+        ms_dq = cuda_ms(lambda: A._bwd_dq(q, k, v, o, lse, do, stats, dq))
+        ms_dkv = cuda_ms(lambda: A._bwd_dkv(q, k, v, do, stats, dk, dv))
+        pair_ms = cuda_ms(lambda: A.flash_attn_bwd(q, k, v, o, lse, do))
         plain_ms = cuda_ms(lambda: A.flash_attn_bwd_plain(q, k, v, o, lse, do),
                            iters=3, warmup=1)
         ql, kl, vl = (t_.detach().requires_grad_() for t_ in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl)
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             lib_out, (ql, kl, vl), do, retain_graph=True))
-        pair = 2 * b * h * s * s * 64
-        elt = b * h * s * 64 * 2
-        rows = {"flash_attn_bwd_dq": (ms_dq, errs[0], bound_ms(
-                    3 * pair, 6 * elt + 2 * b * h * s * 4, PEAK_BF16)),
-                "flash_attn_bwd_dkv": (ms_dkv, max(errs[1:]), bound_ms(
-                    4 * pair, 6 * elt + 2 * b * h * s * 4, PEAK_BF16))}
-        for name, (ms, err, (bnd, by)) in rows.items():
+        bounds = {name: bound_ms(*flash_bwd_work(b, h, s, n), PEAK_BF16)
+                  for name, n in BWD_PRODUCTS.items()}
+        rows = {"flash_attn_bwd_dq": (ms_dq, errs[0]),
+                "flash_attn_bwd_dkv": (ms_dkv, max(errs[1:]))}
+        for name, (ms, err) in rows.items():
+            bnd, by = bounds[name]
             say("3 kernels", f"{KERNELS[name]['label']} {name} {tag} "
                 f"{(b, h, s, 64)} bfloat16: max_abs vs plain {err:.3e} | psnr_vs_f32 "
                 f"dq {quality[0]:.2f} dk {quality[1]:.2f} dv {quality[2]:.2f} dB "
@@ -873,10 +906,35 @@ def flash_bwd_checks(randn) -> dict:
             res[name].append({"shape": f"{tag} {(b, h, s, 64)}", "dtype": "bfloat16",
                               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bnd, "bound_by": by,
-                              "library_ms": library_ms, "psnr_dq_dk_dv": quality})
+                              "library_ms": library_ms, "psnr_dq_dk_dv": quality,
+                              "pair_ms": pair_ms})
+        pair_bound = bounds["flash_attn_bwd_dq"][0] + bounds["flash_attn_bwd_dkv"][0]
+        say("3 kernels", f"K8 + K7 {tag}: the pair through flash_attn_bwd {pair_ms:.4f} "
+            f"ms (alone K8 {ms_dq:.4f} + K7 {ms_dkv:.4f} = {ms_dq + ms_dkv:.4f} ms) | "
+            f"SDPA backward {library_ms:.4f} ms ({pair_ms / library_ms:.2f}x) | bound "
+            f"of the pair {pair_bound:.4f} ms (7 products, {100 * pair_bound / pair_ms:.1f}%"
+            f" reached), of the function {bounds['fused'][0]:.4f} ms (5 products)")
         if not ok:
             raise SmokeFailure(f"flash backward {tag} disagrees: PSNR {quality}")
-        del q, k, v, do, o, lse, got, plain, ref, ql, kl, vl, lib_out
+        if tag == "ds1":
+            p = A.flash_bwd_plan(b, h, s, s)
+            for label, key, fn, names in (
+                    ("K8", "dq", lambda prof: A._bwd_dq(q, k, v, o, lse, do, stats, dq,
+                                                        prof=prof),
+                     ("prologue (D, Q/dO wait)", "tile wait", "S + dP products, P",
+                      "dS", "dQ product", "store")),
+                    ("K7", "dkv", lambda prof: A._bwd_dkv(q, k, v, do, stats, dk, dv,
+                                                          prof=prof),
+                     ("K/V fragments", "tile wait", "S^T + dP^T products, P^T",
+                      "dV issue, dS^T", "dK product", "store"))):
+                blocks = p[key]["grid"][0] * p[key]["grid"][1]
+                prof = torch.zeros(blocks * A.BWD_PROF_SLOTS, dtype=torch.int64,
+                                   device=q.device)
+                fn(prof)
+                torch.cuda.synchronize()
+                say("3 kernels", f"{label} clock64 cycles per block at ds1 (consumer "
+                    f"warpgroup 0, mean of {blocks} blocks): " + _cycle_means(prof, names))
+        del q, k, v, do, o, lse, got, plain, ref, ql, kl, vl, lib_out, stats, dq, dk, dv
         torch.cuda.empty_cache()
     return res
 

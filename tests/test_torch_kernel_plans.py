@@ -1,9 +1,10 @@
 """Host-side logic around the redesigned kernels K1 (flash forward, wgmma +
-TMA) and K3 (temporal core), on the CPU: which operands a tensor map can
-read in place and the aligned copy made of the others, each kernel's launch
-plan at the main path's shapes, the phase-3 work and bound formulas of
-chip_smoke.py, and CPU tensors reaching the plain versions with no launch
-(against the JAX package's Pallas kernels in interpret mode).
+TMA), K3 (temporal core) and K7/K8 (flash backward, wgmma + TMA), on the
+CPU: which operands a tensor map can read in place and the aligned copy
+made of the others, each kernel's launch plan at the main path's shapes,
+the phase-3 work and bound formulas of chip_smoke.py, and CPU tensors
+reaching the plain versions with no launch (against the JAX package's
+Pallas kernels in interpret mode, or jax.vjp of its attention formula).
 
 Tolerances: the plans and bounds are exact integers or closed formulas
 (bounds to 1e-3 ms); the plain versions as tests/test_torch_ops.py holds
@@ -16,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import chip_smoke
 from torch_port_helpers import rand, t
 from v3d_tpu.ops import flash_attention as jfa
+from v3d_tpu.ops.attention import attention_bhsd
 from v3d_tpu.ops.temporal_attention import _pallas_core
 from v3d_tpu_torch.ops import LAUNCHES
 from v3d_tpu_torch.ops import attention as tattn
@@ -94,6 +97,28 @@ def test_flash_fwd_plan(shape, grid, tiles):
     assert plan["smem"] == 7 * 16384 + 80 + 1024 <= 232448
 
 
+@pytest.mark.parametrize("shape,grid_dq,tiles_dq,grid_dkv,tiles_dkv,pitch", [
+    ((18, 5, 4096, 4096), (32, 90), 32, (32, 90), 64, 4096),    # ds1, 10 a fine-tune step
+    ((18, 10, 1024, 1024), (8, 180), 8, (8, 180), 16, 1024),    # ds2
+    ((1, 3, 1, 257), (1, 3), 3, (3, 3), 1, 4),                   # ragged
+])
+def test_flash_bwd_plan(shape, grid_dq, tiles_dq, grid_dkv, tiles_dkv, pitch):
+    """K8: 128 query rows a block, 128-key K/V tiles in a ring of 3; K7: 128
+    keys a block, 64-row Q/dO tiles with their lse and D in a ring of 4; the
+    row statistics K8 writes for K7 with a pitch of sq rounded up to 4."""
+    plan = tattn.flash_bwd_plan(*shape)
+    dq, dkv = plan["dq"], plan["dkv"]
+    assert (dq["grid"], dq["tiles"], dq["stages"]) == (grid_dq, tiles_dq, 3)
+    assert (dkv["grid"], dkv["tiles"], dkv["stages"]) == (grid_dkv, tiles_dkv, 4)
+    assert dq["threads"] == dkv["threads"] == 384
+    # Q + dO (16 KB each) + 3 x (K + V) of 16 KB; 10 barriers; 1 KB slack
+    assert dq["smem"] == 8 * 16384 + 80 + 1024 <= 232448
+    # 4 x (Q + dO of 8 KB + 2 x 256 B of statistics); 8 barriers; 1 KB slack
+    assert dkv["smem"] == 4 * (2 * 8192 + 512) + 64 + 1024 <= 232448
+    assert plan["stats"] == (shape[0] * shape[1], 2, pitch)
+    assert (pitch * 4) % tattn.TMA_ALIGN == 0
+
+
 @pytest.mark.parametrize("shape,items,max_blocks,smem", [
     ((2, 18, 1024, 10, 64), 20480, 2560, 2 * 72 * (1 + 8 * 54)),   # ds2
     ((2, 18, 256, 20, 64), 10240, 1280, 2 * 72 * (1 + 8 * 54)),    # ds4
@@ -129,6 +154,27 @@ def test_phase3_work_and_bounds(what, args, ms, by):
     bound, bound_by = chip_smoke.bound_ms(flops, nbytes, chip_smoke.PEAK_BF16)
     assert bound_by == by
     assert math.isclose(bound, ms, abs_tol=1e-3)
+
+
+@pytest.mark.parametrize("kernel,products,ms", [
+    ("flash_attn_bwd_dq", 3, 0.5863),    # K8: S, dP, dQ
+    ("flash_attn_bwd_dkv", 4, 0.7817),   # K7: S^T, dP^T, dV, dK
+    ("fused", 5, 0.9771),                # the function: one product fewer each
+])
+def test_phase3_backward_bounds(kernel, products, ms):
+    """chip_smoke.py's backward bounds at ds1 (18, 5, 4096, 64): 2 b h s^2 d
+    FLOP a product over 989 TFLOP/s (six bf16 tensors and two f32 rows
+    over 3.35 TB/s are far below); the pair's bound is 1.368 ms."""
+    b, h, s = dict(chip_smoke.FLASH_BWD_SHAPES)["ds1"]
+    assert chip_smoke.BWD_PRODUCTS[kernel] == products
+    flops, nbytes = chip_smoke.flash_bwd_work(b, h, s, products)
+    assert flops == products * 2 * b * h * s * s * 64
+    assert nbytes == 6 * b * h * s * 64 * 2 + 2 * b * h * s * 4
+    bound, bound_by = chip_smoke.bound_ms(flops, nbytes, chip_smoke.PEAK_BF16)
+    assert bound_by == "operations" and math.isclose(bound, ms, abs_tol=1e-3)
+    pair = sum(chip_smoke.bound_ms(*chip_smoke.flash_bwd_work(b, h, s, n),
+                                   chip_smoke.PEAK_BF16)[0] for n in (3, 4))
+    assert math.isclose(pair, 1.368, abs_tol=1e-3)
 
 
 def test_k1_main_shapes_are_the_generation_shapes():
@@ -178,3 +224,36 @@ def test_cpu_temporal_core_takes_plain_with_no_launch():
                        interpret=True)
     np.testing.assert_allclose(to_core(got.numpy()), np.asarray(ref),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+def test_cpu_flash_bwd_takes_plain_with_no_launch_or_copy(pad, monkeypatch):
+    """K8/K7's wrapper on CPU tensors (bf16 views whose row pitch no tensor
+    map can read included) runs the plain backward, makes no aligned copy
+    and counts no launch; in f32 it matches jax.vjp of the JAX package's
+    bhsd attention formula."""
+    b, h, sq, sk = 1, 2, 70, 90
+    arrs = [rand((b, s, h, 64), i + 30) for i, s in enumerate((sq, sk, sk, sq))]
+    views = []
+    for a in arrs:
+        buf = torch.zeros(a.shape[:-1] + (64 + pad,))
+        buf[..., :64] = t(a)
+        views.append(buf[..., :64].transpose(1, 2))
+    q, k, v, do = views
+    o, lse = tattn.flash_attn_fwd_plain(q, k, v, with_lse=True)
+    calls = []
+    monkeypatch.setattr(tattn, "tma_operand", lambda x: calls.append(x) or x)
+    before = dict(LAUNCHES)
+    got = tattn.flash_attn_bwd(q, k, v, o, lse, do)
+    assert dict(LAUNCHES) == before and calls == []
+    _, vjp = jax.vjp(attention_bhsd, *(jnp.asarray(a.transpose(0, 2, 1, 3))
+                                       for a in arrs[:3]))
+    want = vjp(jnp.asarray(arrs[3].transpose(0, 2, 1, 3)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+    bf = [x.to(torch.bfloat16) for x in views]
+    ob, lseb = tattn.flash_attn_fwd_plain(*bf[:3], with_lse=True)
+    got_bf = tattn.flash_attn_bwd(*bf[:3], ob, lseb, bf[3])
+    assert dict(LAUNCHES) == before and calls == []
+    assert all(g.dtype == torch.bfloat16 and g.shape == x.shape
+               for g, x in zip(got_bf, bf[:3]))

@@ -489,10 +489,16 @@ def test_group_norm_refuses_nchw(dev):
 
 @pytest.mark.parametrize("b,h,sq,sk,pad", [(1, 2, 100, 130, 0), (2, 1, 64, 64, 0),
                                            (1, 3, 1, 257, 0), (2, 2, 70, 200, 3),
-                                           (1, 5, 1024, 1024, 0)])
+                                           (1, 5, 1024, 1024, 0),
+                                           (1, 5, 4096, 4096, 0),    # ds1 rows
+                                           (2, 2, 130, 40, 0),       # sk < 64
+                                           (1, 2, 257, 1000, 3),     # sq != sk, copied
+                                           (2, 10, 1024, 1024, 0)])  # ds2
 def test_flash_bwd_kernels(dev, b, h, sq, sk, pad):
     """K1's log-sum-exp, then K8 (dq) and K7 (dk, dv) against the plain
-    backward on the same inputs in float32: PSNR >= 40 dB each."""
+    backward on the same inputs in float32: PSNR >= 40 dB each.  With pad 3
+    no tensor map can read the views, so the wrapper copies them first.  A
+    second call gives bitwise the same gradients (no atomics)."""
     from v3d_tpu_torch.ops import LAUNCHES
     from v3d_tpu_torch.ops.attention import (
         flash_attn_bwd,
@@ -519,6 +525,27 @@ def test_flash_bwd_kernels(dev, b, h, sq, sk, pad):
         assert _psnr(g, w) >= BF16_MIN_PSNR, (name, _psnr(g, w))
     assert LAUNCHES["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
     assert LAUNCHES["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
+    again = flash_attn_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["rs_k_major", "rs_mn_major"])
+def test_k7_wgmma_product_alone(dev, which):
+    """K7's register-A products alone against torch.matmul on the same bf16
+    inputs (f32 sums): a (64, 64) read into A fragments as K7 reads K and
+    V, times b^T with b K-major (the new ``wgmma_m64n64k16_rs_k``, S^T = K
+    Q^T) or times b with b MN-major from a 64-row tile (dV += P^T dO)."""
+    from v3d_tpu_torch.ops.attention import flash_bwd_wgmma_probe
+
+    gen = torch.Generator(device=dev).manual_seed(10 + which)
+    a, b = (torch.randn(64, 64, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    got = flash_bwd_wgmma_probe(which, a, b)
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float().t() if which == 0 else b.float())
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
 def test_attention_and_temporal_gradients_through_kernels(dev):

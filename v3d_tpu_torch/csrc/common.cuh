@@ -98,31 +98,6 @@ __device__ __forceinline__ bool vec_ok(const void* p, long long s0, long long s1
          (s1 % 8 == 0) && (s2 % 8 == 0);
 }
 
-// Stage 64 rows of a (rows, 64) bf16 matrix (row stride ``stride``) into a
-// [64][LDT] shared tile with NTHREADS threads; rows past ``rows_left`` are
-// zero.  With ``vec``, 16-byte cp.async copies that the caller commits and
-// waits for; otherwise plain element loads.
-template <int NTHREADS, int LDT>
-__device__ __forceinline__ void stage_tile64(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             long long stride, int rows_left,
-                                             bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < 64 * 8; e += NTHREADS) {
-      const int r = e / 8, c = (e % 8) * 8;
-      if (r < rows_left)
-        cp_async16(dst + r * LDT + c, src + r * stride + c);
-      else
-        *reinterpret_cast<uint4*>(dst + r * LDT + c) = make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < 64 * 64; e += NTHREADS) {
-      const int r = e / 64, c = e % 64;
-      dst[r * LDT + c] = r < rows_left ? src[r * stride + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
 constexpr int MAX_T = 32;  // frames a warp attends over (one lane per query)
 
 // Softmax attention over the t frames of one (pixel, head), run by ONE warp:

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma + TMA kernels (K1
-// flash_attn_fwd.cu, K2 temporal_block.cu): mbarriers, TMA loads and
-// stores through tensor maps, shared-memory matrix descriptors of swizzled
-// tiles, and the wgmma products with their fences.  sm_90a only.
+// flash_attn_fwd.cu, K2 temporal_block.cu, K7/K8 flash_attn_bwd.cu):
+// mbarriers, TMA loads and stores through tensor maps, shared-memory
+// matrix descriptors of swizzled tiles, and the wgmma products with their
+// fences.  sm_90a only.
 #pragma once
 
 #include <cstdint>
@@ -193,6 +194,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d(64 x 64, f32) (+)= A(64 x 16) B(16 x 64): A from registers as
+// wgmma_m64n64k16_rs's, B K-major in shared memory (the reduction dim
+// contiguous: K7's Q and dO read as Q^T / dO^T); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_k(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d(64 x 192, f32) (+)= A(64 x 16) B(16 x 192), A and B K-major in shared
 // memory; accumulate = 0 overwrites d.  Layout as wgmma_m64n128k16_ss's.
 __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t da,
@@ -294,18 +318,25 @@ inline EncodeTiled encode_tiled() {
 // an operand first, so this is a caller's fault).
 constexpr int TENSOR_MAP_ERROR = 9001;
 
-// A tensor map of ``rank`` dims (innermost first) over bf16 memory: element
-// extents ``dims``, byte strides of dims 1.. ``strides`` (multiples of 16),
-// boxes ``box`` with the given swizzle.  0, or TENSOR_MAP_ERROR.
-inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of ``rank`` dims (innermost first) over memory of type
+// ``type``: element extents ``dims``, byte strides of dims 1.. ``strides``
+// (multiples of 16), boxes ``box`` with the given swizzle; reads outside the
+// extents come back as zeros.  0, or TENSOR_MAP_ERROR.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return TENSOR_MAP_ERROR;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR;
+}
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    swizzle);
 }

@@ -10,7 +10,7 @@ with a plain C interface, loaded with ctypes:
 
 The library is built at first use and rebuilt when the hash of the sources
 changes, headers included (``csrc/common.cuh``; ``csrc/hopper.cuh``, the
-mbarrier / TMA / wgmma helpers of K1 and K2).  A failed build raises.
+mbarrier / TMA / wgmma helpers of K1, K2, K7 and K8).  A failed build raises.
 Nothing here runs at import time.
 """
 
@@ -45,8 +45,10 @@ SIGNATURES = {
     "v3d_flash_attn_fwd_smem": ([], _L),
     "v3d_flash_wgmma_probe": ([_I, _P, _P, _P, _P], _I),
     "v3d_flash_attn_fwd_wide_smem": ([_I, _I], _L),
-    "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
-    "v3d_flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
+    "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P, _P], _I),
+    "v3d_flash_attn_bwd_dkv": ([_P] * 7 + [_I] * 4 + [_P, _P, _P], _I),
+    "v3d_flash_attn_bwd_smem": ([_I], _L),
+    "v3d_flash_bwd_wgmma_probe": ([_I, _P, _P, _P, _P], _I),
     "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 4
                        + [ctypes.c_float] + [_I] * 5 + [_P, _P], _I),
     "v3d_group_norm_smem": ([_I] * 6, _L),

@@ -133,6 +133,43 @@ def flash_fwd_plan(b: int, h: int, sq: int, sk: int) -> dict:
             "smem": K1_SMEM, "kv_tiles": -(-sk // K1_BLOCK_K)}
 
 
+# K8 and K7 (csrc/flash_attn_bwd.cu): the same three warpgroups as K1.  K8:
+# 128 query rows a block (Q and dO loaded once, 32 KB), K/V tiles of 128
+# keys in a ring of 3 slots (32 KB a slot), 10 mbarriers.  K7: 128 keys a
+# block (K and V in registers), Q/dO tiles of 64 query rows and their lse
+# and D (2 x 256 B) in a ring of 4 slots, 8 mbarriers.  1 KB of alignment
+# slack each.
+BWD_THREADS = K1_THREADS
+DQ_BLOCK_Q, DQ_BLOCK_K, DQ_STAGES = 64 * K1_CONSUMERS, 128, 3
+DKV_BLOCK_K, DKV_BLOCK_Q, DKV_STAGES = 64 * K1_CONSUMERS, 64, 4
+DQ_SMEM = (2 * DQ_BLOCK_Q * 64 * 2 + 2 * DQ_STAGES * DQ_BLOCK_K * 64 * 2
+           + 8 * (1 + 3 * DQ_STAGES) + 1024)
+DKV_SMEM = (DKV_STAGES * (2 * DKV_BLOCK_Q * 64 * 2 + 2 * DKV_BLOCK_Q * 4)
+            + 8 * 2 * DKV_STAGES + 1024)
+BWD_PROF_SLOTS = 7  # clock64 phases a block (csrc/flash_attn_bwd.cu)
+
+
+def stats_pitch(sq: int) -> int:
+    """Row pitch (elements) of the row-statistics scratch K8 writes for K7:
+    sq rounded up to 4, so that a 2-D tensor map's row stride is a
+    multiple of 16 bytes."""
+    return -(-sq // 4) * 4
+
+
+def flash_bwd_plan(b: int, h: int, sq: int, sk: int) -> dict:
+    """The launches of K8 ("dq") and K7 ("dkv") for a (b, h, sq, 64) x (b,
+    h, sk, 64) backward: grid, threads, shared memory, ring depth and the
+    tiles each block walks; ``stats`` is the shape of K8's row-statistics
+    scratch (lse * log2 e and D of every row)."""
+    return {"dq": {"grid": (-(-sq // DQ_BLOCK_Q), b * h), "threads": BWD_THREADS,
+                   "smem": DQ_SMEM, "stages": DQ_STAGES,
+                   "tiles": -(-sk // DQ_BLOCK_K)},
+            "dkv": {"grid": (-(-sk // DKV_BLOCK_K), b * h), "threads": BWD_THREADS,
+                    "smem": DKV_SMEM, "stages": DKV_STAGES,
+                    "tiles": -(-sq // DKV_BLOCK_Q)},
+            "stats": (b * h, 2, stats_pitch(sq))}
+
+
 def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     """The (b, h, s) element strides under which a tensor map can read the
     (b, h, s, d) tensor ``t`` in place, or None: its base and every stride
@@ -184,6 +221,32 @@ def wgmma_probe(which: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wgmma_probe({which}): launch failed, error {err}")
+    return out
+
+
+def flash_bwd_wgmma_probe(which: int, a: torch.Tensor, b: torch.Tensor
+                          ) -> torch.Tensor:
+    """One of K7's register-A products alone, on the card, in f32:
+    ``which`` 0 is a (64, 64) @ b (64, 64)^T with b read K-major (S^T = K
+    Q^T), 1 is a @ b with b read MN-major (dV += P^T dO); a is read into
+    register fragments as K7 reads K and V.  a, b contiguous bf16 on one
+    CUDA device.  For the card tests and chip_smoke.py; not counted."""
+    from v3d_tpu_torch.kernels.build import library
+
+    for name, x in (("a", a), ("b", b)):
+        if (x.device.type != "cuda" or x.dtype != torch.bfloat16
+                or tuple(x.shape) != (64, 64) or not x.is_contiguous()):
+            raise ValueError(f"flash_bwd_wgmma_probe({which}): {name} must be "
+                             f"contiguous bf16 (64, 64) on the card, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    out = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = library().v3d_flash_bwd_wgmma_probe(
+            which, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_wgmma_probe({which}): launch failed, "
+                           f"error {err}")
     return out
 
 
@@ -241,9 +304,11 @@ def flash_attn_bwd_plain(q, k, v, o, lse, do):
 def flash_attn_bwd(q, k, v, o, lse, do):
     """Gradients (dq, dk, dv) of ``flash_attn_fwd`` given the output ``o``,
     its log-sum-exp ``lse`` and the incoming gradient ``do``, all (b, h, s,
-    64) with unit stride on d.  K8 (dq, and D = rowsum(do * o)) runs first,
-    then K7 (dk, dv); the gradients are (b, h, s, d) views of (b, s, h, d)
-    buffers, like q/k/v.  The kernels take bf16 only."""
+    64) with unit stride on d.  K8 (dq, and each row's D = rowsum(do * o)
+    and lse in a scratch) runs first, then K7 (dk, dv); an operand whose
+    base or strides are not 16-byte multiples is copied to an aligned
+    buffer first (``tma_operand``).  The gradients are (b, h, s, d) views of
+    (b, s, h, d) buffers, like q/k/v.  The kernels take bf16 only."""
     if use_plain(q, k, v, o, do):
         return flash_attn_bwd_plain(q, k, v, o, lse, do)
     _check_bhsd("flash_attn_bwd", q, k, v)
@@ -260,34 +325,48 @@ def flash_attn_bwd(q, k, v, o, lse, do):
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attn_bwd: lse must be contiguous float32 "
                          f"{(b, h, sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    q, k, v, o, do = (tma_operand(x) for x in (q, k, v, o, do))
     dq, dk, dv = (_like_projection(b, s, h, d, q) for s in (sq, sk, sk))
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _bwd_dq(q, k, v, o, lse, do, dsum, dq)
-    _bwd_dkv(q, k, v, do, lse, dsum, dk, dv)
+    stats = bwd_stats_scratch(b, h, sq, q.device)
+    _bwd_dq(q, k, v, o, lse, do, stats, dq)
+    _bwd_dkv(q, k, v, do, stats, dk, dv)
     return dq, dk, dv
 
 
+def bwd_stats_scratch(b: int, h: int, sq: int, device) -> torch.Tensor:
+    """K8's row statistics for K7 (``flash_bwd_plan``'s ``stats``)."""
+    return torch.empty((b * h, 2, stats_pitch(sq)), dtype=torch.float32,
+                       device=device)
+
+
 def _strides(*tensors):
+    """(b, h, s) element strides of each tensor, as tensor maps read them
+    (``tma_strides``; the caller made each operand readable)."""
     return (ctypes.c_longlong * (3 * len(tensors)))(*[
-        x for t in tensors for x in t.stride()[:3]])
+        x for t in tensors for x in (tma_strides(t) or t.stride()[:3])])
 
 
-def _bwd_dq(q, k, v, o, lse, do, dsum, dq) -> None:
-    """K8: dq, and dsum = rowsum(do * o) for K7 (checked by the caller)."""
+def _bwd_dq(q, k, v, o, lse, do, stats, dq, prof=None) -> None:
+    """K8: dq, and each row's lse * log2 e and D = rowsum(do * o) into
+    ``stats`` for K7 (operands checked and aligned by the caller).
+    ``prof``: None, or an int64 CUDA tensor of BWD_PROF_SLOTS a block for
+    the clock64 phases."""
     b, h, sq, _ = q.shape
     launch("flash_attn_bwd_dq", "v3d_flash_attn_bwd_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), b, h,
-           sq, k.shape[2], _strides(q, k, v, o, do, dq))
+           do.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), b, h,
+           sq, k.shape[2], _strides(q, k, v, o, do, dq),
+           None if prof is None else prof.data_ptr())
 
 
-def _bwd_dkv(q, k, v, do, lse, dsum, dk, dv) -> None:
-    """K7: dk and dv, reading K8's dsum (checked by the caller)."""
+def _bwd_dkv(q, k, v, do, stats, dk, dv, prof=None) -> None:
+    """K7: dk and dv, reading K8's ``stats`` (as ``_bwd_dq``)."""
     b, h, sq, _ = q.shape
     launch("flash_attn_bwd_dkv", "v3d_flash_attn_bwd_dkv", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-           sq, k.shape[2], _strides(q, k, v, do, dk, dv))
+           stats.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+           k.shape[2], _strides(q, k, v, do, dk, dv),
+           None if prof is None else prof.data_ptr())
 
 
 class _FlashAttention(torch.autograd.Function):
