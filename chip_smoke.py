@@ -16,10 +16,13 @@ Phases, each printing lines before the last:
    unfused route, as no single call computes T8); K6 at every shape of a
    UNet forward (``K6_FORWARD_SHAPES``) with the forward's summed time
    against its summed bound; each redesigned kernel's launch plan against
-   the library's shared-memory figure, and K2's, K6's, K7's and K8's
-   clock64 phases; K8 + K7 (the flash backward) also as a pair through
-   ``flash_attn_bwd`` against SDPA's backward and the bounds of the pair
-   (seven products) and of the function (five);
+   the library's shared-memory figure, K1's, K7's and K9's wgmma products
+   alone against torch.matmul, and K2's, K5's, K6's, K7's and K8's clock64
+   phases (K5 with the (tile, gaussian) pairs its cull admitted); K4 / K5's
+   bound counts the pairs of the exact 1/255 boxes (``gs_pairs``), not
+   every pair a cell-wide sweep tests; K8 + K7 (the flash backward) also
+   as a pair through ``flash_attn_bwd`` against SDPA's backward and the
+   bounds of the pair (seven products) and of the function (five);
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
    kernels against the same forward in ``reference_mode()`` (plain versions),
    and a ``torch.profiler`` trace of two forwards (device time by kernel
@@ -536,31 +539,58 @@ def flash_main_checks(randn) -> list:
     return out
 
 
+# K9's shapes in phase 3, (b, sq, sk, h, d): T2's VAE decode under "flash",
+# CLIP ViT-H under "packed", d = 128, one key
+WIDE_SHAPES = (("T2 VAE decode", (18, 4096, 4096, 1, 512)),
+               ("T4 CLIP", (1, 257, 257, 16, 80)),
+               ("d128", (4, 1024, 1024, 4, 128)),
+               ("sk=1", (18, 4096, 1, 1, 512)))
+
+
 def wide_checks(randn) -> list:
-    """K9 against its plain version, q/k/v as (b, h, s, d) views of (b, s, h,
-    d) buffers: T2's VAE decode (18, 4096, 1, 512), CLIP ViT-H under
-    "packed" (1, 257, 16, 80), d = 128, and one key (sk = 1); library:
-    scaled_dot_product_attention on the same views."""
+    """K9 against its plain version at WIDE_SHAPES, q/k/v as (b, h, s, d)
+    views of (b, s, h, d) buffers, both dtypes; library:
+    scaled_dot_product_attention on the same views.  Before them the bf16
+    kernel's products alone at each width against torch.matmul (d = 80's
+    128-byte and 32-byte atoms, d = 512's S of 32 k-steps and P V split over
+    two warpgroups) and each plan's shared memory against the library's."""
     import torch
     import torch.nn.functional as F
 
     from v3d_tpu_torch.kernels.build import library
     from v3d_tpu_torch.ops._dispatch import DTYPE_CODES
     from v3d_tpu_torch.ops.flash_attention import (
+        WIDE_BF16,
         WIDE_HEAD_DIMS,
         flash_attn_fwd_wide,
         flash_attn_fwd_wide_plain,
+        flash_wide_plan,
+        flash_wide_probe,
     )
 
-    say("3 kernels", "K9 flash_attn_fwd_wide shared memory per block: " + ", ".join(
-        f"d={d} {str(dt).split('.')[-1]} "
-        f"{library().v3d_flash_attn_fwd_wide_smem(DTYPE_CODES[dt], d)} B"
-        for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float32)))
+    for d in WIDE_HEAD_DIMS:
+        bk = WIDE_BF16[d]["block_k"]
+        product_checks(randn, f"K9 d={d}", lambda which, a, b_, d=d: flash_wide_probe(
+            d, which, a, b_), (
+            (f"Q K^T (K-major{', 64 + 16 columns' if d == 80 else ''}"
+             f"{', 32 k-steps of n32' if d == 512 else ''})", (64, d), (bk, d), True),
+            (f"P V (MN-major V{', n64 + n16' if d == 80 else ''}"
+             f"{', n256 a warpgroup' if d == 512 else ''})", (64, bk), (bk, d), False)))
+    for d in WIDE_HEAD_DIMS:
+        for dt in (torch.bfloat16, torch.float32):
+            smem = library().v3d_flash_attn_fwd_wide_smem(DTYPE_CODES[dt], d)
+            b, sq, sk, h, _ = WIDE_SHAPES[{512: 0, 80: 1, 128: 2}[d]][1]
+            plan = flash_wide_plan(b, h, sq, sk, d, dt)
+            say("3 kernels", f"K9 d={d} {str(dt).split('.')[-1]} block: {plan['route']}, "
+                f"{plan['threads']} threads, {smem} B of shared memory (plan "
+                f"{plan['smem']}), grid {plan['grid']}, {plan['kv_tiles']} key tiles, "
+                f"{plan['splits']} split" + (f", boxes {plan['kv_boxes']}"
+                                            if dt == torch.bfloat16 else ""))
+            if smem != plan["smem"]:
+                raise SmokeFailure(f"K9 d={d} {dt} shared memory {smem} B, "
+                                   f"flash_wide_plan says {plan['smem']}")
     out = []
-    for tag, (b, sq, sk, h, d) in (("T2 VAE decode", (18, 4096, 4096, 1, 512)),
-                                   ("T4 CLIP", (1, 257, 257, 16, 80)),
-                                   ("d128", (4, 1024, 1024, 4, 128)),
-                                   ("sk=1", (18, 4096, 1, 1, 512))):
+    for tag, (b, sq, sk, h, d) in WIDE_SHAPES:
         x32 = [randn(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk)]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t_.to(dtype) for t_ in x32)
@@ -957,35 +987,51 @@ def fit_scene_slabs(dev, n: int = 100_000, res: int = 512, kc: int = 2048):
 
 
 def gs_pairs(slabs, saved) -> dict:
-    """The (pixel, gaussian) pairs this run's data needs.  T10: per pixel the
-    gaussians up to its last composited one when its T fell below 1e-4, else
-    the cell's live ones.  T11: those up to the last composited one.  Both:
-    the composited ones among them."""
+    """The (pixel, gaussian) pairs of T10 / T11 on this run's data.
+    ``tested``: what a cell-wide sweep tests (T10: per pixel the gaussians
+    up to its last composited one when its T fell below 1e-4, else the
+    cell's live ones; ``tested_bwd``, T11: those up to the last composited
+    one).  ``needed`` / ``needed_bwd``: of those, the pairs of the (tile,
+    gaussian) pairs whose exact 1/255 box meets the tile
+    (``tile_reach(exact=True)``, ``reach`` of them), the tests these inputs
+    need.  ``composited``: the pairs that pass, up to each pixel's last."""
     import torch
 
-    from v3d_tpu_torch.ops.gs_composite import ALPHA_MAX, ALPHA_MIN, T_EPS, tile_pixels
+    from v3d_tpu_torch.ops.gs_composite import (
+        ALPHA_MAX,
+        ALPHA_MIN,
+        T_EPS,
+        tile_pixels,
+        tile_reach,
+    )
 
     ts, last, k_stop = saved
     slab, kc = slabs.slab.detach(), slabs.slab.shape[1]
     cell = slabs.cell_of_tile.long()
     t_final = ts.gather(1, k_stop.long()[:, None, None].expand(-1, 1, ts.shape[2]))[:, 0]
     n_live = slabs.live_count.long().clamp(max=kc)[cell][:, None]
-    tested = torch.where(t_final < T_EPS, last.long() + 1, n_live).sum()
-    composited = 0
+    limit = torch.where(t_final < T_EPS, last.long() + 1, n_live)
+    out = {"tested": int(limit.sum()), "tested_bwd": int((last.long() + 1).sum()),
+           "needed": 0, "needed_bwd": 0, "composited": 0, "reach": 0,
+           "ts_rows": int(k_stop.sum())}
     pix_all = tile_pixels(slabs.tile_xy)
     j = torch.arange(kc, device=slab.device)
     for t0 in range(0, pix_all.shape[0], 16):
         pix, sl = pix_all[t0:t0 + 16], slab[cell[t0:t0 + 16]]
+        reach = tile_reach(sl, slabs.tile_xy[t0:t0 + 16], exact=True)[:, None, :]
+        lst = last[t0:t0 + 16, :, None]
         dx = pix[:, :, None, 0] - sl[:, None, :, 0]
         dy = pix[:, :, None, 1] - sl[:, None, :, 1]
         con = sl[:, None, :, 2:5]
         power = (-0.5 * (con[..., 0] * dx * dx + con[..., 2] * dy * dy)
                  - con[..., 1] * dx * dy)
         alpha = torch.clamp(sl[:, None, :, 8] * torch.exp(power), max=ALPHA_MAX)
-        ok = (power <= 0) & (alpha >= ALPHA_MIN) & (j <= last[t0:t0 + 16, :, None])
-        composited += int(ok.sum())
-    return {"tested": int(tested), "tested_bwd": int((last.long() + 1).sum()),
-            "composited": composited, "ts_rows": int(k_stop.sum())}
+        ok = (power <= 0) & (alpha >= ALPHA_MIN) & (j <= lst)
+        out["composited"] += int(ok.sum())
+        out["reach"] += int(reach.sum())
+        out["needed"] += int(((j < limit[t0:t0 + 16, :, None]) & reach).sum())
+        out["needed_bwd"] += int(((j <= lst) & reach).sum())
+    return out
 
 
 def phase_gs_kernels() -> dict:
@@ -1026,6 +1072,17 @@ def phase_gs_kernels() -> dict:
         e <= GS_GRAD_REL * sc for e, sc in rows)
 
     pairs = gs_pairs(slabs, saved)
+    prof = torch.zeros(n_tiles, gc.BWD_PROF_SLOTS, dtype=torch.int64, device=dev)
+    gc.composite_bwd(args[0], args[2], args[3], saved, *cot, prof=prof)
+    torch.cuda.synchronize()
+    cycles = prof[:, :4].double()
+    admitted, walked = int(prof[:, 4].sum()), int(prof[:, 5].sum())
+    say("3 kernels", f"K5 clock64 cycles per block ({n_tiles} blocks; the longest of "
+        f"its groups for the phases), mean / max: "
+        + ", ".join(f"{name} {float(cycles[:, i].mean()):,.0f} / {float(cycles[:, i].max()):,.0f}"
+                    for i, name in enumerate(("all", "front-to-back sums", "walk", "flush")))
+        + f" | (tile, gaussian) pairs admitted by the cull {admitted:,} (exact 1/255 box "
+        f"{pairs['reach']:,}), gaussians the groups' first warps walked {walked:,}")
     fwd_ms = cuda_ms(lambda: gc.composite_fwd(*args))
     plain_fwd_ms = cuda_ms(lambda: gc.composite_plain(*args), iters=5, warmup=1)
     bwd_ms = cuda_ms(lambda: gc.composite_bwd(args[0], args[2], args[3], saved, *cot))
@@ -1033,30 +1090,34 @@ def phase_gs_kernels() -> dict:
         plain_out, slab, cot, retain_graph=True), iters=5, warmup=1)
     slab_bytes = n_cells * kc * gc.ATTR * 4
     fwd_bound = bound_ms(
-        pairs["tested"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_FWD,
+        pairs["needed"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_FWD,
         slab_bytes + n_pix * 24 + (pairs["ts_rows"] + n_tiles) * gc.P * 4
         + n_tiles * 16, PEAK_FP32)
     bwd_bound = bound_ms(
-        pairs["tested_bwd"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_BWD,
+        pairs["needed_bwd"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_BWD,
         2 * slab_bytes + n_pix * 24 + pairs["ts_rows"] * gc.P * 4 + n_tiles * 12,
         PEAK_FP32)
     say("3 kernels", f"K4 gs_composite_fwd (T10) {tag} f32: max_abs rgb "
         f"{errs[0]:.3e} acc {errs[1]:.3e} (<= {GS_RGB_ACC_MAX_ABS:g}) depth "
         f"{errs[2]:.3e} (<= {GS_DEPTH_MAX_ABS:g}) | kernel {fwd_ms:.4f} ms "
         f"plain {plain_fwd_ms:.4f} ms library none | bound {fwd_bound[0]:.4f} "
-        f"ms ({fwd_bound[1]}) | pairs tested {pairs['tested']:,} composited "
-        f"{pairs['composited']:,}, k_stop rows {pairs['ts_rows']:,} | "
+        f"ms ({fwd_bound[1]}) | pairs a cell-wide sweep tests {pairs['tested']:,}, "
+        f"needed (exact box) {pairs['needed']:,}, composited {pairs['composited']:,}, "
+        f"k_stop rows {pairs['ts_rows']:,} | "
         f"{'ok' if ok_fwd else 'FAIL'}")
     say("3 kernels", f"K5 gs_composite_bwd (T11) {tag} f32: per attribute "
         f"max_abs / max|plain| " + " ".join(f"{e / max(sc, 1e-30):.2e}"
                                             for e, sc in rows)
         + f" (<= {GS_GRAD_REL:g}) | kernel {bwd_ms:.4f} ms plain (autograd "
         f"backward) {plain_bwd_ms:.4f} ms library none | bound "
-        f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}) | pairs tested "
-        f"{pairs['tested_bwd']:,} | {'ok' if ok_bwd else 'FAIL'}")
+        f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}) | pairs a cell-wide sweep tests "
+        f"{pairs['tested_bwd']:,}, needed (exact box) {pairs['needed_bwd']:,}, "
+        f"composited {pairs['composited']:,}; (tile, gaussian) admitted by the cull "
+        f"{admitted:,} | {'ok' if ok_bwd else 'FAIL'}")
     if not (ok_fwd and ok_bwd):
         raise SmokeFailure(f"gs_composite disagrees: fwd {errs}, bwd {rows}")
-    common = {"shape": tag, "dtype": "float32", "library_ms": None}
+    common = {"shape": tag, "dtype": "float32", "library_ms": None,
+              "pairs": pairs, "cull_admitted": admitted}
     return {
         "gs_composite_fwd": [dict(common, max_abs_err=max(errs), ms=fwd_ms,
                                   plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],

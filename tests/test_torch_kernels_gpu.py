@@ -167,6 +167,27 @@ def test_flash_wide_kernel_ragged(dev, dtype, d, b, h, sq, sk, pad):
     assert LAUNCHES["flash_attn_fwd_wide"] == before + 1
 
 
+@pytest.mark.parametrize("d,which", [(80, 0), (80, 1), (128, 0), (128, 1), (512, 0),
+                                     (512, 1)])
+def test_k9_wgmma_product_alone(dev, d, which):
+    """Each wgmma product of K9's bf16 kernel alone against torch.matmul on
+    the same bf16 inputs (f32 sums): Q K^T K-major (d = 80: the 128-byte
+    atom and the 32-byte one; d = 512: 32 k-steps of n32 by one
+    warpgroup), P V with V MN-major (d = 512: half the columns a
+    warpgroup)."""
+    from v3d_tpu_torch.ops.flash_attention import WIDE_BF16, flash_wide_probe
+
+    bk = WIDE_BF16[d]["block_k"]
+    gen = torch.Generator(device=dev).manual_seed(which)
+    sa, sb = ((64, d), (bk, d)) if which == 0 else ((64, bk), (bk, d))
+    a, b = (torch.randn(*s_, device=dev, generator=gen).to(torch.bfloat16)
+            for s_ in (sa, sb))
+    got = flash_wide_probe(d, which, a, b)
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float().t() if which == 0 else b.float())
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("route,d", [("bh", 64), ("heads", 64), ("packed", 64),
                                      ("bh", 512), ("packed", 80), ("packed", 128)])
@@ -359,6 +380,38 @@ def test_gs_composite_kernels(dev, n, res, kc, opacity):
         assert err <= 1e-3 * scale + 1e-12, (a, err, scale)
     assert LAUNCHES["gs_composite_fwd"] == before["gs_composite_fwd"] + 1
     assert LAUNCHES["gs_composite_bwd"] == before["gs_composite_bwd"] + 1
+
+
+@pytest.mark.parametrize("n,res,kc", [(3000, 64, 256), (20000, 256, 1000)])
+def test_gs_composite_bwd_cull_count(dev, n, res, kc):
+    """K5's cull admits, per tile, the gaussians tile_reach (its plain
+    version, float64 on the card) admits up to the tile's last composited
+    one: the kernel's count (clock64 buffer) equals the plain count (a
+    boundary case may round either way: within 2), is at least the exact
+    1/255 boxes', and the gradient with the buffer equals the one
+    without."""
+    from v3d_tpu_torch.ops import gs_composite as gc
+
+    s = _gs_slab(dev, n, res, kc)
+    args = (s.slab.detach(), s.live_count, s.cell_of_tile, s.tile_xy)
+    _, saved = gc.composite_fwd(*args)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cot = [torch.randn(shape, device=dev, generator=gen)
+           for shape in ((len(s.tile_xy), gc.P, 3), (len(s.tile_xy), gc.P),
+                         (len(s.tile_xy), gc.P))]
+    prof = torch.zeros(len(s.tile_xy), gc.BWD_PROF_SLOTS, dtype=torch.int64, device=dev)
+    d0 = gc.composite_bwd(args[0], s.cell_of_tile, s.tile_xy, saved, *cot)
+    d1 = gc.composite_bwd(args[0], s.cell_of_tile, s.tile_xy, saved, *cot, prof=prof)
+    torch.cuda.synchronize()
+    assert float((d0 - d1).abs().max()) <= 1e-6 * float(d0.abs().max()) + 1e-12
+    rows = args[0][s.cell_of_tile.long()]
+    block_last = saved[1].max(1).values
+    upto = torch.arange(kc, device=dev)[None] <= block_last[:, None]
+    plain = int((gc.tile_reach(rows, s.tile_xy) & upto).sum())
+    exact = int((gc.tile_reach(rows, s.tile_xy, exact=True) & upto).sum())
+    got = int(prof[:, 4].sum())
+    assert abs(got - plain) <= 2 and got >= exact, (got, plain, exact)
+    assert (prof[:, 0] > 0).all()
 
 
 def test_gs_render_gradients_through_kernels(dev):

@@ -10,7 +10,7 @@ with a plain C interface, loaded with ctypes:
 
 The library is built at first use and rebuilt when the hash of the sources
 changes, headers included (``csrc/common.cuh``; ``csrc/hopper.cuh``, the
-mbarrier / TMA / wgmma helpers of K1, K2, K7 and K8).  A failed build raises.
+mbarrier / TMA / wgmma helpers of K1, K2, K7, K8 and K9).  A failed build raises.
 Nothing here runs at import time.
 """
 
@@ -45,6 +45,7 @@ SIGNATURES = {
     "v3d_flash_attn_fwd_smem": ([], _L),
     "v3d_flash_wgmma_probe": ([_I, _P, _P, _P, _P], _I),
     "v3d_flash_attn_fwd_wide_smem": ([_I, _I], _L),
+    "v3d_flash_wide_probe": ([_I, _I, _P, _P, _P, _P], _I),
     "v3d_flash_attn_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P, _P, _P], _I),
     "v3d_flash_attn_bwd_dkv": ([_P] * 7 + [_I] * 4 + [_P, _P, _P], _I),
     "v3d_flash_attn_bwd_smem": ([_I], _L),
@@ -59,7 +60,7 @@ SIGNATURES = {
     "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P, _P], _I),
     "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
     "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 3 + [_P] * 6 + [_P], _I),
-    "v3d_gs_composite_bwd": ([_P] * 3 + [_I] * 3 + [_P] * 7 + [_P], _I),
+    "v3d_gs_composite_bwd": ([_P] * 3 + [_I] * 3 + [_P] * 8 + [_P], _I),
 }
 
 

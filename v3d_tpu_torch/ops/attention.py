@@ -107,8 +107,8 @@ def _check_bhsd(name: str, q, k, v, head_dims=(64,)) -> int:
 def _like_projection(b, s, h, d, ref):
     """A (b, h, s, d) view of a (b, s, h, d)-contiguous buffer: the layout
     the projections write and the output projection reads."""
-    return torch.empty((b, s, h, d), dtype=ref.dtype,
-                       device=ref.device).transpose(1, 2)
+    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                               dtype=ref.dtype, device=ref.device)
 
 
 # K1's bf16 kernel (csrc/flash_attn_fwd.cu): blocks of 64 query rows per
@@ -176,25 +176,32 @@ def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     must be a multiple of 16 bytes, d unit-stride.  A dim of size 1 is never
     stepped, so its stride is replaced by the row width (a stride of 0 or an
     odd one there does not matter)."""
-    size = t.element_size()
-    if t.stride(-1) != 1 or t.data_ptr() % TMA_ALIGN:
+    shape, stride = t.shape, t.stride()
+    if stride[-1] != 1 or t.data_ptr() % TMA_ALIGN:
         return None
-    out = []
-    for n, st in zip(t.shape[:3], t.stride()[:3]):
-        if n == 1:
-            st = t.shape[-1]
-        if st <= 0 or (st * size) % TMA_ALIGN:
-            return None
-        out.append(st)
-    return tuple(out)
+    size, d = t.element_size(), shape[-1]
+    sb = d if shape[0] == 1 else stride[0]
+    sh = d if shape[1] == 1 else stride[1]
+    ss = d if shape[2] == 1 else stride[2]
+    if (sb <= 0 or sh <= 0 or ss <= 0 or (sb * size) % TMA_ALIGN
+            or (sh * size) % TMA_ALIGN or (ss * size) % TMA_ALIGN):
+        return None
+    return sb, sh, ss
 
 
 def tma_operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where a tensor map can read it (``tma_strides``), else an
     aligned contiguous copy of it (a new allocation, 16-byte aligned)."""
-    if tma_strides(t) is not None:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    return tma_ready(t)[0]
+
+
+def tma_ready(t: torch.Tensor):
+    """``tma_operand(t)`` and its ``tma_strides``, in one pass."""
+    strides = tma_strides(t)
+    if strides is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        strides = tma_strides(t)
+    return t, strides
 
 
 def wgmma_probe(which: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,9 @@ prod_{j<i}(1 - alpha_j) >= 1e-4 (else 0).
   ``torch.utils.checkpoint``); autograd gives its gradient.
 - ``composite_fwd`` / ``composite_bwd``: the launch wrappers of T10 / T11
   (csrc/gs_composite_fwd.cu, csrc/gs_composite_bwd.cu).
+- ``tile_reach``: the plain version of T11's per-tile cull
+  (csrc/gs_composite.cuh ``tile_reach``): which gaussians can pass the
+  alpha test at some pixel of a tile.
 - ``GSComposite``: the autograd Function that ties them; its forward saves
   the slab and T10's checkpoints (ts, each pixel's last composited gaussian,
   k_stop), its backward launches T11.
@@ -45,6 +48,12 @@ ATTR = 10
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
+# the cull's margins (csrc/gs_composite.cuh): the relative float error of
+# the alpha test's power per unit of conic condition, and the test's own
+# rounding in log units
+REACH_EPS = 1e-6
+REACH_DELTA = 1e-5
+BWD_PROF_SLOTS = 6  # T11's clock64 phases and counts a block (``composite_bwd``)
 
 
 def tile_pixels(tile_xy: torch.Tensor) -> torch.Tensor:
@@ -82,6 +91,43 @@ def _composite_tiles(slab: torch.Tensor, pix: torch.Tensor, depth_chunk: int):
         dep = dep + (w * ch[:, None, :, 9]).sum(-1)
         T = T * t_local[..., -1]
     return rgb, acc, dep
+
+
+def tile_reach(slab: torch.Tensor, tile_xy: torch.Tensor,
+               exact: bool = False) -> torch.Tensor:
+    """bool (n_tiles, K): whether gaussian k of each tile's cell rows can
+    pass the alpha test (alpha >= 1/255) at some pixel of the tile.  slab
+    (n_tiles or 1, K, 10), the rows each tile sees; tile_xy (n_tiles, 2).
+
+    False where op < 1/255 (dead slots have op 0); else, for a
+    positive-definite conic (a, b, c), false where the box of the ellipse
+    a dx^2 + 2 b dx dy + c dy^2 <= 2 L, L = ln(255 op), misses the tile's
+    pixels: |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det), det = ac -
+    b^2.  Conservative against the float rounding of the test (as T11's
+    cull, in float64): 2 (L + REACH_DELTA) / (1 - rho) in place of 2 L, rho =
+    REACH_EPS (|a| + |b| + |c|) / lambda_min, and a pixel of padding; a
+    conic that is not positive definite, rho >= 1/2 or any non-finite entry
+    is admitted.  ``exact``: the box of 2 L itself, unpadded (the work the
+    inputs need, chip_smoke.py's bound)."""
+    g = slab.double()
+    mx, my, a, b, c = (g[..., i] for i in range(5))
+    det = a * c - b * b
+    if exact:
+        rho, delta, pad = torch.zeros_like(det), 0.0, 0.0
+    else:
+        lmax = 0.5 * (a + c) + torch.sqrt(0.25 * (a - c) ** 2 + b * b)
+        rho = REACH_EPS * (a.abs() + b.abs() + c.abs()) * lmax / det
+        delta, pad = REACH_DELTA, 1.0
+    r = 2.0 * (torch.log(255.0 * g[..., 8]).clamp(min=0.0) + delta) / (1.0 - rho)
+    hx = torch.sqrt(r * c / det) + pad
+    hy = torch.sqrt(r * a / det) + pad
+    x0 = tile_xy[:, 0, None].double()
+    y0 = tile_xy[:, 1, None].double()
+    hit = ((mx + hx >= x0) & (mx - hx <= x0 + TILE - 1)
+           & (my + hy >= y0) & (my - hy <= y0 + TILE - 1))
+    admit = (~torch.isfinite(g[..., [0, 1, 2, 3, 4, 8]]).all(-1)
+             | ~((det > 0) & (a > 0)) | (rho >= 0.5))
+    return ~(slab[..., 8] < ALPHA_MIN) & (admit | hit)
 
 
 def composite_plain(slab: torch.Tensor, live_count: torch.Tensor,
@@ -152,10 +198,16 @@ def composite_fwd(slab: torch.Tensor, live_count: torch.Tensor,
 
 def composite_bwd(slab: torch.Tensor, cell_of_tile: torch.Tensor,
                   tile_xy: torch.Tensor, saved, g_rgb: torch.Tensor,
-                  g_acc: torch.Tensor, g_dep: torch.Tensor) -> torch.Tensor:
+                  g_acc: torch.Tensor, g_dep: torch.Tensor,
+                  prof: torch.Tensor = None) -> torch.Tensor:
     """Launch T11: the slab gradient (n_cells, Kc, 10) of the outputs whose
     cotangents are ``g_rgb`` (n_tiles, 256, 3), ``g_acc``, ``g_dep``
-    (n_tiles, 256); ``saved`` is ``composite_fwd``'s second result."""
+    (n_tiles, 256); ``saved`` is ``composite_fwd``'s second result.
+    ``prof``: None, or an int64 CUDA tensor of (n_tiles, BWD_PROF_SLOTS)
+    that receives each block's clock64 cycles (in all, and its longest
+    group's front-to-back sums, walks and flushes), the (tile, gaussian)
+    pairs its cull admitted and the gaussians its groups' first warps
+    walked."""
     _check("gs_composite_bwd", slab, None, cell_of_tile, tile_xy)
     ts, last, k_stop = saved
     n_tiles, kc = cell_of_tile.shape[0], slab.shape[1]
@@ -173,7 +225,7 @@ def composite_bwd(slab: torch.Tensor, cell_of_tile: torch.Tensor,
     launch("gs_composite_bwd", "v3d_gs_composite_bwd", slab.device,
            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
            n_tiles, kc, n_chunks, *(x.data_ptr() for x in args[3:]),
-           dslab.data_ptr())
+           dslab.data_ptr(), None if prof is None else prof.data_ptr())
     return dslab
 
 
