@@ -92,6 +92,7 @@ UNET_MIN_PSNR = 30.0  # dB, phase 4: bf16 UNet with kernels vs plain versions
 GS_RGB_ACC_MAX_ABS = 1e-4
 GS_DEPTH_MAX_ABS = 1e-3
 GS_GRAD_REL = 1e-3    # per attribute: max abs <= GS_GRAD_REL * max |plain|
+GS_TS_REL = 1e-5      # K4's checkpoints ts against the plain ones, relative
 # phase 8, one fine-tune step with the kernels against reference_mode(), bf16
 # compute: the two differ only by bf16 rounding inside the kernels (P and dS
 # packed to bf16 by K1/K7/K8, other summation orders)
@@ -1034,6 +1035,34 @@ def gs_pairs(slabs, saved) -> dict:
     return out
 
 
+def gs_checkpoints_mismatch(saved, plain) -> dict:
+    """K4's checkpoints (ts, last, k_stop) against
+    ``composite_checkpoints_plain`` on the same inputs.  ``near``: pixels
+    whose final T on either side lies within 1e-5 relative of 1e-4 (there
+    one side may take one more gaussian than the other); outside them
+    ``last`` and, at tiles without such a pixel, ``k_stop`` must be equal
+    (``last`` / ``k_stop``: the mismatches), and ts[:k_stop] and the final
+    T agree within ``ts_rel`` (max relative difference; the bound is
+    GS_TS_REL)."""
+    import torch
+
+    from v3d_tpu_torch.ops.gs_composite import T_EPS
+
+    (ts, last, k_stop), (ts_p, last_p, k_stop_p) = saved, plain
+    rows = torch.arange(len(k_stop), device=ts.device)
+    t_fin, t_fin_p = ts[rows, k_stop.long()], ts_p[rows, k_stop_p.long()]
+    near = ((t_fin / T_EPS - 1).abs() <= 1e-5) | ((t_fin_p / T_EPS - 1).abs() <= 1e-5)
+    upto = (torch.arange(ts.shape[1], device=ts.device)[None]
+            < torch.minimum(k_stop, k_stop_p)[:, None])
+    keep = upto[:, :, None] & ~near[:, None, :]
+    rel = torch.cat([((ts - ts_p).abs() / ts_p.abs())[keep],
+                     ((t_fin - t_fin_p).abs() / t_fin_p.abs())[~near]])
+    return {"near": int(near.sum()),
+            "last": int((last != last_p)[~near].sum()),
+            "k_stop": int((k_stop != k_stop_p)[~near.any(1)].sum()),
+            "ts_rel": float(rel.max()) if rel.numel() else 0.0}
+
+
 def phase_gs_kernels() -> dict:
     """K4 / K5 (T10 / T11) against the plain compositor at the fit's
     full-width shapes (512^2: 1024 tiles, 16 cells of Kc = 2048)."""
@@ -1056,6 +1085,14 @@ def phase_gs_kernels() -> dict:
     errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
     ok_fwd = (all(bool(torch.isfinite(o).all()) for o in out)
               and max(errs[:2]) <= GS_RGB_ACC_MAX_ABS and errs[2] <= GS_DEPTH_MAX_ABS)
+    ckpt = gs_checkpoints_mismatch(saved, gc.composite_checkpoints_plain(*args))
+    ok_ckpt = ckpt["last"] == ckpt["k_stop"] == 0 and ckpt["ts_rel"] <= GS_TS_REL
+    say("3 kernels", f"K4 checkpoints vs composite_checkpoints_plain: ts max rel "
+        f"{ckpt['ts_rel']:.2e} (<= {GS_TS_REL:g}), last / k_stop mismatches "
+        f"{ckpt['last']} / {ckpt['k_stop']} (0) outside {ckpt['near']} pixels at "
+        f"the 1e-4 stop | {'ok' if ok_ckpt else 'FAIL'}")
+    if not ok_ckpt:
+        raise SmokeFailure(f"K4's checkpoints disagree with the plain ones: {ckpt}")
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cot = [torch.randn(o.shape, device=dev, generator=gen) for o in out]
@@ -1072,6 +1109,19 @@ def phase_gs_kernels() -> dict:
         e <= GS_GRAD_REL * sc for e, sc in rows)
 
     pairs = gs_pairs(slabs, saved)
+    prof = torch.zeros(n_tiles, gc.FWD_PROF_SLOTS, dtype=torch.int64, device=dev)
+    gc.composite_fwd(*args, prof=prof)
+    torch.cuda.synchronize()
+    cycles = prof[:, :4].double()
+    fwd_admitted, fwd_staged = int(prof[:, 4].sum()), int(prof[:, 5].sum())
+    say("3 kernels", f"K4 clock64 cycles per tile (the most of its {gc.FWD_SPLIT} "
+        f"blocks; {n_tiles} tiles), mean / max: "
+        + ", ".join(f"{name} {float(cycles[:, i].mean()):,.0f} / {float(cycles[:, i].max()):,.0f}"
+                    for i, name in enumerate(("all", "cull", "walk", "final writes")))
+        + f" | (band, gaussian) pairs admitted by the cull {fwd_admitted:,} ((tile, "
+        f"gaussian) pairs of the exact 1/255 boxes {pairs['reach']:,}), gaussians staged "
+        f"{fwd_staged:,}; pixel tests {fwd_staged * gc.P // gc.FWD_SPLIT:,} (a cell-wide "
+        f"sweep {pairs['tested']:,}, needed {pairs['needed']:,})")
     prof = torch.zeros(n_tiles, gc.BWD_PROF_SLOTS, dtype=torch.int64, device=dev)
     gc.composite_bwd(args[0], args[2], args[3], saved, *cot, prof=prof)
     torch.cuda.synchronize()
@@ -1116,13 +1166,14 @@ def phase_gs_kernels() -> dict:
         f"{admitted:,} | {'ok' if ok_bwd else 'FAIL'}")
     if not (ok_fwd and ok_bwd):
         raise SmokeFailure(f"gs_composite disagrees: fwd {errs}, bwd {rows}")
-    common = {"shape": tag, "dtype": "float32", "library_ms": None,
-              "pairs": pairs, "cull_admitted": admitted}
+    common = {"shape": tag, "dtype": "float32", "library_ms": None, "pairs": pairs}
     return {
         "gs_composite_fwd": [dict(common, max_abs_err=max(errs), ms=fwd_ms,
                                   plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],
-                                  bound_by=fwd_bound[1])],
-        "gs_composite_bwd": [dict(common, max_abs_err=max(e for e, _ in rows),
+                                  bound_by=fwd_bound[1], cull_admitted=fwd_admitted,
+                                  checkpoints=ckpt)],
+        "gs_composite_bwd": [dict(common, cull_admitted=admitted,
+                                  max_abs_err=max(e for e, _ in rows),
                                   ms=bwd_ms, plain_ms=plain_bwd_ms,
                                   bound_ms=bwd_bound[0], bound_by=bwd_bound[1])]}
 
@@ -1617,7 +1668,7 @@ def phase_fit(frames, dev) -> dict:
 
 
 KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("K4 T10 gs_composite_fwd", ("gs_composite_fwd",)),
+    ("K4 T10 gs_composite_fwd", ("gs_composite_fwd", "gs_reach_table")),
     ("K5 T11 gs_composite_bwd", ("gs_composite_bwd",)),
     ("binning: top-k / sort / scan", ("topk", "sort", "radix", "scan", "bitonic")),
     ("gather / scatter (slab, densify)", ("index", "gather", "scatter")),

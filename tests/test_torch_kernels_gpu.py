@@ -20,7 +20,10 @@ and two-launch paths.  Tolerances:
   states: rgb and acc max abs <= 1e-4, depth <= 1e-3 (a pair whose
   transmittance sits at the 1e-4 stop may count on one side only); the slab
   gradient per attribute max abs <= 1e-3 x max |plain| of that attribute
-  (T11 divides T back and sums with atomics, in another order).
+  (T11 divides T back and sums with atomics, in another order); T10's
+  checkpoints against ``composite_checkpoints_plain``: ts within rtol 1e-5,
+  last and k_stop equal except at pixels whose T at the stop lies within
+  1e-5 relative of 1e-4 (``chip_smoke.gs_checkpoints_mismatch``).
 """
 
 import dataclasses
@@ -28,6 +31,8 @@ import math
 
 import pytest
 import torch
+
+import chip_smoke
 
 pytestmark = pytest.mark.gpu
 
@@ -367,6 +372,11 @@ def test_gs_composite_kernels(dev, n, res, kc, opacity):
     assert float(acc.max()) > 0.5
     if opacity is not None:   # pixels saturate and stop at T < 1e-4
         assert float(acc.max()) > 1 - 1e-4
+    # K4's checkpoints, which K5 reads below, against their plain version
+    ckpt = chip_smoke.gs_checkpoints_mismatch(saved, gc.composite_checkpoints_plain(*args))
+    print(f"K4 checkpoints: {ckpt}")
+    assert ckpt["last"] == ckpt["k_stop"] == 0, ckpt
+    assert ckpt["ts_rel"] <= chip_smoke.GS_TS_REL, ckpt
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cot = [torch.randn(x.shape, device=dev, generator=gen) for x in (rgb, acc, dep)]
@@ -380,6 +390,45 @@ def test_gs_composite_kernels(dev, n, res, kc, opacity):
         assert err <= 1e-3 * scale + 1e-12, (a, err, scale)
     assert LAUNCHES["gs_composite_fwd"] == before["gs_composite_fwd"] + 1
     assert LAUNCHES["gs_composite_bwd"] == before["gs_composite_bwd"] + 1
+
+
+@pytest.mark.parametrize("n,res,kc,opacity", [(3000, 64, 256, None),
+                                              (3000, 64, 256, 6.0),
+                                              (20000, 256, 1000, None)])
+def test_gs_composite_fwd_cull_count(dev, n, res, kc, opacity):
+    """K4's cull admits, per band of a tile, the live gaussians of its cell
+    whose box in whole pixels (``reach_boxes``, its plain version, float64
+    on the card) meets the band: the kernel's count (clock64 buffer)
+    equals the plain count (a boundary case may round either way: within
+    2), is at least the exact 1/255 boxes', and the outputs with the
+    buffer equal those without, bit for bit."""
+    from v3d_tpu_torch.ops import gs_composite as gc
+
+    s = _gs_slab(dev, n, res, kc, opacity)
+    args = (s.slab.detach(), s.live_count, s.cell_of_tile, s.tile_xy)
+    prof = torch.zeros(len(s.tile_xy), gc.FWD_PROF_SLOTS, dtype=torch.int64, device=dev)
+    out0, saved0 = gc.composite_fwd(*args)
+    out1, saved1 = gc.composite_fwd(*args, prof=prof)
+    torch.cuda.synchronize()
+    for x0, x1 in zip(out0 + saved0[1:], out1 + saved1[1:]):
+        assert torch.equal(x0, x1)
+    cell = s.cell_of_tile.long()
+    live = (torch.arange(args[0].shape[1], device=dev)[None]
+            < s.live_count.long()[cell][:, None])
+    rows = gc.TILE // gc.FWD_SPLIT
+    x0, y0 = s.tile_xy[:, 0, None], s.tile_xy[:, 1, None]
+    counts = []
+    for exact in (False, True):
+        boxes = gc.reach_boxes(args[0], exact=exact)[cell]
+        counts.append(sum(int((gc.pixel_boxes_meet(
+            boxes, x0, x0 + gc.TILE - 1, y0 + k * rows, y0 + k * rows + rows - 1)
+            & live).sum()) for k in range(gc.FWD_SPLIT)))
+    got = int(prof[:, 4].sum())
+    assert abs(got - counts[0]) <= 2 and got >= counts[1], (got, counts)
+    # a tile's blocks stage what their culls admitted (no block stops early
+    # in one segment), and take some time
+    assert (prof[:, 5] <= prof[:, 4]).all() and (prof[:, 0] > 0).all()
+    assert (prof[:, 0] >= prof[:, 1]).all() and (prof[:, 0] >= prof[:, 2]).all()
 
 
 @pytest.mark.parametrize("n,res,kc", [(3000, 64, 256), (20000, 256, 1000)])

@@ -59,7 +59,7 @@ SIGNATURES = {
     "v3d_temporal_core_grid": ([_I, _I, _L], _L),
     "v3d_temporal_block": ([_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_P, _P], _I),
     "v3d_temporal_block_smem": ([_I, _I, _I, _I, _I], _L),
-    "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 3 + [_P] * 6 + [_P], _I),
+    "v3d_gs_composite_fwd": ([_P] * 4 + [_I] * 4 + [_P] * 8 + [_P], _I),
     "v3d_gs_composite_bwd": ([_P] * 3 + [_I] * 3 + [_P] * 8 + [_P], _I),
 }
 

@@ -23,11 +23,15 @@ prod_{j<i}(1 - alpha_j) >= 1e-4 (else 0).
 - ``composite_plain``: the plain version, the math of ``_composite_xla``
   (depth chunks with a carried transmittance, tiles in chunks under
   ``torch.utils.checkpoint``); autograd gives its gradient.
+- ``composite_checkpoints_plain``: the plain version of T10's other
+  outputs, the checkpoints T11 reads (ts, last, k_stop).
 - ``composite_fwd`` / ``composite_bwd``: the launch wrappers of T10 / T11
   (csrc/gs_composite_fwd.cu, csrc/gs_composite_bwd.cu).
-- ``tile_reach``: the plain version of T11's per-tile cull
+- ``tile_reach``: the plain version of the per-tile cull of T11
   (csrc/gs_composite.cuh ``tile_reach``): which gaussians can pass the
-  alpha test at some pixel of a tile.
+  alpha test at some pixel of a tile; ``reach_boxes`` / ``pixel_boxes_meet``:
+  the same boxes in whole pixels, T10's table and its test on a band of a
+  tile.
 - ``GSComposite``: the autograd Function that ties them; its forward saves
   the slab and T10's checkpoints (ts, each pixel's last composited gaussian,
   k_stop), its backward launches T11.
@@ -53,6 +57,8 @@ T_EPS = 1e-4
 # rounding in log units
 REACH_EPS = 1e-6
 REACH_DELTA = 1e-5
+FWD_SPLIT = 4       # T10's blocks a tile, each over a band of 16 / FWD_SPLIT pixel rows
+FWD_PROF_SLOTS = 6  # T10's clock64 phases and counts a tile (``composite_fwd``)
 BWD_PROF_SLOTS = 6  # T11's clock64 phases and counts a block (``composite_bwd``)
 
 
@@ -93,24 +99,21 @@ def _composite_tiles(slab: torch.Tensor, pix: torch.Tensor, depth_chunk: int):
     return rgb, acc, dep
 
 
-def tile_reach(slab: torch.Tensor, tile_xy: torch.Tensor,
-               exact: bool = False) -> torch.Tensor:
-    """bool (n_tiles, K): whether gaussian k of each tile's cell rows can
-    pass the alpha test (alpha >= 1/255) at some pixel of the tile.  slab
-    (n_tiles or 1, K, 10), the rows each tile sees; tile_xy (n_tiles, 2).
-
-    False where op < 1/255 (dead slots have op 0); else, for a
-    positive-definite conic (a, b, c), false where the box of the ellipse
-    a dx^2 + 2 b dx dy + c dy^2 <= 2 L, L = ln(255 op), misses the tile's
-    pixels: |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det), det = ac -
-    b^2.  Conservative against the float rounding of the test (as T11's
-    cull, in float64): 2 (L + REACH_DELTA) / (1 - rho) in place of 2 L, rho =
-    REACH_EPS (|a| + |b| + |c|) / lambda_min, and a pixel of padding; a
-    conic that is not positive definite, rho >= 1/2 or any non-finite entry
-    is admitted.  ``exact``: the box of 2 L itself, unpadded (the work the
+def _reach_box(slab: torch.Tensor, exact: bool = False):
+    """The cull's box of each slab row (csrc/gs_composite.cuh reach_box), in
+    float64: (none, every, hx, hy): ``none`` where the row reaches no pixel
+    (op < 1/255; dead slots have op 0), ``every`` where it is admitted
+    whatever the pixels (a conic that is not positive definite, rho >= 1/2
+    or a non-finite entry), else it can pass the alpha test only within mx
+    +- hx, my +- hy: the box of the ellipse a dx^2 + 2 b dx dy + c dy^2 <= 2
+    L, L = ln(255 op), |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det),
+    det = ac - b^2, conservative against the float rounding of the test (as
+    T11's cull, in float64): 2 (L + REACH_DELTA) / (1 - rho) in place of 2
+    L, rho = REACH_EPS (|a| + |b| + |c|) / lambda_min, and a pixel of
+    padding.  ``exact``: the box of 2 L itself, unpadded (the work the
     inputs need, chip_smoke.py's bound)."""
     g = slab.double()
-    mx, my, a, b, c = (g[..., i] for i in range(5))
+    a, b, c = (g[..., i] for i in range(2, 5))
     det = a * c - b * b
     if exact:
         rho, delta, pad = torch.zeros_like(det), 0.0, 0.0
@@ -121,13 +124,53 @@ def tile_reach(slab: torch.Tensor, tile_xy: torch.Tensor,
     r = 2.0 * (torch.log(255.0 * g[..., 8]).clamp(min=0.0) + delta) / (1.0 - rho)
     hx = torch.sqrt(r * c / det) + pad
     hy = torch.sqrt(r * a / det) + pad
+    none = slab[..., 8] < ALPHA_MIN
+    every = ~none & (~torch.isfinite(g[..., [0, 1, 2, 3, 4, 8]]).all(-1)
+                     | ~((det > 0) & (a > 0)) | (rho >= 0.5))
+    return none, every, hx, hy
+
+
+def tile_reach(slab: torch.Tensor, tile_xy: torch.Tensor,
+               exact: bool = False) -> torch.Tensor:
+    """bool (n_tiles, K): whether gaussian k of each tile's cell rows can
+    pass the alpha test (alpha >= 1/255) at some pixel of the tile.  slab
+    (n_tiles or 1, K, 10), the rows each tile sees; tile_xy (n_tiles, 2).
+    False where the box of ``_reach_box`` misses the tile's pixels (or the
+    row reaches none), true where it meets them or the row is admitted
+    everywhere."""
+    none, every, hx, hy = _reach_box(slab, exact)
+    mx, my = slab[..., 0].double(), slab[..., 1].double()
     x0 = tile_xy[:, 0, None].double()
     y0 = tile_xy[:, 1, None].double()
     hit = ((mx + hx >= x0) & (mx - hx <= x0 + TILE - 1)
            & (my + hy >= y0) & (my - hy <= y0 + TILE - 1))
-    admit = (~torch.isfinite(g[..., [0, 1, 2, 3, 4, 8]]).all(-1)
-             | ~((det > 0) & (a > 0)) | (rho >= 0.5))
-    return ~(slab[..., 8] < ALPHA_MIN) & (admit | hit)
+    return ~none & (every | hit)
+
+
+def reach_boxes(slab: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """int16 (..., K, 4): T10's table of the cull's boxes in whole pixels
+    (csrc/gs_composite.cuh reach_pixel_box), per slab row (x_lo, x_hi,
+    y_lo, y_hi) = (ceil(mx - hx), floor(mx + hx), ceil(my - hy), floor(my +
+    hy)) clamped to int16; an empty box where the row reaches no pixel, all
+    of int16 where it is admitted everywhere.  A block of pixels x0..x1,
+    y0..y1 (integers in [0, 32752]) meets it (``pixel_boxes_meet``) exactly
+    where it meets the box of ``tile_reach``: on a whole tile the two tests
+    agree."""
+    none, every, hx, hy = _reach_box(slab, exact)
+    mx, my = slab[..., 0].double(), slab[..., 1].double()
+    box = torch.stack([torch.ceil(mx - hx), torch.floor(mx + hx),
+                       torch.ceil(my - hy), torch.floor(my + hy)], -1)
+    box = box.clamp(-32768.0, 32767.0)
+    box = torch.where(every[..., None], box.new_tensor([-32768.0, 32767.0] * 2), box)
+    box = torch.where(none[..., None], box.new_tensor([32767.0, -32768.0] * 2), box)
+    return box.to(torch.int16)
+
+
+def pixel_boxes_meet(boxes: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
+    """Whether each box of ``reach_boxes`` meets the pixels x0..x1, y0..y1
+    (ints or tensors broadcast against boxes[..., 0])."""
+    b = boxes.int()
+    return (b[..., 1] >= x0) & (b[..., 0] <= x1) & (b[..., 3] >= y0) & (b[..., 2] <= y1)
 
 
 def composite_plain(slab: torch.Tensor, live_count: torch.Tensor,
@@ -154,6 +197,54 @@ def composite_plain(slab: torch.Tensor, live_count: torch.Tensor,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def composite_checkpoints_plain(slab: torch.Tensor, live_count: torch.Tensor,
+                                cell_of_tile: torch.Tensor, tile_xy: torch.Tensor):
+    """Plain version of T10's checkpoints, the second result of
+    ``composite_fwd``: ts (n_tiles, n_chunks + 1, 256) f32, last (n_tiles,
+    256) int32, k_stop (n_tiles,) int32.
+
+    Per pixel, front to back in slab order, T *= 1 - alpha at each gaussian
+    that passes the alpha test while T >= 1e-4 (alpha rounded as T10's
+    pair_alpha; the product in float32, one gaussian at a time, as T10
+    takes it), and T stays where it fell below 1e-4.  ``last``: the slab
+    index of the pixel's last composited gaussian, or -1.  ``k_stop``: the
+    first 128-row batch at whose start no pixel of the tile has T >= 1e-4,
+    at most ceil(min(live, Kc) / 128): a pixel that died at slab index
+    ``last`` is dead from batch last // 128 + 1 on.  ``ts[k]``, k < k_stop:
+    the pixel's T before slab row 128 k; ``ts[k_stop]``: its final T; the
+    rows after k_stop (T10 leaves them unwritten) are NaN."""
+    n_tiles, kc = cell_of_tile.shape[0], slab.shape[1]
+    n_chunks = -(-kc // CHUNK)
+    cell = cell_of_tile.long()
+    pix = tile_pixels(tile_xy)
+    T = pix.new_ones(n_tiles, P)
+    last = torch.full((n_tiles, P), -1, dtype=torch.int32, device=slab.device)
+    ts = pix.new_empty(n_tiles, n_chunks + 1, P)
+    for k in range(n_chunks):
+        ts[:, k] = T
+        ch = slab[:, k * CHUNK:(k + 1) * CHUNK][cell]                  # (n, D, 10)
+        dx = pix[:, :, None, 0] - ch[:, None, :, 0]
+        dy = pix[:, :, None, 1] - ch[:, None, :, 1]
+        con = ch[:, None, :, 2:5]
+        power = (-0.5 * (con[..., 0] * dx * dx + con[..., 2] * dy * dy)
+                 - con[..., 1] * dx * dy)
+        alpha = torch.clamp(ch[:, None, :, 8] * torch.exp(power), max=ALPHA_MAX)
+        alpha = torch.where((power <= 0) & (alpha >= ALPHA_MIN), alpha, 0.0)
+        for j in range(ch.shape[1]):
+            hit = (T >= T_EPS) & (alpha[..., j] > 0)
+            T = torch.where(hit, T * (1.0 - alpha[..., j]), T)
+            last = torch.where(hit, k * CHUNK + j, last)
+    ts[:, n_chunks] = T
+    chunks = (live_count.long().clamp(max=kc)[cell] + CHUNK - 1) // CHUNK
+    dead_from = torch.where(T < T_EPS, last.long() // CHUNK + 1, chunks[:, None])
+    k_stop = torch.minimum(dead_from.max(1).values, chunks)
+    rows = torch.arange(n_chunks + 1, device=slab.device)[None, :, None]
+    final = ts.gather(1, k_stop[:, None, None].expand(-1, 1, P))
+    ts = torch.where(rows < k_stop[:, None, None], ts,
+                     torch.where(rows == k_stop[:, None, None], final, float("nan")))
+    return ts, last, k_stop.int()
+
+
 def _check(name: str, slab, live_count, cell_of_tile, tile_xy) -> None:
     if slab.dtype != torch.float32 or slab.dim() != 3 or slab.shape[2] != ATTR:
         raise ValueError(f"{name}: slab must be float32 (n_cells, Kc, {ATTR}), "
@@ -171,10 +262,19 @@ def _check(name: str, slab, live_count, cell_of_tile, tile_xy) -> None:
 
 
 def composite_fwd(slab: torch.Tensor, live_count: torch.Tensor,
-                  cell_of_tile: torch.Tensor, tile_xy: torch.Tensor):
+                  cell_of_tile: torch.Tensor, tile_xy: torch.Tensor,
+                  prof: torch.Tensor = None):
     """Launch T10.  Returns (rgb, acc, dep) and T10's checkpoints (ts
     (n_tiles, n_chunks + 1, 256) f32, last (n_tiles, 256) int32, k_stop
-    (n_tiles,) int32) for ``composite_bwd``."""
+    (n_tiles,) int32) for ``composite_bwd`` (their plain version:
+    ``composite_checkpoints_plain``; ts rows past the batches of the cell's
+    live rows are not written).  Two launches: the table of the cull's
+    boxes (``reach_boxes``, in scratch), then FWD_SPLIT blocks a tile.
+    ``prof``: None, or a zeroed int64 CUDA tensor of (n_tiles,
+    FWD_PROF_SLOTS) that receives per tile the most clock64 cycles of its
+    blocks (in all, in the cull, in the walk, in the final writes), and the
+    (band, gaussian) pairs their culls admitted and the gaussians they
+    staged, summed."""
     _check("gs_composite_fwd", slab, live_count, cell_of_tile, tile_xy)
     slab, live_count, cell_of_tile, tile_xy = (
         x.contiguous() for x in (slab, live_count, cell_of_tile, tile_xy))
@@ -188,11 +288,13 @@ def composite_fwd(slab: torch.Tensor, live_count: torch.Tensor,
     ts = torch.empty(n_tiles, n_chunks + 1, P, **f32)
     last = torch.empty(n_tiles, P, **i32)
     k_stop = torch.empty(n_tiles, **i32)
+    boxes = torch.empty(slab.shape[0], kc, 4, dtype=torch.int16, device=slab.device)
     launch("gs_composite_fwd", "v3d_gs_composite_fwd", slab.device,
            slab.data_ptr(), live_count.data_ptr(), cell_of_tile.data_ptr(),
-           tile_xy.data_ptr(), n_tiles, kc, n_chunks, rgb.data_ptr(),
-           acc.data_ptr(), dep.data_ptr(), ts.data_ptr(), last.data_ptr(),
-           k_stop.data_ptr())
+           tile_xy.data_ptr(), slab.shape[0], n_tiles, kc, n_chunks,
+           boxes.data_ptr(), rgb.data_ptr(), acc.data_ptr(), dep.data_ptr(),
+           ts.data_ptr(), last.data_ptr(), k_stop.data_ptr(),
+           None if prof is None else prof.data_ptr())
     return (rgb, acc, dep), (ts, last, k_stop)
 
 
