@@ -54,10 +54,29 @@ Phases, each printing lines before the last:
    512) and CLIP under "packed" (K9, d = 80); then the generation twice
    under ``set_default_backend("flash")``.  Phase 3 also holds the routes
    T2-T6 (``ops/flash_attention.py``, ``ops/temporal_attention.py``) on K1,
-   K3 and K9 at their shapes.
+   K3 and K9 at their shapes;
+10. checkpoint loading at full width (after phase 9, on its engine): the
+    V3D-512 engine's bf16 weights written under the sgm prefixes with the
+    port's safetensors writer, loaded into a second engine by
+    ``core.checkpoint.load_v3d_params``, one UNet forward bit for bit equal,
+    the load time; then a tiny ``{"state_dict": ...}`` .ckpt through
+    ``apps.generate``'s ``--checkpoint``;
+11. NeuS -> mesh: ``apps.recon_neus.reconstruct`` on the card's recipe at
+    the shipped schedules (max_steps 3000) cut to 600 steps, on 18 orbit
+    views at 512^2 of an analytic scene (a sphere united with a box,
+    coloured per region, on white) sphere-traced on the card: ms per step,
+    the ray count, peak memory, the losses, holdout PSNR on two views
+    between orbit frames, the export (sdf_grid + isosurface at 384^3), the
+    mesh's size and its vertices' mean |true SDF|; then 100 steps of the
+    reference recipe (hash grid, finite differences, occupancy lookup);
+12. ``apps.full_asset.run`` with the mesh stage, two assets in one process
+    (25 steps, the fit cut to 200 iterations, NeuS to 300 steps at 192^3):
+    each stage's seconds and each asset's launches per stage (generation
+    as phase 5, fit K4 219 / K5 200, NeuS none).
 
-Each path (phases 5, 6, 8 and each run of 9) is run with the launch counts
-set to 0 just before it and read just after; a kernel of the path launched
+Each path (phases 5, 6, 8, each run of 9, and 11) is run with the launch
+counts set to 0 just before it and read just after (phase 12: each stage's
+launches, the counters read before and after it); a kernel of the path launched
 no time, or another number of times than the path needs (counted from the
 modules and their routing rules, see ``unet_sites``), fails the run.
 Then one JSON line with every kernel's numbers, and last the line
@@ -1694,6 +1713,14 @@ TRAIN_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match 
     # kernel on ATen's unrolled path (its LoadWithoutCast / StoreWithCast)
     ("copies / casts / fills", ("memcpy", "memset", "copy", "fill")),
 )
+NEUS_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("gathers / scatters (hash grid, samples)", ("index", "gather", "scatter")),
+    ("AdamW (foreach)", ("adam", "multi_tensor", "foreach")),
+    ("reductions, cumprod, sort", ("reduce", "scan", "sort", "radix", "cumprod")),
+    ("copies / fills", ("memcpy", "memset", "copy", "fill")),
+)
+NEUS_OTHER = "elementwise (encoding, activations, the double backward, losses)"
 TRAIN_OTHER = "elementwise (activations, the plain backwards' arithmetic, loss)"
 FORWARD_OTHER = "elementwise (activations, norms' affine, residuals, embeddings)"
 
@@ -1960,9 +1987,338 @@ def train_ab(trainer, batch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: checkpoint loading, NeuS -> mesh, full_asset
+
+CKPT_MIN_FREE = 6 * 2**30   # bytes a full-width bf16 checkpoint needs, with room
+
+
+def _ckpt_dir():
+    """A temporary directory on a file system with room for a full-width
+    checkpoint: $TMPDIR, else the checkout's gitignored build/."""
+    import os
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "build")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        say("10 ckpt", f"{base}: {free / 2**30:.1f} GiB free")
+        if free >= CKPT_MIN_FREE:
+            return tempfile.TemporaryDirectory(dir=base)
+    raise SmokeFailure("no file system with room for the checkpoint")
+
+
+def phase_checkpoint(engine, dev) -> dict:
+    """The V3D-512 engine's weights written with the port's safetensors
+    writer, loaded into a second engine by ``load_v3d_params``: a UNet
+    forward equal bit for bit; then a tiny ``{"state_dict": ...}`` .ckpt
+    through ``apps.generate``'s ``--checkpoint``."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from v3d_tpu_torch.apps import generate
+    from v3d_tpu_torch.core.checkpoint import load_v3d_params, save_v3d_checkpoint
+    from v3d_tpu_torch.engines.builder import build_tiny_engine, build_v3d_engine
+
+    phase = "10 ckpt"
+    t0 = time.perf_counter()
+    other = build_v3d_engine(device=dev, dtype=torch.bfloat16, seed=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _ckpt_dir() as d:
+            path = os.path.join(d, "v3d_512.safetensors")
+            t1 = time.perf_counter()
+            save_v3d_checkpoint(engine, path)
+            write_s, size = time.perf_counter() - t1, os.path.getsize(path)
+            t1 = time.perf_counter()
+            counts = load_v3d_params(path, other)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t1
+            os.remove(path)
+        ref, got = unet_forward_fn(engine)(), unet_forward_fn(other)()
+        equal = torch.equal(ref, got)
+        say(phase, f"V3D-512 bf16 to .safetensors ({size / 2**30:.2f} GiB, "
+            f"{sum(counts.values()):,} parameters: "
+            + ", ".join(f"{k} {v:,}" for k, v in counts.items())
+            + f") written in {write_s:.2f} s, loaded into a second engine by "
+            f"load_v3d_params in {load_s:.2f} s (file deleted) | UNet forward "
+            f"{tuple(got.shape)} bit for bit equal: {equal} | {'ok' if equal else 'FAIL'}")
+        if not equal:
+            raise SmokeFailure(f"reloaded UNet differs: max abs "
+                               f"{float((got - ref).abs().max())}")
+        del other, ref, got
+        torch.cuda.empty_cache()
+        # a tiny Lightning-style checkpoint through the CLI's --checkpoint
+        src = build_tiny_engine(num_frames=4, num_steps=2, device=dev, seed=5)
+        with _ckpt_dir() as d:
+            path = os.path.join(d, "tiny.ckpt")
+            save_v3d_checkpoint(src, path)
+            Image.fromarray(synthetic_image(256)).save(os.path.join(d, "in.png"))
+            generate.main(["--input", os.path.join(d, "in.png"), "--checkpoint", path,
+                           "--tiny", "--num-frames", "4", "--num-steps", "2",
+                           "--resolution", "128", "--decoding-t", "4",
+                           "--output-folder", os.path.join(d, "gen")])
+            out = os.path.join(d, "gen", "000000")
+            frames = np.stack([np.asarray(Image.open(os.path.join(out, n)))
+                               for n in sorted(os.listdir(out))])
+        want, _, _ = generate.sample_one(synthetic_image(256), engine=src,
+                                         resolution=128, decoding_t=4)
+        same = frames.shape == want.shape and bool((frames == want).all())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    say(phase, f"tiny .ckpt through apps.generate --checkpoint --tiny: frames "
+        f"{frames.shape} equal to the source engine's: {same} | "
+        f"{'ok' if same else 'FAIL'} | phase 10 took {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise SmokeFailure("the CLI's --checkpoint frames differ from the source engine's")
+    return {"load_s": load_s, "write_s": write_s}
+
+
+# phase 11: an analytic scene (a sphere united with a box) on white, its
+# orbit views and two held-out views between them
+NEUS_MAX_STEPS = 3000    # NeusConfig.max_steps: the shipped schedules
+NEUS_STEPS = 600         # steps run
+NEUS_REF_STEPS = 100     # steps of the reference recipe on the card
+NEUS_MC_RES = 384
+SPHERE_C, SPHERE_R = (-0.22, 0.0, 0.05), 0.42
+BOX_C, BOX_H = (0.25, 0.05, -0.05), (0.3, 0.25, 0.4)
+
+
+def scene_sdf(p):
+    """(sdf, 0 on the sphere / 1 on the box) of the analytic scene."""
+    import torch
+
+    sphere = (p - torch.tensor(SPHERE_C, device=p.device)).norm(dim=-1) - SPHERE_R
+    q = (p - torch.tensor(BOX_C, device=p.device)).abs() - torch.tensor(BOX_H, device=p.device)
+    box = q.clamp(min=0).norm(dim=-1) + q.amax(-1).clamp(max=0)
+    return torch.minimum(sphere, box), (box < sphere).long()
+
+
+def render_scene(poses, res: int, fov: float = 60.0):
+    """Sphere-trace the scene on the card through NeuS's own rays (OpenGL
+    poses, pixel-centre directions): per-region colours under a fixed
+    light, white background.  -> (images (N, res, res, 3), masks (N, res,
+    res)) float32 numpy."""
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.data.cameras import fov2focal, get_ray_directions
+
+    dev = torch.device("cuda")
+    dirs = torch.tensor(get_ray_directions(res, res, fov2focal(np.deg2rad(fov), res)),
+                        device=dev).reshape(-1, 3)
+    colours = torch.tensor([[0.85, 0.35, 0.2], [0.2, 0.45, 0.8]], device=dev)
+    light = torch.nn.functional.normalize(torch.tensor([0.4, -0.5, 0.75], device=dev), dim=0)
+    images, masks = [], []
+    for c2w in poses:
+        c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
+        d = torch.nn.functional.normalize(dirs @ c2w[:3, :3].T, dim=-1)
+        o = c2w[:3, 3].expand_as(d)
+        t = torch.zeros(d.shape[0], device=dev)
+        for _ in range(160):
+            s, _ = scene_sdf(o + t[:, None] * d)
+            t = t + s.clamp(min=0)
+        p = o + t[:, None] * d
+        s, region = scene_sdf(p)
+        hit = s.abs() < 1e-3
+        e = 1e-4
+        n = torch.stack([scene_sdf(p + e * torch.eye(3, device=dev)[i])[0]
+                         - scene_sdf(p - e * torch.eye(3, device=dev)[i])[0]
+                         for i in range(3)], -1)
+        n = torch.nn.functional.normalize(n, dim=-1)
+        shade = 0.45 + 0.5 * (n @ light).clamp(min=0)
+        rgb = torch.where(hit[:, None], colours[region] * shade[:, None], 1.0)
+        images.append(rgb.reshape(res, res, 3))
+        masks.append(hit.reshape(res, res).float())
+    return (torch.stack(images).cpu().numpy().astype(np.float32),
+            torch.stack(masks).cpu().numpy())
+
+
+def _holdout_poses(n: int = 18, radius: float = 2.0):
+    """Two OpenGL poses between orbit frames (azimuths 10 and 190 deg)."""
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import c2w_from_up_and_look_at
+
+    return np.stack([c2w_from_up_and_look_at(
+        np.array([0, 0, 1.0]), np.zeros(3),
+        radius * np.array([np.cos(a), np.sin(a), 0.0]), opengl=True)
+        for a in np.deg2rad([180.0 / n, 180.0 + 180.0 / n])])
+
+
+def _step_recorder(marks: list, stats: list):
+    """A ``log_fn`` for every step: synchronise, stamp, keep the stats."""
+    import torch
+
+    def record(s):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        stats.append({k: float(v) for k, v in s.items()})
+
+    return record
+
+
+def phase_neus() -> dict:
+    """``apps.recon_neus.reconstruct`` on the card's recipe at the shipped
+    schedules (max_steps 3000), cut to 600 steps, on 18 views of the
+    analytic scene at 512^2; holdout PSNR, the export, the mesh against the
+    true SDF; then 100 steps of the reference recipe on the card."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps.recon_neus import foreground_masks, neus_config, reconstruct
+    from v3d_tpu_torch.data.cameras import (
+        fov2focal,
+        get_ray_directions,
+        get_uniform_poses,
+    )
+    from v3d_tpu_torch.nerf.system import NeusTrainer
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    phase = "11 neus"
+    t_phase = time.perf_counter()
+    poses = get_uniform_poses(18, 2.0, 0.0, opengl=True)
+    held = _holdout_poses()
+    frames, masks = render_scene(np.concatenate([poses, held]), 512)
+    frames, hold_rgb, hold_mask = frames[:18], frames[18:], masks[18:]
+    fg = foreground_masks(frames)
+    say(phase, f"scene: 18 orbit + 2 held-out views at 512^2 rendered in "
+        f"{time.perf_counter() - t_phase:.2f} s; foreground share "
+        f"{fg.mean():.3f} (near-white threshold) vs true {masks[:18].mean():.3f}")
+
+    marks, stats = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        marks.append(time.perf_counter())
+        trainer, mesh, timings = reconstruct(
+            frames, out, max_steps=NEUS_MAX_STEPS, train_steps=NEUS_STEPS,
+            mc_resolution=NEUS_MC_RES, log_every=1,
+            log_fn=_step_recorder(marks, stats), device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    step_ms = 1e3 * statistics.median(steps[100:NEUS_STEPS])
+    rays = {i: int(stats[i - 1]["num_rays"]) for i in (1, 100, 200, 300, 400, 500, 600)}
+    finite = all(math.isfinite(v) for s in stats for v in s.values())
+    psnrs = []
+    for c2w, rgb, m in zip(held, hold_rgb, hold_mask):
+        got, _, _ = trainer.render_image(c2w)
+        want = rgb * m[..., None]      # the target the trainer fits: on black
+        psnrs.append(-10 * math.log10(float(np.mean((got - want) ** 2))))
+    n_v, n_f = len(mesh.vertices), len(mesh.faces)
+    true_sdf = (float(scene_sdf(torch.tensor(mesh.vertices, device="cuda"))[0]
+                      .abs().mean()) if n_v else float("nan"))
+    keys = [k for k in stats[0] if k not in ("loss", "num_rays")]
+    say(phase, f"reconstruct, card recipe (frequency + exact gradient, 128x4 "
+        f"MLP, 64 coarse + {trainer.cfg.num_samples_per_ray} fine samples, ray "
+        f"chunks of {trainer.cfg.ray_chunk}), max_steps {NEUS_MAX_STEPS} cut to "
+        f"{NEUS_STEPS}: train {timings['train_s']:.2f} s, ms per step (median of "
+        f"steps 101-{NEUS_STEPS}, host clock, synchronised each step) "
+        f"{step_ms:.3f} | rays at step {rays} | peak {peak:.2f} GiB | launches "
+        f"{launched or 'none'}")
+    for i in (1, 100, NEUS_STEPS):
+        say(phase, f"  step {i}: loss {stats[i - 1]['loss']:.5f} "
+            + " ".join(f"{k} {stats[i - 1][k]:.5f}" for k in keys))
+    ok = finite and n_v > 0 and n_f > 0
+    say(phase, f"holdout PSNR after {NEUS_STEPS} steps (render_image vs the "
+        f"held-out view on black) {psnrs[0]:.2f} / {psnrs[1]:.2f} dB | export "
+        f"(sdf_grid + isosurface at {NEUS_MC_RES}^3) {timings['export_s']:.2f} s, "
+        f"vertex colours {timings.get('colors_s', 0):.2f} s, obj + glb "
+        f"{timings.get('write_s', 0):.2f} s | mesh {n_v} vertices {n_f} faces, "
+        f"mean |true SDF| at the vertices {true_sdf:.5f} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"NeuS: finite losses {finite}, mesh {n_v} x {n_f}")
+    profile_steps("11 profile", "NeuS card-recipe", trainer.train_iter, 5, step_ms,
+                  NEUS_KERNEL_CLASSES, NEUS_OTHER)
+    del trainer, mesh
+    torch.cuda.empty_cache()
+
+    # the reference recipe on the card: hash grid, finite differences,
+    # uniform samples with the occupancy lookup
+    cfg = neus_config("cpu", max_steps=NEUS_MAX_STEPS)
+    dirs = get_ray_directions(512, 512, fov2focal(np.deg2rad(60.0), 512))
+    ref = NeusTrainer(frames, fg, dirs, poses, config=cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    marks, stats = [], []
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ref.train(NEUS_REF_STEPS, log_every=1, log_fn=_step_recorder(marks, stats))
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    ref_ms = 1e3 * statistics.median(steps[10:])
+    peak_ref = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(math.isfinite(v) for s in stats for v in s.values())
+    say(phase, f"reference recipe on the card (hash grid 10 levels x 2^19, "
+        f"finite differences, 64x1 MLP, {cfg.num_samples_per_ray} uniform "
+        f"samples, occupancy lookup): ms per step (median of steps 11-"
+        f"{NEUS_REF_STEPS}) {ref_ms:.3f}, first step {1e3 * steps[0]:.1f} | rays "
+        f"at step 1 / {NEUS_REF_STEPS} {int(stats[0]['num_rays'])} / "
+        f"{int(stats[-1]['num_rays'])} | loss {stats[0]['loss']:.5f} -> "
+        f"{stats[-1]['loss']:.5f} | peak {peak_ref:.2f} GiB | "
+        f"{'ok' if finite else 'FAIL'}")
+    if not finite:
+        raise SmokeFailure("NeuS reference recipe: non-finite loss")
+    profile_steps("11 profile", "NeuS reference-recipe", ref.train_iter, 3, ref_ms,
+                  NEUS_KERNEL_CLASSES, NEUS_OTHER)
+    say(phase, f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    del ref
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "psnr": psnrs, "export_s": timings["export_s"]}
+
+
+FULL_GS_ITERS, FULL_NEUS_STEPS, FULL_MC_RES = 200, 300, 192
+
+
+def phase_full_asset(gen_expect: dict) -> dict:
+    """``apps.full_asset.run`` with the mesh stage, two assets in one
+    process on the synthetic image: each asset's stage seconds and, per
+    stage, the launches of the generation (``gen_expect``), of the fit
+    (K4 219: a step's 200, the orbit's 18 and the default log's render of
+    view 0 after the last iteration; K5 200) and of NeuS (none)."""
+    import tempfile
+
+    from v3d_tpu_torch.apps.full_asset import run
+
+    phase = "12 full_asset"
+    t0 = time.perf_counter()
+    fit = {"gs_composite_fwd": FULL_GS_ITERS + 18 + 1, "gs_composite_bwd": FULL_GS_ITERS}
+    expect = {"generate": {k: v for k, v in gen_expect.items() if v},
+              "gs_fit": fit, "neus": {}}
+    with tempfile.TemporaryDirectory() as out:
+        report = run(synthetic_image(), out, gs_iters=FULL_GS_ITERS,
+                     neus_steps=FULL_NEUS_STEPS, mesh=True, num_steps=25,
+                     mc_resolution=FULL_MC_RES, assets=2, device="cuda")
+    ok = len(report["assets"]) == 2
+    for i, a in enumerate(report["assets"]):
+        launches_ok = a["launches"] == expect
+        ok = ok and launches_ok
+        say(phase, f"asset {i}: generate {a['generate_18view_512']:.2f} s, 3DGS "
+            f"fit ({FULL_GS_ITERS} iterations) {a[f'gs_fit_{FULL_GS_ITERS}']:.2f} s, "
+            f"NeuS ({FULL_NEUS_STEPS} steps) + mesh at {FULL_MC_RES}^3 "
+            f"{a['neus_fit_mesh']:.2f} s (mesh {a['mesh']}), total "
+            f"{a['asset_total_s']:.2f} s | launches {a['launches']} (expect "
+            f"{expect}) | {'ok' if launches_ok else 'FAIL'}")
+    say(phase, f"per asset, amortised (asset 2): {report['per_asset_amortized_s']:.2f} s; "
+        f"both {report['total_s']:.2f} s | phase 12 took {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise SmokeFailure(f"full_asset: {report['assets']}")
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -1980,11 +2336,14 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
-    engine = build_engine(torch.device("cuda")) if phases & {4, 5, 9} else None
+    engine = build_engine(torch.device("cuda")) if phases & {4, 5, 9, 10, 12} else None
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
     routes = phase_routes(engine) if 9 in phases else {}
+    if 10 in phases:
+        phase_checkpoint(engine, torch.device("cuda"))
+    gen_expect = gen_launches(engine) if 12 in phases else {}
     del engine
     torch.cuda.empty_cache()
     fit = {}
@@ -2000,6 +2359,10 @@ def main(argv=None) -> int:
     del fit
     torch.cuda.empty_cache()
     paths["train"] = phase_train(torch.device("cuda")) if 8 in phases else {}
+    if 11 in phases:
+        phase_neus()
+    if 12 in phases:
+        phase_full_asset(gen_expect)
 
     report = []
     for name, meta in KERNELS.items():

@@ -1,8 +1,9 @@
 """The port stands alone: in a fresh interpreter, importing every module of
 v3d_tpu_torch (found by walking the package) and chip_smoke, and running a
 tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, or
-the attention routes under every routing setting, loads neither jax,
-jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+the attention routes under every routing setting, or a tiny NeuS
+reconstruction, a tiny ``full_asset --mesh`` and a tiny ``--checkpoint``
+load, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -82,6 +83,50 @@ print("FOREIGN", bad)
 """
 
 
+_SLICE3_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+from PIL import Image
+import chip_smoke
+from v3d_tpu_torch.apps import full_asset, generate
+from v3d_tpu_torch.apps.recon_neus import reconstruct
+from v3d_tpu_torch.core.checkpoint import save_v3d_checkpoint
+from v3d_tpu_torch.engines.builder import build_tiny_engine
+
+res = 24
+yy, xx = np.mgrid[:res, :res]
+ball = (yy - res / 2) ** 2 + (xx - res / 2) ** 2 < (res / 4) ** 2
+frames = np.where(ball[None, ..., None], 0.3, 1.0).repeat(6, 0).repeat(3, -1)
+tiny_neus = dict(num_samples=32, train_num_rays=32,
+                 config_overrides=dict(n_levels=2, grid_prune=False))
+with tempfile.TemporaryDirectory() as out:
+    trainer, mesh, timings = reconstruct(frames, out, max_steps=4, mc_resolution=16,
+                                         device="cpu", log_every=2, **tiny_neus)
+    assert trainer.global_step == 4 and "export_s" in timings
+    if len(mesh.vertices):
+        assert os.path.getsize(os.path.join(out, "mesh.glb")) > 0
+    report = full_asset.run(
+        chip_smoke.synthetic_image(96), os.path.join(out, "assets"), gs_iters=3,
+        neus_steps=4, mesh=True, num_steps=2, mc_resolution=16, assets=2,
+        device="cpu", engine=build_tiny_engine(num_frames=4, num_steps=2, device="cpu"),
+        resolution=64, gs_kwargs=dict(num_pts=40, capacity=64, test_every=2),
+        neus_kwargs=tiny_neus)
+    assert len(report["assets"]) == 2 and "neus_fit_mesh" in report["assets"][1]
+    assert os.path.exists(os.path.join(out, "assets", "full_asset.json"))
+    eng = build_tiny_engine(num_frames=4, num_steps=1, device="cpu")
+    save_v3d_checkpoint(eng, os.path.join(out, "tiny.ckpt"))
+    Image.fromarray(chip_smoke.synthetic_image(48)).save(os.path.join(out, "in.png"))
+    generate.main(["--input", os.path.join(out, "in.png"), "--checkpoint",
+                   os.path.join(out, "tiny.ckpt"), "--tiny", "--num-frames", "4",
+                   "--num-steps", "1", "--resolution", "64", "--decoding-t", "4",
+                   "--device", "cpu", "--output-folder", os.path.join(out, "gen")])
+    assert len(os.listdir(os.path.join(out, "gen", "000000"))) == 4
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -104,6 +149,13 @@ def test_attention_routes_run_without_jax():
     ``attention_bhsd``, the T2-T6 entry points, and a tiny generation under
     "flash", on the CPU with no jax loaded."""
     out = subprocess.run([sys.executable, "-c", _ROUTES_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_neus_full_asset_and_checkpoint_run_without_jax():
+    out = subprocess.run([sys.executable, "-c", _SLICE3_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

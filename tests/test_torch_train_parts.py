@@ -170,7 +170,7 @@ def test_orbit_render_dataset_reads_latent_layout(tmp_path):
         np.testing.assert_array_equal(np.asarray(jb[k]), np.asarray(pb[k]), err_msg=k)
 
 
-def test_synthetic_cli_cond_is_reference_side(tmp_path):
+def test_synthetic_cli_cond_is_reference_side(tmp_path, monkeypatch):
     """ROADMAP Queue C, C3: the JAX CLI's synthetic items carry the (h, w,
     4) latent front view as ``cond_frames_without_noise`` and send it
     through CLIP, whose preprocess takes 3 channels: --data synthetic fails
@@ -194,8 +194,18 @@ def test_synthetic_cli_cond_is_reference_side(tmp_path):
     assert got["cond"]["crossattn"].shape == (1, 1, 16)
     with pytest.raises(ValueError, match="clip_emb"):
         next(app.batches(Engine, pdata.SyntheticOrbitDataset(2, 4, 8), 1, 4))
-    with pytest.raises(SystemExit):
-        app.main(["--data", "synthetic", "--checkpoint", str(tmp_path / "v3d.ckpt")])
+    # --checkpoint is taken (it was refused before checkpoint loading was
+    # ported): the engine (here of the tiny topology) loads the file before
+    # any data is read, so a missing file stops the run
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+
+    monkeypatch.setattr(app, "build_v3d_engine",
+                        lambda num_frames, device, dtype, seed, unet_overrides:
+                        build_tiny_engine(num_frames, device=device, dtype=dtype,
+                                          unet_overrides=unet_overrides))
+    with pytest.raises(FileNotFoundError):
+        app.main(["--data", "synthetic", "--num-frames", "4", "--device", "cpu",
+                  "--checkpoint", str(tmp_path / "v3d.ckpt")])
 
 
 @pytest.mark.parametrize("b,h,s", [(2, 3, 64), (1, 2, 100)])

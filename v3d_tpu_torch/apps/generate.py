@@ -5,9 +5,10 @@ VAE decode -> 18 orbit frames.
 
     python -m v3d_tpu_torch.apps.generate --input image.png
 
-The checkpoint is not in this repository yet: the engine runs on seeded
-random weights (the output is noise; the path is real).  Frames are written
-as PNG files.
+``--checkpoint`` loads a V3D / SVD checkpoint (.ckpt, .pt or .safetensors,
+sgm key names) into the engine.  Without it the engine runs on seeded random
+weights (the output is noise; the path is real).  Frames are written as PNG
+files.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import time
 import numpy as np
 import torch
 
+from v3d_tpu_torch.core.checkpoint import load_v3d_params
 from v3d_tpu_torch.data.preprocess import preprocess_image
-from v3d_tpu_torch.engines.builder import build_v3d_engine
+from v3d_tpu_torch.engines.builder import build_tiny_engine, build_v3d_engine
 
 
 def _sync(device: torch.device) -> None:
@@ -36,13 +38,14 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
                ignore_alpha: bool = False, bf16: bool = True,
                device="cuda", resolution: int = 512,
                weights_seed: int = 0, enc_noise=None, aug_noise=None,
-               noise=None):
+               noise=None, checkpoint: str = None):
     """(H, W, 3|4) uint8 image -> (frames uint8 (T, res, res, 3), engine,
     timings in seconds).
 
     Without ``engine``, builds the V3D-512 engine on ``device`` (the card
     unless the caller passes ``device="cpu"``) with seeded random weights,
-    bf16-resident when ``bf16``.  The noise comes from a generator seeded
+    bf16-resident when ``bf16``, and loads ``checkpoint`` into it when one
+    is given.  The noise comes from a generator seeded
     with ``seed`` (latent sample, cond aug, initial latent, in that order)
     unless given explicitly."""
     if engine is None:
@@ -51,6 +54,8 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
             min_scale=min_guidance_scale, max_scale=max_guidance_scale,
             sigma_max=sigma_max, device=device,
             dtype=torch.bfloat16 if bf16 else torch.float32, seed=weights_seed)
+        if checkpoint:
+            load_v3d_params(checkpoint, engine)
     dev = engine.device
     img = preprocess_image(image, border_ratio=border_ratio,
                            resolution=resolution, ignore_alpha=ignore_alpha)
@@ -79,7 +84,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--input", required=True)
     p.add_argument("--checkpoint", default=None,
-                   help="not supported yet: the weights are not in the repo")
+                   help="V3D / SVD checkpoint (.ckpt, .pt, .safetensors); "
+                        "default: seeded random weights")
     p.add_argument("--num-steps", type=int, default=25)
     p.add_argument("--num-frames", type=int, default=18)
     p.add_argument("--fps-id", type=int, default=1)
@@ -93,23 +99,33 @@ def main(argv=None):
     p.add_argument("--sigma-max", type=float, default=700.0)
     p.add_argument("--output-folder", default="outputs/v3d_512")
     p.add_argument("--ignore-alpha", action="store_true")
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--tiny", action="store_true",
+                   help="the scaled-down engine of the same topology (tests, "
+                        "dry runs; its checkpoints have the same key names)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)
-    if args.checkpoint:
-        p.error("--checkpoint: loading real weights waits until they are in "
-                "the repository; run without it for seeded random weights")
     from PIL import Image
 
-    print("WARNING: seeded random weights (output is noise; pipeline test)")
+    if not args.checkpoint:
+        print("WARNING: seeded random weights (output is noise; pipeline test)")
+    engine = None
+    if args.tiny:
+        engine = build_tiny_engine(num_frames=args.num_frames,
+                                   num_steps=args.num_steps, device=args.device)
+        if args.checkpoint:
+            load_v3d_params(args.checkpoint, engine)
     frames, _, timings = sample_one(
-        np.asarray(Image.open(args.input)), num_frames=args.num_frames,
+        np.asarray(Image.open(args.input)), engine=engine,
+        num_frames=args.num_frames,
         num_steps=args.num_steps, fps_id=args.fps_id,
         motion_bucket_id=args.motion_bucket_id, cond_aug=args.cond_aug,
         seed=args.seed, decoding_t=args.decoding_t,
         border_ratio=args.border_ratio, min_guidance_scale=args.min_cfg,
         max_guidance_scale=args.max_cfg, sigma_max=args.sigma_max,
-        ignore_alpha=args.ignore_alpha, device=args.device)
+        ignore_alpha=args.ignore_alpha, device=args.device,
+        resolution=args.resolution, checkpoint=args.checkpoint)
     os.makedirs(args.output_folder, exist_ok=True)
     base = len(os.listdir(args.output_folder))
     out_dir = os.path.join(args.output_folder, f"{base:06d}")

@@ -8,9 +8,9 @@ on pre-encoded latent orbits, on one card.
 
 ``--data`` is a directory of ``<object>/latents.npy`` + ``clip_emb.npy``
 (``data.objaverse.OrbitRenderDataset``) or ``synthetic``: 64 seeded latent
-orbits with seeded CLIP embeddings.  The checkpoint is not in this
-repository yet, so the UNet starts from seeded random weights and
-``--checkpoint`` is refused.  One JSON line of stats per logged step.
+orbits with seeded CLIP embeddings.  ``--checkpoint`` loads a V3D / SVD
+checkpoint (sgm key names) into the engine; without it the UNet starts from
+seeded random weights.  One JSON line of stats per logged step.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from v3d_tpu_torch.core.checkpoint import load_v3d_params
 from v3d_tpu_torch.data.objaverse import (
     OrbitItemConfig,
     OrbitRenderDataset,
@@ -31,13 +32,17 @@ from v3d_tpu_torch.engines.builder import build_v3d_engine
 from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
 
 
-def build_train_engine(num_frames: int = 18, device="cuda"):
-    """The V3D-512 engine for training (train_diffusion.py:47): seeded f32
-    parameters on ``device``, the UNet computing in bf16 with its blocks
-    checkpointed."""
-    return build_v3d_engine(
+def build_train_engine(num_frames: int = 18, device="cuda",
+                       checkpoint: Optional[str] = None):
+    """The V3D-512 engine for training (train_diffusion.py:47): f32
+    parameters on ``device``, seeded or loaded from ``checkpoint``, the UNet
+    computing in bf16 with its blocks checkpointed."""
+    engine = build_v3d_engine(
         num_frames=num_frames, device=device, dtype=torch.float32, seed=0,
         unet_overrides=dict(compute_dtype=torch.bfloat16, use_checkpoint=True))
+    if checkpoint:
+        load_v3d_params(checkpoint, engine)
+    return engine
 
 
 def make_dataset(data: str, num_frames: int, clip_dim: int):
@@ -66,10 +71,13 @@ def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
           max_steps: int = 100_000, lr: float = 1e-4,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 5000,
           log_every: int = TrainConfig.log_every, device="cuda", engine=None,
-          log_fn: Callable[[Dict], None] = print) -> DiffusionTrainer:
+          log_fn: Callable[[Dict], None] = print,
+          checkpoint: Optional[str] = None) -> DiffusionTrainer:
     """Fine-tune ``engine`` (by default the full-width V3D-512 training
-    engine on ``device``) for ``max_steps`` steps; returns the trainer."""
-    engine = engine or build_train_engine(num_frames=num_frames, device=device)
+    engine on ``device``, from ``checkpoint`` when given) for ``max_steps``
+    steps; returns the trainer."""
+    engine = engine or build_train_engine(num_frames=num_frames, device=device,
+                                          checkpoint=checkpoint)
     trainer = DiffusionTrainer(
         engine, TrainConfig(base_learning_rate=lr, max_steps=max_steps,
                             ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
@@ -87,7 +95,8 @@ def main(argv=None) -> None:
                    help="root of <object>/latents.npy + clip_emb.npy dirs, "
                         "or 'synthetic'")
     p.add_argument("--checkpoint", default=None,
-                   help="not available: the weights are not in this repository")
+                   help="V3D / SVD checkpoint (.ckpt, .pt, .safetensors); "
+                        "default: seeded random weights")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--num-frames", type=int, default=18)
     p.add_argument("--max-steps", type=int, default=100_000)
@@ -96,12 +105,12 @@ def main(argv=None) -> None:
     p.add_argument("--ckpt-every", type=int, default=5000)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.checkpoint:
-        p.error("--checkpoint: loading V3D_512.ckpt / svd_xt.safetensors waits "
-                "until the weights are in the repository")
-    print("WARNING: training from random init (no checkpoint)")
+    if not args.checkpoint:
+        print("WARNING: training from random init (no checkpoint)")
     train(args.data, args.batch_size, args.num_frames, args.max_steps, args.lr,
-          args.ckpt_dir, args.ckpt_every, device=args.device, log_fn=lambda s: print(json.dumps(s), flush=True))
+          args.ckpt_dir, args.ckpt_every, device=args.device,
+          log_fn=lambda s: print(json.dumps(s), flush=True),
+          checkpoint=args.checkpoint)
 
 
 if __name__ == "__main__":

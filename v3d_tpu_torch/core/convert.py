@@ -7,8 +7,11 @@
   path and transform, and the transform is inverted.
 - ``gaussians_from_jax``: a ``GaussianParams`` (numpy or device arrays) ->
   the port's ``Gaussians``.
-- ``trainer_state_from_jax``: ``GSTrainer.capture()`` of the JAX package ->
-  the state that ``v3d_tpu_torch.gs.trainer.GSTrainer.restore`` takes.
+- ``trainer_state_from_jax``: ``GSTrainer.capture()`` or
+  ``NeusTrainer.capture()`` of the JAX package -> the state that the port's
+  ``GSTrainer.restore`` / ``NeusTrainer.restore`` takes.
+- ``neus_state_from_jax``: the JAX NeusTrainer's parameter tree -> one state
+  dict per field of the port's NeusTrainer.
 
 Nothing here imports the JAX package: the trees arrive as objects whose
 leaves ``np.asarray`` reads.
@@ -97,11 +100,80 @@ def _adam_states(tree):
             yield from _adam_states(v)
 
 
+def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _neus_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """A Flax path inside one NeuS field -> (the port's parameter name,
+    whether the leaf is a Flax (in, out) kernel that torch stores
+    transposed)."""
+    names = list(path)
+    leaf = names[-1]
+    parts = []
+    for n in names[:-1]:
+        if n.startswith("layers_"):
+            parts += ["layers", n[len("layers_"):]]
+        else:
+            parts.append(n)
+    if leaf == "kernel":
+        return ".".join(parts + ["weight"]), True
+    return ".".join(parts + [leaf]), leaf == "v"
+
+
+def neus_group_state(tree: Mapping) -> Dict[str, np.ndarray]:
+    """One JAX NeuS field's tree (with or without the top "params" level;
+    parameters or Adam moments of that shape) -> {port name: float32 numpy}.
+    Dense kernels and WNDense ``v`` are transposed to torch's (out, in)."""
+    tree = tree.get("params", tree)
+    out = {}
+    for path, leaf in _flat(tree):
+        name, transpose = _neus_key(path)
+        arr = np.asarray(leaf, np.float32)
+        out[name] = np.ascontiguousarray(arr.T if transpose else arr)
+    return out
+
+
+def neus_state_from_jax(params: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX ``NeusTrainer.params`` ({"geometry", "texture", "variance"[,
+    "geometry_bg", "texture_bg"]}, any array leaves) -> one state dict per
+    field of the port's NeusTrainer (``modules[name].load_state_dict``)."""
+    return {name: neus_group_state(tree) for name, tree in params.items()}
+
+
+def _neus_trainer_state(capture: Mapping) -> Dict:
+    params = neus_state_from_jax(capture["params"])
+    adam: Dict = {name: {} for name in params}
+    for state in _adam_states(capture["opt_state"]):
+        for name, mu in state.mu.items():
+            if isinstance(mu, Mapping):   # the other groups are MaskedNodes
+                step = int(np.asarray(state.count))
+                nu = neus_group_state(state.nu[name])
+                for k, m in neus_group_state(mu).items():
+                    adam[name][k] = {"exp_avg": m, "exp_avg_sq": nu[k], "step": step}
+    for name in params:
+        if set(adam[name]) != set(params[name]):
+            raise KeyError(f"no Adam state for {name}")
+    return {"params": params, "adam": adam, "step": int(capture["step"]),
+            "occs": np.asarray(capture["occs"], np.float32),
+            "binary": np.asarray(capture["binary"], bool),
+            "train_num_rays": int(capture["train_num_rays"])}
+
+
 def trainer_state_from_jax(capture: Mapping) -> Dict:
     """The JAX ``GSTrainer.capture()`` (params, the optax multi-transform
     state, stats, alive, step) -> the numpy state that the port's
     ``GSTrainer.restore`` takes: per field its param and Adam ``exp_avg`` /
-    ``exp_avg_sq`` / ``step`` (optax's mu / nu / count)."""
+    ``exp_avg_sq`` / ``step`` (optax's mu / nu / count).  A NeuS capture
+    (it has "occs") -> the state of ``NeusTrainer.restore``: per field its
+    state dict and Adam moments, the occupancy grid, the step and the ray
+    count (the JAX key does not carry over)."""
+    if "occs" in capture:
+        return _neus_trainer_state(capture)
     params = {k: np.asarray(v, np.float32) for k, v in capture["params"].items()}
     adam = {}
     for state in _adam_states(capture["opt_state"]):

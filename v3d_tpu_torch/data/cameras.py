@@ -1,16 +1,17 @@
 """Orbit cameras in the 3DGS convention (numpy, host side).
 
-A copy of the JAX package's ``data/cameras.py`` (:18-143): orbit pose
-generation (z-up look-at, OpenCV convention with optional OpenGL flip) and
-world2view / perspective projection as in the 3DGS code.  Matrices are stored
-transposed (row-vector convention) and handed to the renderer as they are.
+A copy of the JAX package's ``data/cameras.py`` (:18-158): orbit pose
+generation (z-up look-at, OpenCV convention with optional OpenGL flip),
+world2view / perspective projection as in the 3DGS code, and the per-pixel
+ray directions of NeuS.  Matrices are stored transposed (row-vector
+convention) and handed to the renderer as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -141,3 +142,17 @@ def orbit_cameras(num_frames: int = 18, radius: float = 2.0,
                         image=None if images is None else images[i])
         for i in range(num_frames)
     ]
+
+
+def get_ray_directions(height: int, width: int, focal: float,
+                       center: Optional[Tuple[float, float]] = None) -> np.ndarray:
+    """Per-pixel camera-space ray directions (H, W, 3), OpenGL convention
+    (+x right, +y up, -z forward), through the pixel centres
+    (mesh_recon/models/ray_utils.py:9-38)."""
+    cx = width / 2 if center is None else center[0]
+    cy = height / 2 if center is None else center[1]
+    i, j = np.meshgrid(np.arange(width) + 0.5, np.arange(height) + 0.5,
+                       indexing="xy")
+    dirs = np.stack([(i - cx) / focal, -(j - cy) / focal,
+                     -np.ones_like(i)], axis=-1)
+    return dirs.astype(np.float32)
