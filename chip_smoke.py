@@ -72,9 +72,23 @@ Phases, each printing lines before the last:
 12. ``apps.full_asset.run`` with the mesh stage, two assets in one process
     (25 steps, the fit cut to 200 iterations, NeuS to 300 steps at 192^3):
     each stage's seconds and each asset's launches per stage (generation
-    as phase 5, fit K4 219 / K5 200, NeuS none).
+    as phase 5, fit K4 219 / K5 200, NeuS none);
+13. texture refine of phase 11's 384^3 mesh against its 18 frames at
+    512^2 (``meshops.refine.TextureRefiner``, the shipped RefineConfig) for
+    as many iterations as fit in 60 s: ms per iteration, the forward
+    render's ms, losses, PSNR of four views before and after, peak memory,
+    the share of view 0's true silhouette the rasterizer covers, and a
+    profile of 3 iterations;
+14. ``apps.gs_to_mesh.distill`` from phase 6's gaussians written as a PLY
+    (36 views at 256^2, the fit cut to 600 of 1500 steps, 192^3, 500
+    refine iterations): stage seconds, launches (K4 36, K5 0), then K4
+    against the plain compositor on one of those 256^2 views;
+15. the DPT normal predictor at full width from seeded weights written as
+    an Omnidata .ckpt: phase 11's 18 frames (inference at 384^2), ms per
+    frame, peak memory, one frame against the CPU, then 100 NeuS steps of
+    ``reconstruct(..., dpt_weights=...)``.
 
-Each path (phases 5, 6, 8, each run of 9, and 11) is run with the launch
+Each path (phases 5, 6, 8, each run of 9, 11 and 14) is run with the launch
 counts set to 0 just before it and read just after (phase 12: each stage's
 launches, the counters read before and after it); a kernel of the path launched
 no time, or another number of times than the path needs (counted from the
@@ -1082,6 +1096,57 @@ def gs_checkpoints_mismatch(saved, plain) -> dict:
             "ts_rel": float(rel.max()) if rel.numel() else 0.0}
 
 
+def k4_forward_check(slabs, phase: str) -> tuple:
+    """K4 (T10) against the plain compositor on ``slabs``: rgb / acc / depth,
+    the checkpoints K5 reads, the (pixel, gaussian) pairs of this run's data
+    (``gs_pairs``), kernel / plain times and the bound.  Raises on a
+    disagreement; returns (the check's entry, its inputs, K4's checkpoints,
+    the pairs)."""
+    import torch
+
+    from v3d_tpu_torch.ops import gs_composite as gc
+
+    args = (slabs.slab.detach().contiguous(), slabs.live_count,
+            slabs.cell_of_tile, slabs.tile_xy)
+    n_cells, kc, _ = args[0].shape
+    n_tiles = args[2].shape[0]
+    tag = f"slab {tuple(args[0].shape)} {n_tiles} tiles"
+    out, saved = gc.composite_fwd(*args)
+    torch.cuda.synchronize()
+    ref = gc.composite_plain(*args)
+    errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
+    ok = (all(bool(torch.isfinite(o).all()) for o in out)
+          and max(errs[:2]) <= GS_RGB_ACC_MAX_ABS and errs[2] <= GS_DEPTH_MAX_ABS)
+    ckpt = gs_checkpoints_mismatch(saved, gc.composite_checkpoints_plain(*args))
+    ok_ckpt = ckpt["last"] == ckpt["k_stop"] == 0 and ckpt["ts_rel"] <= GS_TS_REL
+    say(phase, f"K4 checkpoints vs composite_checkpoints_plain: ts max rel "
+        f"{ckpt['ts_rel']:.2e} (<= {GS_TS_REL:g}), last / k_stop mismatches "
+        f"{ckpt['last']} / {ckpt['k_stop']} (0) outside {ckpt['near']} pixels at "
+        f"the 1e-4 stop | {'ok' if ok_ckpt else 'FAIL'}")
+    if not ok_ckpt:
+        raise SmokeFailure(f"K4's checkpoints disagree with the plain ones: {ckpt}")
+    pairs = gs_pairs(slabs, saved)
+    fwd_ms = cuda_ms(lambda: gc.composite_fwd(*args))
+    plain_ms = cuda_ms(lambda: gc.composite_plain(*args), iters=5, warmup=1)
+    bound = bound_ms(
+        pairs["needed"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_FWD,
+        n_cells * kc * gc.ATTR * 4 + n_tiles * gc.P * 24
+        + (pairs["ts_rows"] + n_tiles) * gc.P * 4 + n_tiles * 16, PEAK_FP32)
+    say(phase, f"K4 gs_composite_fwd (T10) {tag} f32: max_abs rgb "
+        f"{errs[0]:.3e} acc {errs[1]:.3e} (<= {GS_RGB_ACC_MAX_ABS:g}) depth "
+        f"{errs[2]:.3e} (<= {GS_DEPTH_MAX_ABS:g}) | kernel {fwd_ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms library none | bound {bound[0]:.4f} "
+        f"ms ({bound[1]}) | pairs a cell-wide sweep tests {pairs['tested']:,}, "
+        f"needed (exact box) {pairs['needed']:,}, composited {pairs['composited']:,}, "
+        f"k_stop rows {pairs['ts_rows']:,} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"gs_composite_fwd disagrees: {errs}")
+    entry = {"shape": tag, "dtype": "float32", "library_ms": None, "pairs": pairs,
+             "max_abs_err": max(errs), "ms": fwd_ms, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "checkpoints": ckpt}
+    return entry, args, saved, pairs
+
+
 def phase_gs_kernels() -> dict:
     """K4 / K5 (T10 / T11) against the plain compositor at the fit's
     full-width shapes (512^2: 1024 tiles, 16 cells of Kc = 2048)."""
@@ -1091,30 +1156,15 @@ def phase_gs_kernels() -> dict:
 
     dev = torch.device("cuda")
     slabs = fit_scene_slabs(dev)
-    args = (slabs.slab.detach().contiguous(), slabs.live_count,
-            slabs.cell_of_tile, slabs.tile_xy)
+    k4, args, saved, pairs = k4_forward_check(slabs, "3 kernels")
     n_cells, kc, _ = args[0].shape
     n_tiles = args[2].shape[0]
     n_pix = n_tiles * gc.P
-    tag = f"slab {tuple(args[0].shape)} {n_tiles} tiles"
-
-    out, saved = gc.composite_fwd(*args)
-    torch.cuda.synchronize()
-    ref = gc.composite_plain(*args)
-    errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
-    ok_fwd = (all(bool(torch.isfinite(o).all()) for o in out)
-              and max(errs[:2]) <= GS_RGB_ACC_MAX_ABS and errs[2] <= GS_DEPTH_MAX_ABS)
-    ckpt = gs_checkpoints_mismatch(saved, gc.composite_checkpoints_plain(*args))
-    ok_ckpt = ckpt["last"] == ckpt["k_stop"] == 0 and ckpt["ts_rel"] <= GS_TS_REL
-    say("3 kernels", f"K4 checkpoints vs composite_checkpoints_plain: ts max rel "
-        f"{ckpt['ts_rel']:.2e} (<= {GS_TS_REL:g}), last / k_stop mismatches "
-        f"{ckpt['last']} / {ckpt['k_stop']} (0) outside {ckpt['near']} pixels at "
-        f"the 1e-4 stop | {'ok' if ok_ckpt else 'FAIL'}")
-    if not ok_ckpt:
-        raise SmokeFailure(f"K4's checkpoints disagree with the plain ones: {ckpt}")
+    tag = k4["shape"]
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    cot = [torch.randn(o.shape, device=dev, generator=gen) for o in out]
+    cot = [torch.randn(shape, device=dev, generator=gen)
+           for shape in ((n_tiles, gc.P, 3), (n_tiles, gc.P), (n_tiles, gc.P))]
     dslab = gc.composite_bwd(args[0], args[2], args[3], saved, *cot)
     torch.cuda.synchronize()
     slab = args[0].clone().requires_grad_(True)
@@ -1127,7 +1177,6 @@ def phase_gs_kernels() -> dict:
     ok_bwd = bool(torch.isfinite(dslab).all()) and all(
         e <= GS_GRAD_REL * sc for e, sc in rows)
 
-    pairs = gs_pairs(slabs, saved)
     prof = torch.zeros(n_tiles, gc.FWD_PROF_SLOTS, dtype=torch.int64, device=dev)
     gc.composite_fwd(*args, prof=prof)
     torch.cuda.synchronize()
@@ -1152,28 +1201,13 @@ def phase_gs_kernels() -> dict:
                     for i, name in enumerate(("all", "front-to-back sums", "walk", "flush")))
         + f" | (tile, gaussian) pairs admitted by the cull {admitted:,} (exact 1/255 box "
         f"{pairs['reach']:,}), gaussians the groups' first warps walked {walked:,}")
-    fwd_ms = cuda_ms(lambda: gc.composite_fwd(*args))
-    plain_fwd_ms = cuda_ms(lambda: gc.composite_plain(*args), iters=5, warmup=1)
     bwd_ms = cuda_ms(lambda: gc.composite_bwd(args[0], args[2], args[3], saved, *cot))
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         plain_out, slab, cot, retain_graph=True), iters=5, warmup=1)
-    slab_bytes = n_cells * kc * gc.ATTR * 4
-    fwd_bound = bound_ms(
-        pairs["needed"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_FWD,
-        slab_bytes + n_pix * 24 + (pairs["ts_rows"] + n_tiles) * gc.P * 4
-        + n_tiles * 16, PEAK_FP32)
     bwd_bound = bound_ms(
         pairs["needed_bwd"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_BWD,
-        2 * slab_bytes + n_pix * 24 + pairs["ts_rows"] * gc.P * 4 + n_tiles * 12,
-        PEAK_FP32)
-    say("3 kernels", f"K4 gs_composite_fwd (T10) {tag} f32: max_abs rgb "
-        f"{errs[0]:.3e} acc {errs[1]:.3e} (<= {GS_RGB_ACC_MAX_ABS:g}) depth "
-        f"{errs[2]:.3e} (<= {GS_DEPTH_MAX_ABS:g}) | kernel {fwd_ms:.4f} ms "
-        f"plain {plain_fwd_ms:.4f} ms library none | bound {fwd_bound[0]:.4f} "
-        f"ms ({fwd_bound[1]}) | pairs a cell-wide sweep tests {pairs['tested']:,}, "
-        f"needed (exact box) {pairs['needed']:,}, composited {pairs['composited']:,}, "
-        f"k_stop rows {pairs['ts_rows']:,} | "
-        f"{'ok' if ok_fwd else 'FAIL'}")
+        2 * n_cells * kc * gc.ATTR * 4 + n_pix * 24 + pairs["ts_rows"] * gc.P * 4
+        + n_tiles * 12, PEAK_FP32)
     say("3 kernels", f"K5 gs_composite_bwd (T11) {tag} f32: per attribute "
         f"max_abs / max|plain| " + " ".join(f"{e / max(sc, 1e-30):.2e}"
                                             for e, sc in rows)
@@ -1183,18 +1217,15 @@ def phase_gs_kernels() -> dict:
         f"{pairs['tested_bwd']:,}, needed (exact box) {pairs['needed_bwd']:,}, "
         f"composited {pairs['composited']:,}; (tile, gaussian) admitted by the cull "
         f"{admitted:,} | {'ok' if ok_bwd else 'FAIL'}")
-    if not (ok_fwd and ok_bwd):
-        raise SmokeFailure(f"gs_composite disagrees: fwd {errs}, bwd {rows}")
-    common = {"shape": tag, "dtype": "float32", "library_ms": None, "pairs": pairs}
+    if not ok_bwd:
+        raise SmokeFailure(f"gs_composite_bwd disagrees: {rows}")
     return {
-        "gs_composite_fwd": [dict(common, max_abs_err=max(errs), ms=fwd_ms,
-                                  plain_ms=plain_fwd_ms, bound_ms=fwd_bound[0],
-                                  bound_by=fwd_bound[1], cull_admitted=fwd_admitted,
-                                  checkpoints=ckpt)],
-        "gs_composite_bwd": [dict(common, cull_admitted=admitted,
-                                  max_abs_err=max(e for e, _ in rows),
-                                  ms=bwd_ms, plain_ms=plain_bwd_ms,
-                                  bound_ms=bwd_bound[0], bound_by=bwd_bound[1])]}
+        "gs_composite_fwd": [dict(k4, cull_admitted=fwd_admitted)],
+        "gs_composite_bwd": [{"shape": tag, "dtype": "float32", "library_ms": None,
+                              "pairs": pairs, "cull_admitted": admitted,
+                              "max_abs_err": max(e for e, _ in rows),
+                              "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                              "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}]}
 
 
 ATTENTION_KERNELS = ("flash_attn_fwd", "flash_attn_fwd_wide")
@@ -2242,7 +2273,7 @@ def phase_neus() -> dict:
         raise SmokeFailure(f"NeuS: finite losses {finite}, mesh {n_v} x {n_f}")
     profile_steps("11 profile", "NeuS card-recipe", trainer.train_iter, 5, step_ms,
                   NEUS_KERNEL_CLASSES, NEUS_OTHER)
-    del trainer, mesh
+    del trainer
     torch.cuda.empty_cache()
 
     # the reference recipe on the card: hash grid, finite differences,
@@ -2274,7 +2305,8 @@ def phase_neus() -> dict:
     say(phase, f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
     del ref
     torch.cuda.empty_cache()
-    return {"step_ms": step_ms, "psnr": psnrs, "export_s": timings["export_s"]}
+    return {"step_ms": step_ms, "psnr": psnrs, "export_s": timings["export_s"],
+            "frames": frames, "masks": masks[:18], "mesh": mesh}
 
 
 FULL_GS_ITERS, FULL_NEUS_STEPS, FULL_MC_RES = 200, 300, 192
@@ -2316,9 +2348,264 @@ def phase_full_asset(gen_expect: dict) -> dict:
     return report
 
 
+REFINE_ITERS = 2000        # apps/refine.py's default, cut to REFINE_BUDGET_S
+REFINE_BUDGET_S = 60.0
+REFINE_PSNR_VIEWS = (0, 5, 11, 17)
+REFINE_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
+    ("sort / scan (the candidate lists)", ("sort", "radix", "scan", "cub")),
+    ("gathers / scatters (candidates, attributes)", ("index", "gather", "scatter")),
+    ("reductions, argmin / argmax", ("reduce", "arg")),
+    ("Adam", ("adam", "multi_tensor", "foreach")),
+    ("copies / fills", ("memcpy", "memset", "copy", "fill")),
+)
+REFINE_OTHER = "elementwise (edge functions, barycentrics, coverage, their backward)"
+
+
+def phase_refine(neus: dict, dev="cuda") -> dict:
+    """``meshops.refine.TextureRefiner`` at the shipped RefineConfig (16
+    views, lr 1e-3, max_per_tile 256, tile_chunk 16) on phase 11's exported
+    384^3 mesh and its 18 orbit frames at 512^2: as many iterations of
+    ``run`` as fit in REFINE_BUDGET_S (not apps/refine.py's 2000), each
+    timed (synchronised); the forward render's time; PSNR of four views
+    before and after; the share of view 0's true silhouette the
+    rasterizer's ``mask`` covers; a profile of 3 iterations."""
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.meshops.rasterize import verts_to_clip
+    from v3d_tpu_torch.meshops.refine import RefineConfig, TextureRefiner
+
+    phase = "13 refine"
+    if not neus:
+        raise SmokeFailure("phase 13 refines phase 11's mesh: run phase 11 too")
+    mesh, frames = neus["mesh"], neus["frames"]
+    t_phase = time.perf_counter()
+    cfg = RefineConfig()
+    refiner = TextureRefiner(mesh, frames, cfg, device=dev)
+    targets = torch.tensor(frames, device=dev)
+
+    @torch.no_grad()
+    def view_psnrs():
+        return [psnr(refiner.render(refiner.logits, v)[0], targets[v])
+                for v in REFINE_PSNR_VIEWS]
+
+    with torch.no_grad():
+        render_ms = cuda_ms(lambda: refiner.render(refiner.logits, 0), iters=5)
+        out = refiner.raster(verts_to_clip(refiner.verts, refiner.mvps[0]),
+                             refiner.faces, torch.sigmoid(refiner.logits))
+        sil = torch.tensor(neus["masks"][0] > 0.5, device=dev)
+        covered = float((out.mask & sil).sum()) / float(sil.sum())
+        outside = float((out.mask & ~sil).sum()) / float(sil.sum())
+    before = view_psnrs()
+
+    stamps = []
+    step = refiner.step
+
+    def timed_step(slot):
+        loss = step(slot)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return loss
+
+    refiner.step = timed_step
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    refiner.run(3)                                   # warm-up
+    warm = [b - a for a, b in zip(stamps, stamps[1:])]
+    iters = max(10, min(REFINE_ITERS, int(REFINE_BUDGET_S / statistics.median(warm[1:]))))
+    torch.cuda.reset_peak_memory_stats()
+    stamps.clear()
+    stamps.append(time.perf_counter())
+    losses = refiner.run(iters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_ms = 1e3 * statistics.median(steps)
+    after = view_psnrs()
+    refiner.step = step
+    ok = (all(map(math.isfinite, losses + before + after))
+          and statistics.mean(after) > statistics.mean(before))
+    say(phase, f"mesh {len(mesh.vertices)} vertices {len(mesh.faces)} faces, 18 "
+        f"frames at {frames.shape[1]}^2, RefineConfig() (16 views, lr {cfg.lr:g}, "
+        f"max_per_tile {cfg.max_per_tile}, tile_chunk {cfg.tile_chunk}) | forward "
+        f"render {render_ms:.3f} ms | view 0: the rasterizer's mask covers "
+        f"{100 * covered:.2f}% of the true silhouette (and {100 * outside:.2f}% of it "
+        f"outside)")
+    say(phase, f"run: {iters} iterations (apps/refine.py's {REFINE_ITERS} cut to "
+        f"{REFINE_BUDGET_S:g} s; warm-up 3: {', '.join(f'{1e3 * w:.1f}' for w in warm)} "
+        f"ms), ms per iteration (median, host clock, synchronised) {step_ms:.3f}, "
+        f"total {sum(steps):.2f} s | loss {losses[0]:.6f} -> {losses[-1]:.6f} | PSNR "
+        f"of views {REFINE_PSNR_VIEWS} before "
+        + " / ".join(f"{p:.2f}" for p in before) + " dB, after "
+        + " / ".join(f"{p:.2f}" for p in after) + f" dB | peak {peak:.2f} GiB | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"refine: losses {losses[:1]} {losses[-1:]}, PSNR {before} {after}")
+    rs = np.random.RandomState(1)
+    profile_steps("13 profile", "refine", lambda: refiner.step(int(rs.randint(16))), 3,
+                  step_ms, REFINE_KERNEL_CLASSES, REFINE_OTHER)
+    say(phase, f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "iters": iters, "covered": covered}
+
+
+GS_MESH_VIEWS, GS_MESH_RES = 36, 256       # apps/gs_to_mesh.py's defaults
+# the CLI's 1500 fit steps cut to 600 (1500 steps took 80 s of a 154 s
+# phase on the H100), its 500 refine iterations kept
+GS_MESH_FIT_STEPS, GS_MESH_REFINE_ITERS = 600, 500
+
+
+def phase_gs_to_mesh(g_np, dev="cuda") -> dict:
+    """``apps.gs_to_mesh.distill`` at the CLI's defaults (36 views at 256^2,
+    fit steps of 4096 rays, 192^3, 500 refine iterations; the fit cut to
+    GS_MESH_FIT_STEPS of 1500) from the
+    gaussians of phase 6's fit written as a PLY, with the launch counts set
+    to 0 just before it: K4 once per view, K5 never; then K4 against the
+    plain compositor on view 0's slabs at 256^2."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps.gs_to_mesh import distill, load_gaussians, sh_degree
+    from v3d_tpu_torch.data.cameras import Camera, get_uniform_poses
+    from v3d_tpu_torch.gs.ply import save_ply
+    from v3d_tpu_torch.gs.render import RasterizeConfig, build_slabs, project_gaussians
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    phase = "14 gs_to_mesh"
+    if g_np is None:
+        raise SmokeFailure("phase 14 distils phase 6's gaussians: run phase 6 too")
+    with tempfile.TemporaryDirectory() as out:
+        ply = os.path.join(out, "point_cloud.ply")
+        save_ply(ply, g_np)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        mesh, tm = distill(ply, os.path.join(out, "mesh"), n_views=GS_MESH_VIEWS,
+                           resolution=GS_MESH_RES, fit_steps=GS_MESH_FIT_STEPS,
+                           refine_iters=GS_MESH_REFINE_ITERS, device=dev)
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mesh_dir = os.path.join(out, "mesh")
+        files = sorted(os.listdir(mesh_dir)) if os.path.isdir(mesh_dir) else []
+        g = load_gaussians(ply, dev)
+    expect = {name: 0 for name in KERNELS}
+    expect["gs_composite_fwd"] = GS_MESH_VIEWS
+    ok = (counts == expect and len(mesh.faces) > 0 and files == ["mesh.glb", "mesh.obj"]
+          and mesh.vertex_colors is not None and bool(np.isfinite(mesh.vertex_colors).all()))
+    say(phase, f"distill from {int(g_np['alive'].sum())} gaussians: {GS_MESH_VIEWS} "
+        f"views at {GS_MESH_RES}^2 rendered in {tm['render_s']:.2f} s | fit "
+        f"{GS_MESH_FIT_STEPS} steps of 4096 rays x 192 samples {tm['fit_s']:.2f} s, "
+        f"{1e3 * tm['fit_s'] / GS_MESH_FIT_STEPS:.3f} ms per step | isosurface at "
+        f"192^3 {tm['isosurface_s']:.2f} s | refine {GS_MESH_REFINE_ITERS} iterations "
+        f"{tm.get('refine_s', float('nan')):.2f} s | write {tm.get('write_s', float('nan')):.2f} "
+        f"s | total {tm['total_s']:.2f} s | mesh {len(mesh.vertices)} vertices "
+        f"{len(mesh.faces)} faces | peak {peak:.2f} GiB | launches {counts} (expect "
+        f"{expect}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"gs_to_mesh: launches {counts}, mesh {len(mesh.faces)} "
+                           f"faces, files {files}")
+    cam = Camera.from_c2w(get_uniform_poses(GS_MESH_VIEWS, 2.0, 0.0)[0], 60.0,
+                          GS_MESH_RES, GS_MESH_RES)
+    with torch.no_grad():
+        slabs = build_slabs(project_gaussians(g, cam, sh_degree(g)), GS_MESH_RES,
+                            GS_MESH_RES, RasterizeConfig())
+    check, *_ = k4_forward_check(slabs, phase)
+    check["launches_gs_to_mesh"] = counts["gs_composite_fwd"]
+    return {"launches": counts, "check": check, "timings": tm}
+
+
+DPT_STEPS = 100          # NeuS steps with the DPT normals
+DPT_MC_RES = 128         # their export (not the shipped 384^3: phase 11 times that)
+DPT_CPU_MAX_ABS = 1e-3   # one frame's normals on the card against the CPU
+
+
+def phase_dpt(neus: dict, dev="cuda") -> dict:
+    """The DPT normal predictor at full width (ResNetV2-(3,4,9) + ViT-B/16)
+    from seeded weights written as an Omnidata-layout .ckpt, loaded by
+    ``load_dpt_normal_predictor`` on the card: phase 11's 18 frames at 512^2
+    (inference at 384^2, batches of 6), ms per frame, peak memory, one frame
+    against the same predictor on the CPU; then ``reconstruct(...,
+    dpt_weights=...)`` for DPT_STEPS steps."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps.recon_neus import reconstruct
+    from v3d_tpu_torch.models.dpt import DPT
+    from v3d_tpu_torch.nerf.normals import load_dpt_normal_predictor
+
+    phase = "15 dpt"
+    if not neus:
+        raise SmokeFailure("phase 15 predicts phase 11's frames: run phase 11 too")
+    frames = neus["frames"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "omnidata_dpt_normal_v2.ckpt")
+        sd = DPT(num_channels=3).init_(torch.Generator().manual_seed(0)).state_dict()
+        torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}}, path)
+        n_params = sum(v.numel() for v in sd.values())
+        del sd
+        t0 = time.perf_counter()
+        predict = load_dpt_normal_predictor(path, device=dev)
+        load_s = time.perf_counter() - t0
+        predict(frames[:6])                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        normals = predict(frames)
+        torch.cuda.synchronize()
+        ms_frame = 1e3 * (time.perf_counter() - t0) / len(frames)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cpu = load_dpt_normal_predictor(path, device="cpu")(frames[:1])
+        err = float(np.abs(normals[0] - cpu[0]).max())
+        del predict
+        torch.cuda.empty_cache()
+        ok = (normals.shape == frames.shape and bool(np.isfinite(normals).all())
+              and err <= DPT_CPU_MAX_ABS)
+        say(phase, f"DPT ({n_params:,} parameters, seeded) from a {os.path.getsize(path) / 2**20:.0f} "
+            f"MiB .ckpt loaded in {load_s:.2f} s | {len(frames)} frames at "
+            f"{frames.shape[1]}^2, inference at 384^2 in batches of 6: "
+            f"{ms_frame:.3f} ms per frame (host clock, synchronised) | peak "
+            f"{peak:.2f} GiB | normals mean {float(normals.mean()):.4f} | frame 0 "
+            f"vs the CPU: max abs {err:.2e} (<= {DPT_CPU_MAX_ABS:g}) | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"DPT normals: shape {normals.shape}, CPU max abs {err}")
+        marks, stats = [], []
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            marks.append(t0)
+            trainer, mesh, timings = reconstruct(
+                frames, out, max_steps=NEUS_MAX_STEPS, train_steps=DPT_STEPS,
+                mc_resolution=DPT_MC_RES, dpt_weights=path, log_every=1,
+                log_fn=_step_recorder(marks, stats), device=dev)
+            wall = time.perf_counter() - t0
+    finite = all(math.isfinite(v) for s_ in stats for v in s_.values())
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    lam = trainer.cfg.lambda_normal
+    keys = [k for k in stats[0] if "normal" in k]
+    ok = finite and lam == 1.0 and len(stats) == DPT_STEPS
+    say(phase, f"reconstruct(dpt_weights=...) {DPT_STEPS} steps (max_steps "
+        f"{NEUS_MAX_STEPS}), export at {DPT_MC_RES}^3: {wall:.2f} s, ms per step "
+        f"(median of steps 11-{DPT_STEPS}) {1e3 * statistics.median(steps[10:]):.3f} | "
+        f"lambda_normal {lam:g} | loss {stats[0]['loss']:.5f} -> {stats[-1]['loss']:.5f} "
+        + " ".join(f"{k} {stats[0][k]:.5f} -> {stats[-1][k]:.5f}" for k in keys)
+        + f" | mesh {len(mesh.vertices)} vertices | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"DPT NeuS: finite {finite}, lambda_normal {lam}, "
+                           f"{len(stats)} steps")
+    say(phase, f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"ms_per_frame": ms_frame}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -2356,13 +2643,20 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
     paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})}}
+    g_np = fit["trainer"].gaussians_np() if fit and 14 in phases else None
     del fit
     torch.cuda.empty_cache()
     paths["train"] = phase_train(torch.device("cuda")) if 8 in phases else {}
-    if 11 in phases:
-        phase_neus()
+    neus = phase_neus() if 11 in phases else {}
     if 12 in phases:
         phase_full_asset(gen_expect)
+    if 13 in phases:
+        phase_refine(neus)
+    if 14 in phases:
+        gs_mesh = phase_gs_to_mesh(g_np)
+        kernel_checks.setdefault("gs_composite_fwd", []).append(gs_mesh["check"])
+    if 15 in phases:
+        phase_dpt(neus)
 
     report = []
     for name, meta in KERNELS.items():

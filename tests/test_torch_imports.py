@@ -3,7 +3,8 @@ v3d_tpu_torch (found by walking the package) and chip_smoke, and running a
 tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, or
 the attention routes under every routing setting, or a tiny NeuS
 reconstruction, a tiny ``full_asset --mesh`` and a tiny ``--checkpoint``
-load, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+load, or the refine CLI, a tiny 3DGS -> mesh distillation and the DPT
+loader, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -127,6 +128,50 @@ print("FOREIGN", bad)
 """
 
 
+_MESH_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+from v3d_tpu_torch.apps import gs_to_mesh, recon_neus, refine
+from v3d_tpu_torch.gs.ply import save_ply
+from v3d_tpu_torch.meshops.mcubes import isosurface
+from v3d_tpu_torch.meshops.mesh import Mesh
+from v3d_tpu_torch.models.dpt import DPT
+from v3d_tpu_torch.nerf.normals import load_dpt_normal_predictor
+
+rs = np.random.RandomState(0)
+with tempfile.TemporaryDirectory() as out:
+    v, f = isosurface(lambda p: np.linalg.norm(p, axis=-1) - 0.6, radius=1.0,
+                      resolution=12, coarse_resolution=8)
+    Mesh(v, f).write_obj(os.path.join(out, "m.obj"))
+    np.save(os.path.join(out, "f.npy"), np.full((2, 32, 32, 3), 200, np.uint8))
+    refine.main(["--mesh", os.path.join(out, "m.obj"), "--video",
+                 os.path.join(out, "f.npy"), "--output", os.path.join(out, "r"),
+                 "--iters", "2", "--num-opt-views", "2", "--device", "cpu"])
+    assert Mesh(v, f).auto_uv().uvs is not None
+    n = 64
+    save_ply(os.path.join(out, "g.ply"), dict(
+        xyz=rs.randn(n, 3).astype(np.float32) * 0.3, f_dc=rs.rand(n, 1, 3).astype(np.float32),
+        f_rest=np.zeros((n, 0, 3), np.float32), opacity=np.ones((n, 1), np.float32),
+        scaling=np.full((n, 3), -2.5, np.float32), rotation=rs.randn(n, 4).astype(np.float32),
+        alive=np.ones(n, bool)))
+    mesh, timings = gs_to_mesh.distill(os.path.join(out, "g.ply"), os.path.join(out, "d"),
+                                       n_views=2, fit_steps=1, rays_per_step=32,
+                                       resolution=16, mc_resolution=8, refine_iters=1,
+                                       device="cpu")
+    assert "fit_s" in timings
+    sd = DPT().init_(torch.Generator().manual_seed(0)).state_dict()
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+               os.path.join(out, "dpt.ckpt"))
+    predict = load_dpt_normal_predictor(os.path.join(out, "dpt.ckpt"), infer_size=64,
+                                        device="cpu")
+    assert predict(np.full((1, 48, 48, 3), 0.5, np.float32)).shape == (1, 48, 48, 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -179,3 +224,12 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert _last_json(out.stdout) is None
+
+
+def test_refine_gs_to_mesh_and_dpt_run_without_jax():
+    """The refine CLI, ``auto_uv``, a tiny ``gs_to_mesh.distill`` and the
+    DPT loader on a seeded .ckpt, in a fresh interpreter with no jax."""
+    out = subprocess.run([sys.executable, "-c", _MESH_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout

@@ -10,6 +10,11 @@ mesh and colours its vertices from the radiance field.
 (T, H, W, 3) frames.  Outputs: ``DIR/mesh.obj``, ``DIR/mesh.glb`` and
 ``DIR/config.json``; an empty isosurface (a degenerate fit) writes no mesh.
 
+Normal supervision, first found: ``--normals`` (world normals), the DPT
+predictor's normals from ``--dpt-weights`` or ``$V3D_TPU_DPT_WEIGHTS`` (the
+Omnidata .ckpt or the JAX package's .npz; the reference's default), the
+silhouette's weak normals with ``--silhouette-normals``, else none.
+
 The recipe follows the JAX CLI's backend switch (recon_neus.py:81-97).  On
 the card: frequency encoding with its mask over the first half of the
 steps, the exact SDF gradient, a 128 x 4 geometry MLP, 64 coarse probes
@@ -70,14 +75,17 @@ def reconstruct(frames: np.ndarray, output: str, max_steps: int = 3000,
                 cam_radius: float = 2.0, elevation: float = 0.0,
                 mc_resolution: int = 384,
                 normals: Union[None, str, np.ndarray] = None,
+                dpt_weights: Optional[str] = None,
                 silhouette_normals: bool = False, seed: int = 0,
                 log_every: int = 100, log_fn: Optional[Callable[[Dict], None]] = None,
                 train_steps: Optional[int] = None, device="cuda",
                 config_overrides: Optional[Dict] = None):
     """Fit NeuS to ``frames`` (T, H, W, 3), uint8 or float in [0, 1], and
     export the mesh under ``output``.  ``normals``: (T, H, W, 3) world
-    normals or an .npy of them; ``silhouette_normals``: the weak normals
-    of ``nerf.normals.normals_from_mask_distance`` instead.  The schedules
+    normals or an .npy of them; else ``dpt_weights`` (default
+    ``$V3D_TPU_DPT_WEIGHTS``): the DPT predictor's normals on ``device``,
+    lifted to world space; else ``silhouette_normals``: the weak normals
+    of ``nerf.normals.normals_from_mask_distance``.  The schedules
     follow ``max_steps``; ``train_steps`` (default ``max_steps``) cuts
     the run.  ``log_fn(stats)`` runs every ``log_every`` steps (default:
     print the losses).  Returns (trainer, mesh, seconds per stage)."""
@@ -90,6 +98,22 @@ def reconstruct(frames: np.ndarray, output: str, max_steps: int = 3000,
     poses = get_uniform_poses(t, cam_radius, elevation, opengl=True)
     if isinstance(normals, str):
         normals = np.load(normals)
+    elif normals is None and (dpt_weights or os.environ.get("V3D_TPU_DPT_WEIGHTS")):
+        # the reference's default: DPT Omnidata normals -> world frame
+        # (mesh_recon/datasets/v3d.py:173-205)
+        from v3d_tpu_torch.nerf.normals import (
+            dpt_world_normals,
+            load_dpt_normal_predictor,
+        )
+
+        predict = load_dpt_normal_predictor(dpt_weights, device=device)
+        if predict is None:
+            raise FileNotFoundError(f"no DPT weights at "
+                                    f"{dpt_weights or os.environ['V3D_TPU_DPT_WEIGHTS']}")
+        normals = dpt_world_normals(predict(frames), fg, poses)
+        del predict   # the DPT's weights and activations leave the card
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
     elif normals is None and silhouette_normals:
         from v3d_tpu_torch.nerf.normals import normals_from_mask_distance
 
@@ -148,14 +172,18 @@ def main(argv=None):
     p.add_argument("--mc-resolution", type=int, default=384)
     p.add_argument("--normals", default=None,
                    help="optional (T,H,W,3) world-space normals .npy")
+    p.add_argument("--dpt-weights", default=None,
+                   help="Omnidata DPT .ckpt or converted .npz for normal "
+                        "supervision (default: $V3D_TPU_DPT_WEIGHTS)")
     p.add_argument("--silhouette-normals", action="store_true",
                    help="opt-in weak normals from the silhouette distance "
-                        "transform")
+                        "transform (no DPT weights needed)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)
     reconstruct(read_frames(args.frames), args.output, args.max_steps,
                 mc_resolution=args.mc_resolution, normals=args.normals,
+                dpt_weights=args.dpt_weights,
                 silhouette_normals=args.silhouette_normals, device=args.device)
 
 

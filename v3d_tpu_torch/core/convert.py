@@ -26,14 +26,18 @@ import torch
 
 from v3d_tpu_torch.core import keymap
 
-KINDS = ("unet", "vae_encoder", "vae_video_decoder", "clip")
+KINDS = ("unet", "vae_encoder", "vae_video_decoder", "clip", "dpt")
 
 KEY_MAPS = {
     "unet": keymap.convert_unet_key,
     "vae_encoder": lambda k: keymap.convert_vae_key(k, False),
     "vae_video_decoder": lambda k: keymap.convert_vae_key(k, True),
     "clip": keymap.convert_clip_key,
+    "dpt": keymap.convert_dpt_key,
 }
+# keys a module holds (to load its checkpoint strictly) that its forward
+# never reads: a Flax tree may lack them, and then they keep the module's
+UNUSED = {"dpt": keymap.DPT_UNUSED}
 
 _INVERSES = {
     keymap.linear_w: lambda a: a.T,
@@ -54,19 +58,27 @@ def state_dict_from_jax(flax_params: Mapping, kind: str,
                         module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Flax params (numpy leaves, with or without the top "params" level) ->
     a state dict for ``module`` (one of VideoUNet, Encoder, VideoDecoder,
-    CLIPVisionTransformer, as ``kind`` says), float32 on the CPU.  Raises
-    on a key the map does not know, a missing leaf or a shape mismatch."""
+    CLIPVisionTransformer, DPT, as ``kind`` says), float32 on the CPU.
+    Raises on a key the map does not know, a missing leaf or a shape
+    mismatch; a key of ``UNUSED[kind]`` without a leaf keeps the module's
+    value."""
     key_map = _key_map(kind)
+    unused = UNUSED.get(kind)
     tree = flax_params.get("params", flax_params)
     out = {}
     for key, ref in module.state_dict().items():
         mapped = key_map(key)
+        leaf = tree
+        for p in mapped[0] if mapped is not None else ():
+            leaf = leaf.get(p) if isinstance(leaf, Mapping) else None
+        if (mapped is None or leaf is None) and unused is not None and unused.match(key):
+            out[key] = ref.detach().float().cpu().clone()
+            continue
         if mapped is None:
             raise KeyError(f"{kind}: no Flax path for {key!r}")
         path, fn = mapped
-        leaf = tree
-        for p in path:
-            leaf = leaf[p]
+        if leaf is None:
+            raise KeyError(f"{kind}: no Flax leaf {'/'.join(path)} for {key!r}")
         arr = _INVERSES[fn](np.asarray(leaf, dtype=np.float32))
         if arr.shape != tuple(ref.shape):
             raise ValueError(f"{kind}: {key} is {arr.shape} from Flax, "

@@ -1,11 +1,13 @@
 """Checkpoint key maps: each torch state-dict key of the VideoUNet, the VAE
-encoder / temporal decoder and the CLIP vision tower -> (Flax param path,
-transform of the torch tensor into the Flax leaf).
+encoder / temporal decoder, the CLIP vision tower and the DPT normal
+predictor -> (Flax param path, transform of the torch tensor into the Flax
+leaf).
 
-A copy of the key maps of the JAX package's ``core/convert.py`` (:25-409),
-kept here so that the port imports nothing of that package.  The entry points
-are ``convert_unet_key``, ``convert_vae_key`` and ``convert_clip_key``; each
-returns None for a key it does not know.
+A copy of the key maps of the JAX package's ``core/convert.py`` (:25-409,
+:436-537), kept here so that the port imports nothing of that package.  The
+entry points are ``convert_unet_key``, ``convert_vae_key``,
+``convert_clip_key`` and ``convert_dpt_key``; each returns None for a key
+it does not know.
 
 - Linear:  torch (out, in)            -> flax kernel (in, out)      [transpose]
 - Conv2d:  torch (O, I, kh, kw)       -> flax kernel (kh, kw, I, O)
@@ -338,4 +340,103 @@ def convert_clip_key(k: str):
         if mm:
             p, f = _map_linear(mm.group(1), mm.group(2))
             return prefix + p, f
+    return None
+
+
+# ---------------------------------------------------------------------------
+# DPT (Omnidata normal predictor, mesh_recon/utils/dpt.py DPTDepthModel with
+# the vitb_rn50_384 backbone): omnidata_dpt_normal_v2.ckpt's keys, with the
+# Lightning "model." prefix stripped or not
+# ---------------------------------------------------------------------------
+
+# keys the forward never reads: the ViT's final LayerNorm (the hooks fire
+# before it, convert.py:457-458) and refinenet4's first residual unit (the
+# deepest fusion block has no skip input)
+DPT_UNUSED = re.compile(r"(model\.)?(pretrained\.model\.norm\.|"
+                        r"scratch\.refinenet4\.resConfUnit1\.)")
+
+
+def _dpt_gn(prefix: Tuple[str, ...], param: str) -> Tuple[str, ...]:
+    return prefix + ("GroupNorm_0", {"weight": "scale", "bias": "bias"}[param])
+
+
+def _map_dpt_backbone(rest, pre: Tuple[str, ...]):
+    """pretrained.model.* (timm vit_base_resnet50_384) after the prefix."""
+    if rest[0] in ("cls_token", "pos_embed") and len(rest) == 1:
+        return pre + (rest[0],), t2j
+    if rest[0] == "patch_embed" and rest[1] == "proj":
+        p, f = _map_conv("patch_proj", rest[2])
+        return pre + p, f
+    if rest[:2] == ["patch_embed", "backbone"]:
+        bb = pre + ("backbone",)
+        if rest[2] == "stem":
+            if rest[3] == "conv":
+                return bb + ("stem_conv", "kernel"), conv2_w
+            return _dpt_gn(bb + ("stem_norm",), rest[4]), t2j
+        if rest[2] == "stages" and rest[4] == "blocks":
+            blk = bb + (f"stage{rest[3]}_block{rest[5]}",)
+            name = rest[6]
+            if name.startswith("conv"):
+                return blk + (name, "kernel"), conv2_w
+            if name.startswith("norm"):
+                return _dpt_gn(blk + (name,), rest[7]), t2j
+            if name == "downsample" and rest[7] == "conv":
+                return blk + ("down_conv", "kernel"), conv2_w
+            if name == "downsample" and rest[7] == "norm":
+                return _dpt_gn(blk + ("down_norm",), rest[8]), t2j
+        return None
+    if rest[0] == "blocks":
+        blk = pre + (f"vit_block{rest[1]}",)
+        name = rest[2]
+        if name in ("norm1", "norm2"):
+            return blk + (name, {"weight": "scale", "bias": "bias"}[rest[3]]), t2j
+        if name == "attn":
+            p, f = _map_linear({"qkv": "qkv", "proj": "attn_proj"}[rest[3]], rest[4])
+            return blk + p, f
+        if name == "mlp":
+            p, f = _map_linear(rest[3], rest[4])
+            return blk + p, f
+    return None
+
+
+def convert_dpt_key(key: str):
+    """A DPTDepthModel key -> (Flax path in models.dpt.DPT's tree,
+    transform) as ``convert_dpt`` maps it; None for the unused final norm
+    and for a key it does not know."""
+    if key.startswith("model."):
+        key = key[6:]
+    parts = key.split(".")
+    if key.startswith("pretrained.model.norm."):
+        return None
+    if key.startswith("pretrained.model."):
+        return _map_dpt_backbone(parts[2:], ("pretrained",))
+    m = re.match(r"pretrained\.act_postprocess([34])\.(\d+)\.(.*)$", key)
+    if m:
+        n, i, rest = m.groups()
+        if i == "0":   # ProjectReadout: .project.0 is the Linear
+            mm = re.match(r"project\.0\.(weight|bias)$", rest)
+            p, f = _map_linear(f"readout{n}_proj", mm.group(1)) if mm else (None, None)
+        elif i == "3":   # 1x1 conv
+            p, f = _map_conv(f"post{n}_conv", rest)
+        elif i == "4" and n == "4":   # 3x3 stride-2 conv
+            p, f = _map_conv("post4_down", rest)
+        else:
+            return None
+        return (("pretrained",) + p, f) if p else None
+    m = re.match(r"scratch\.(layer[1-4]_rn)\.weight$", key)
+    if m:
+        return (m.group(1), "kernel"), conv2_w
+    m = re.match(r"scratch\.(refinenet[1-4])\.out_conv\.(weight|bias)$", key)
+    if m:
+        p, f = _map_conv("out_conv", m.group(2))
+        return (m.group(1),) + p, f
+    m = re.match(r"scratch\.(refinenet[1-4])\.resConfUnit([12])\.(conv[12])\."
+                 r"(weight|bias)$", key)
+    if m:
+        p, f = _map_conv(m.group(3), m.group(4))
+        return (m.group(1), "rcu" + m.group(2)) + p, f
+    m = re.match(r"scratch\.output_conv\.([024])\.(weight|bias)$", key)
+    if m:
+        head = {"0": "head_conv1", "2": "head_conv2", "4": "head_conv3"}[m.group(1)]
+        return _map_conv(head, m.group(2))
     return None

@@ -1,9 +1,9 @@
 """Orbit cameras in the 3DGS convention (numpy, host side).
 
-A copy of the JAX package's ``data/cameras.py`` (:18-158): orbit pose
+A copy of the JAX package's ``data/cameras.py`` (:18-166): orbit pose
 generation (z-up look-at, OpenCV convention with optional OpenGL flip),
 world2view / perspective projection as in the 3DGS code, and the per-pixel
-ray directions of NeuS.  Matrices are stored transposed (row-vector
+ray directions and world rays of NeuS.  Matrices are stored transposed (row-vector
 convention) and handed to the renderer as they are.
 """
 
@@ -156,3 +156,12 @@ def get_ray_directions(height: int, width: int, focal: float,
     dirs = np.stack([(i - cx) / focal, -(j - cy) / focal,
                      -np.ones_like(i)], axis=-1)
     return dirs.astype(np.float32)
+
+
+def get_rays(directions: np.ndarray, c2w: np.ndarray):
+    """(ray_origins, ray_dirs) in world space; dirs normalized
+    (ray_utils.py:40-56)."""
+    rays_d = directions @ c2w[:3, :3].T
+    rays_d = rays_d / (np.linalg.norm(rays_d, axis=-1, keepdims=True) + 1e-12)
+    rays_o = np.broadcast_to(c2w[:3, 3], rays_d.shape)
+    return np.ascontiguousarray(rays_o, dtype=np.float32), rays_d.astype(np.float32)

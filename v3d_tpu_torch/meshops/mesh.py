@@ -1,10 +1,11 @@
 """Mesh container and IO (counterpart of v3d_tpu/meshops/mesh.py, the
 replacement for the vendored kiui Mesh, mesh_recon/mesh.py:10-845, and the
-trimesh export of refine.py:248-256), without ``auto_uv``.
+trimesh export of refine.py:248-256).
 
 OBJ (+ vertex colours), PLY and minimal GLB 2.0 with struct and json only;
-``auto_normal`` matches mesh.py:460-483 (area-weighted vertex normals).  The
-files are byte for byte those of the JAX package's ``Mesh``."""
+``auto_normal`` matches mesh.py:460-483 (area-weighted vertex normals) and
+``auto_uv`` mesh.py:485-523 with ``meshops.uv.atlas_unwrap`` in place of
+xatlas.  The files are byte for byte those of the JAX package's ``Mesh``."""
 
 from __future__ import annotations
 
@@ -22,7 +23,39 @@ class Mesh:
     faces: np.ndarray                    # (F, 3) int32
     vertex_colors: Optional[np.ndarray] = None   # (V, 3) float in [0,1]
     vertex_normals: Optional[np.ndarray] = None  # (V, 3)
-    uvs: Optional[np.ndarray] = None             # (V, 2)
+    uvs: Optional[np.ndarray] = None             # (V, 2) after auto_uv(vmap)
+
+    def auto_uv(self, cache_path: Optional[str] = None,
+                vmap: bool = True) -> "Mesh":
+        """UV atlas unwrap (kiui Mesh.auto_uv semantics).  With ``vmap`` the
+        vertex arrays are remapped so every vertex has a unique uv
+        (chart-boundary vertices get duplicated), as GLTF-style export
+        needs; ``cache_path`` keeps the atlas in ``<path>_uv.npz``."""
+        import os
+
+        from v3d_tpu_torch.meshops.uv import atlas_unwrap
+
+        if cache_path is not None:
+            cache_path = os.path.splitext(cache_path)[0] + "_uv.npz"
+        if cache_path is not None and os.path.exists(cache_path):
+            data = np.load(cache_path)
+            vt, ft, vmapping = data["vt"], data["ft"], data["vmapping"]
+        else:
+            vmapping, ft, vt = atlas_unwrap(self.vertices, self.faces)
+            if cache_path is not None:
+                np.savez(cache_path, vt=vt, ft=ft, vmapping=vmapping)
+        if vmap:
+            self.vertices = self.vertices[vmapping]
+            if self.vertex_colors is not None:
+                self.vertex_colors = self.vertex_colors[vmapping]
+            if self.vertex_normals is not None:
+                self.vertex_normals = self.vertex_normals[vmapping]
+            self.faces = ft.astype(np.int32)
+            self.uvs = vt.astype(np.float32)
+        else:
+            self.uvs = vt.astype(np.float32)
+            self._ft = ft
+        return self
 
     def auto_normal(self) -> "Mesh":
         v, f = self.vertices, self.faces

@@ -1,6 +1,10 @@
-"""Normal supervision for NeuS (counterpart of v3d_tpu/nerf/normals.py
-without the DPT predictor, whose weights are not in the repository).
+"""Normal supervision for NeuS (counterpart of v3d_tpu/nerf/normals.py).
 
+- ``load_dpt_normal_predictor``: the Omnidata DPT (``models.dpt``) from the
+  torch ``omnidata_dpt_normal_v2.ckpt`` (its ``state_dict``, keys with the
+  "model." prefix) or from the ``.npz`` of flattened Flax params that
+  ``save_dpt_params_npz`` writes (mapped back through the "dpt" key map);
+  the path defaults to ``$V3D_TPU_DPT_WEIGHTS``, the JAX loader's variable.
 - ``dpt_world_normals``: the coordinate chain of mesh_recon/datasets/
   v3d.py:173-205 applied to DPT outputs (midas -> blender -> OpenCV ->
   world), numpy.
@@ -16,7 +20,11 @@ without the DPT predictor, whose weights are not in the repository).
 
 from __future__ import annotations
 
+import os
+from typing import Callable, Optional
+
 import numpy as np
+import torch
 
 
 def inv_RT(RT: np.ndarray) -> np.ndarray:
@@ -131,3 +139,63 @@ def normals_from_mask_distance(masks: np.ndarray, c2ws: np.ndarray) -> np.ndarra
         n_world = n_cam @ c2w[:3, :3].T
         out.append(np.where(m[..., None] > 0, n_world, 0.0))
     return np.stack(out).astype(np.float32)
+
+
+def load_dpt_normal_predictor(weights_path: Optional[str] = None,
+                              infer_size: int = 384, batch_size: int = 6,
+                              device="cuda") -> Optional[Callable]:
+    """predict(images (N, H, W, 3) in [0, 1]) -> normals (N, H, W, 3) in [0,
+    1], midas camera space (the reference wrapper's output, mesh_recon/
+    utils/dpt.py:1036-1069), in batches of ``batch_size`` at
+    ``infer_size``^2; or None when no weights file is there."""
+    path = weights_path or os.environ.get("V3D_TPU_DPT_WEIGHTS", "")
+    if not path or not os.path.exists(path):
+        return None
+    from v3d_tpu_torch.core.convert import state_dict_from_jax
+    from v3d_tpu_torch.models.dpt import DPT, dpt_normal_inference
+
+    model = DPT(num_channels=3)
+    if path.endswith(".npz"):
+        flat = np.load(path)
+        tree: dict = {}
+        for key in flat.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
+        state = state_dict_from_jax(tree, "dpt", model)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        state = {k[6:] if k.startswith("model.") else k: v
+                 for k, v in ckpt.get("state_dict", ckpt).items()}
+    model.load_state_dict(state)
+    model.to(torch.device(device)).eval()
+
+    @torch.no_grad()
+    def predict(images: np.ndarray) -> np.ndarray:
+        images = np.asarray(images, np.float32)
+        out = []
+        for i in range(0, images.shape[0], batch_size):
+            chunk = torch.tensor(images[i:i + batch_size], device=device)
+            out.append(dpt_normal_inference(model, chunk, infer_size).cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    return predict
+
+
+def save_dpt_params_npz(params: dict, path: str) -> None:
+    """Flatten a (converted) Flax DPT param tree into an npz, keys joined
+    by "/" (the JAX package's file, read by either loader)."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(params, "")
+    np.savez(path, **flat)
