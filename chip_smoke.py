@@ -2,6 +2,7 @@
 """Smoke test of the v3d_tpu_torch port on one NVIDIA H100.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --phases 1,2,5,16   # some of them
 
 Phases, each printing lines before the last:
 
@@ -86,11 +87,27 @@ Phases, each printing lines before the last:
 15. the DPT normal predictor at full width from seeded weights written as
     an Omnidata .ckpt: phase 11's 18 frames (inference at 384^2), ms per
     frame, peak memory, one frame against the CPU, then 100 NeuS steps of
-    ``reconstruct(..., dpt_weights=...)``.
+    ``reconstruct(..., dpt_weights=...)``;
+16. the generation path's other entry points, on phase 5's engine (after
+    phase 10): ``img2img_latents`` at strength 0.6 (15 of 25 steps) from
+    the latents of phase 5's last frames; the Heun, Euler ancestral,
+    DPM++(2S) ancestral, DPM++(2M) and LMS samplers at 8 steps through
+    ``sample_latents`` (UNet forwards 15, 8, 15, 8, 8) and, with Euler, on
+    a closed-form denoiser, card against CPU; the U2Net matte that
+    ``preprocess_image`` takes from a seeded full U2Net .pth in
+    ``$V3D_U2NET_CKPT`` (ms per matte, against the CPU's alpha); the
+    safety filter with a seeded ViT-L/14 and seeded heads on phase 5's 18
+    frames (features against the CPU on 2) and the watermark round trip;
+17. ``apps.recon_gs_iterative.train_iterative`` on phase 5's synthetic
+    image as a PNG with its own full-width engine (seeded weights), cut
+    to 500 iterations with resamples at 300 and 450: seconds per stage,
+    ms per fit step, alive count, peak memory, the PLY.
 
-Each path (phases 5, 6, 8, each run of 9, 11 and 14) is run with the launch
-counts set to 0 just before it and read just after (phase 12: each stage's
-launches, the counters read before and after it); a kernel of the path launched
+Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, and 17)
+is run with the launch counts set to 0 just before it and read just after
+(phase 12: each stage's launches, the counters read before and after it);
+phases 16 and 17 add theirs to what the JSON line reports for K1-K6.  A
+kernel of the path launched
 no time, or another number of times than the path needs (counted from the
 modules and their routing rules, see ``unet_sites``), fails the run.
 Then one JSON line with every kernel's numbers, and last the line
@@ -1478,7 +1495,7 @@ def phase_generate(engine, requests: int = 2, phase: str = "5 generate") -> dict
             raise SmokeFailure(f"request {r}: frames {frames.shape}, "
                                f"launches {counts}")
         out = {"launches": counts, "timings": timings, "peak_gib": peak,
-               "seconds": wall}
+               "seconds": wall, "frames": frames}
     return out
 
 
@@ -2603,9 +2620,326 @@ def phase_dpt(neus: dict, dev="cuda") -> dict:
     return {"ms_per_frame": ms_frame}
 
 
+# phases 16-17: the generation path's other entry points
+IMG2IMG_STRENGTH = 0.6        # 15 of 25 steps
+SAMPLER_STEPS = 8             # each of the five other samplers (cut from 25)
+SAMPLER_FORWARDS = {"HeunEDMSampler": 2 * SAMPLER_STEPS - 1,
+                    "EulerAncestralSampler": SAMPLER_STEPS,
+                    "DPMPP2SAncestralSampler": 2 * SAMPLER_STEPS - 1,
+                    "DPMPP2MSampler": SAMPLER_STEPS,
+                    "LinearMultistepSampler": SAMPLER_STEPS}
+SAMPLER_CPU_MAX_REL = 1e-5    # closed-form denoiser, card vs CPU, same draws
+U2NET_CPU_MAX_ALPHA = 1       # of 255: the card's matte vs the CPU's
+SAFETY_CPU_MAX_ABS = 1e-3     # ViT-L/14 features, card vs CPU (2 frames)
+SAFETY_CPU_FRAMES = 2
+# the JAX CLI's 4000 / 1000 / 500 cut to two resamples before the fit's first
+# densify event (iteration 600): at 1000 / 400 / 250 the seeded engine's
+# noise frames let every gaussian be pruned by then (ROADMAP C12)
+ITER_ITERS, ITER_START, ITER_PERIOD = 500, 200, 150
+
+
+def _scaled(launches: dict, n: int) -> dict:
+    return {k: n * v for k, v in launches.items()}
+
+
+def _summed(*launches: dict) -> dict:
+    out = {name: 0 for name in KERNELS}
+    for d in launches:
+        for k, v in d.items():
+            out[k] += v
+    return out
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after; (result, counts, seconds)."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def phase_gen_entry_points(engine, gen: dict) -> dict:
+    """The generation path's other entry points on phase 5's engine:
+    img2img from the latents of phase 5's last frames, the five other
+    samplers (UNet forwards and launches exact; each also against the CPU on
+    a closed-form denoiser), the U2Net matte inside ``preprocess_image`` from
+    a seeded full U2Net .pth, and the safety filter and watermark with a
+    seeded ViT-L/14 and seeded heads."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch import diffusion as D
+    from v3d_tpu_torch.data import preprocess
+    from v3d_tpu_torch.engines.video_diffusion import img2img_latents
+
+    phase = "16 gen entry points"
+    if "frames" not in gen:
+        raise SmokeFailure("phase 16 starts from phase 5's frames: run phase 5 too")
+    t_phase = time.perf_counter()
+    dev, t = engine.device, engine.num_frames
+    per_fwd = forward_launches(engine.unet)
+    launches = {name: 0 for name in KERNELS}
+    gen_rng = torch.Generator(device=dev).manual_seed(16)
+    res = gen["frames"].shape[1]
+    image = preprocess.preprocess_image(synthetic_image(), resolution=res, device=dev)
+    clip_emb, cond = engine.encode_image(torch.from_numpy(image)[None], 0.02,
+                                         generator=gen_rng)
+    c, uc = engine.build_cond(clip_emb, cond, 1, 300, 0.02)
+    frames = torch.from_numpy(gen["frames"]).to(dev).float() / 127.5 - 1
+    z0 = engine.encode_first_stage(frames, generator=gen_rng)
+
+    # (a) img2img at strength 0.6: round(25 * 0.6) = 15 forwards
+    run_steps = round(engine.sampler.num_steps * IMG2IMG_STRENGTH)
+    z, counts, secs = _counted(lambda: img2img_latents(
+        engine, z0, c, uc, IMG2IMG_STRENGTH, generator=gen_rng))
+    expect = _scaled(per_fwd, run_steps)
+    ok = counts == expect and bool(torch.isfinite(z).all()) and not torch.equal(z, z0)
+    say(phase, f"img2img_latents strength {IMG2IMG_STRENGTH} of "
+        f"{engine.sampler.num_steps} steps ({run_steps} run) from phase 5's last "
+        f"frames' latents {tuple(z0.shape)}: {secs:.3f} s | max |out - init| "
+        f"{float((z - z0).abs().max()):.3f} | launches { {k: v for k, v in counts.items() if v} } "
+        f"(expect { {k: v for k, v in expect.items() if v} }) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"img2img: launches {counts}, finite {bool(torch.isfinite(z).all())}")
+    launches = _summed(launches, counts)
+
+    # (b) the five other samplers through the engine, then each sampler and
+    # Euler on a closed-form denoiser, card against CPU
+    noise = torch.randn(z0.shape, device=dev, generator=gen_rng)
+    for name, forwards in SAMPLER_FORWARDS.items():
+        sampler = getattr(D, name)(discretization=engine.sampler.discretization,
+                                   num_steps=SAMPLER_STEPS, guider=engine.sampler.guider)
+        if name == "LinearMultistepSampler":  # its host table, scipy's import included
+            t0 = time.perf_counter()
+            sampler.coeff_table(sampler.schedule())
+            say(phase, f"LMS coefficient table (scipy quad on the host, first call): "
+                f"{time.perf_counter() - t0:.3f} s")
+        eng = dataclasses.replace(engine, sampler=sampler)
+        out, counts, secs = _counted(lambda: eng.sample_latents(
+            c, uc, res, res, noise=noise, generator=gen_rng))
+        expect = _scaled(per_fwd, forwards)
+        ok = counts == expect and bool(torch.isfinite(out).all())
+        say(phase, f"{name} {SAMPLER_STEPS} steps through sample_latents: {secs:.3f} s, "
+            f"{forwards} UNet forwards | launches { {k: v for k, v in counts.items() if v} } "
+            f"(expect { {k: v for k, v in expect.items() if v} }) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"{name}: launches {counts}")
+        launches = _summed(launches, counts)
+    cpu_gen = torch.Generator().manual_seed(17)
+    x_cpu = torch.randn(z0.shape, generator=cpu_gen)
+    draws = [torch.randn(z0.shape, generator=cpu_gen) for _ in range(SAMPLER_STEPS)]
+
+    def closed_form(x, s, cond):
+        return x / (1.0 + s[:, None, None, None] ** 2)
+
+    rows = []
+    for name in ["EulerEDMSampler"] + list(SAMPLER_FORWARDS):
+        sampler = getattr(D, name)(discretization=engine.sampler.discretization,
+                                   num_steps=SAMPLER_STEPS)
+        ref = sampler(closed_form, x_cpu, {}, noises=draws)
+        got = sampler(closed_form, x_cpu.to(dev), {}, noises=[d.to(dev) for d in draws])
+        rel = float((got.cpu() - ref).abs().max() / ref.abs().max())
+        rows.append((name, rel))
+    ok = all(r <= SAMPLER_CPU_MAX_REL for _, r in rows)
+    say(phase, "closed-form denoiser x / (1 + s^2), card vs CPU, same draws, max rel: "
+        + ", ".join(f"{n} {r:.2e}" for n, r in rows)
+        + f" (<= {SAMPLER_CPU_MAX_REL:g}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"samplers card vs CPU: {rows}")
+
+    # (c) U2Net: a seeded full model in U-2-Net's naming on disk
+    from torch import nn
+
+    from v3d_tpu_torch.models.u2net import U2Net, load_u2net
+
+    torch.manual_seed(16)
+    u2 = U2Net(small=False)
+    with torch.no_grad():
+        for m in u2.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n))
+                m.bias.copy_(0.1 * torch.randn(n))
+                m.running_mean.copy_(0.1 * torch.randn(n))
+                m.running_var.copy_(0.5 + torch.rand(n))
+    n_params = sum(p.numel() for p in u2.parameters())
+    rgb = synthetic_image()[..., :3]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "u2net.pth")
+        torch.save(u2.state_dict(), path)
+        del u2
+        os.environ["V3D_U2NET_CKPT"] = path
+        preprocess._DEFAULT_MATTE.clear()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            img = preprocess.preprocess_image(synthetic_image(), ignore_alpha=True,
+                                              device=dev)
+            remove_bg = preprocess.default_remove_bg(dev)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rgba = remove_bg(rgb)
+                times.append(1e3 * (time.perf_counter() - t0))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            cpu_rgba = load_u2net(path, device="cpu")(rgb)
+        finally:
+            del os.environ["V3D_U2NET_CKPT"]
+            preprocess._DEFAULT_MATTE.clear()
+    diff = int(np.abs(rgba[..., 3].astype(int) - cpu_rgba[..., 3].astype(int)).max())
+    ok = (remove_bg is not None and img.shape == (512, 512, 3) and bool(np.isfinite(img).all())
+          and diff <= U2NET_CPU_MAX_ALPHA)
+    say(phase, f"U2Net (full, {n_params:,} parameters, seeded) from $V3D_U2NET_CKPT: "
+        f"preprocess_image(ignore_alpha=True) mattes with it on the card; matte of a "
+        f"512^2 image (inference at 320^2) {statistics.median(times):.3f} ms (median of "
+        f"5, host clock, synchronised) | peak {peak:.2f} GiB | alpha [{rgba[..., 3].min()}, "
+        f"{rgba[..., 3].max()}] vs the CPU's max diff {diff} (<= {U2NET_CPU_MAX_ALPHA}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"U2Net matte: alpha differs by {diff} from the CPU's")
+
+    # (d) the safety filter (seeded ViT-L/14 and heads) and the watermark
+    from v3d_tpu_torch.engines.builder import seeded_init_
+    from v3d_tpu_torch.models.clip_vit import CLIPVisionTransformer
+    from v3d_tpu_torch.utils import safety
+
+    with torch.device("meta"):
+        vit = CLIPVisionTransformer(**safety.VIT_L_CONFIG)
+    vit = seeded_init_(vit.to_empty(device=dev), 16).eval().requires_grad_(False)
+    vit_cpu = CLIPVisionTransformer(**safety.VIT_L_CONFIG).eval().requires_grad_(False)
+    vit_cpu.load_state_dict(vit.state_dict())
+    images = gen["frames"].astype(np.float32) / 255.0
+    rs = np.random.RandomState(16)
+    # seeded head weights; biases set between sorted logits of these frames
+    # so that some frames are flagged (p: 9 of 18) and the blur runs
+    logits = safety.DeepFloydDataFiltering(clip=vit).features(images)
+    with tempfile.TemporaryDirectory() as d:
+        for head, keep in (("p_head_v1.npz", len(images) // 2), ("w_head_v1.npz", len(images) - 1)):
+            w = rs.randn(safety.VIT_L_CONFIG["output_dim"]).astype(np.float32)
+            z = np.sort(logits @ w)
+            np.savez(os.path.join(d, head), weights=w,
+                     biases=np.float32(-(z[keep - 1] + z[keep]) / 2))
+        os.environ["V3D_TPU_SAFETY_HEADS"] = d
+        try:
+            filt = safety.DeepFloydDataFiltering(clip=vit)
+            filt_cpu = safety.DeepFloydDataFiltering(clip=vit_cpu)
+        finally:
+            del os.environ["V3D_TPU_SAFETY_HEADS"]
+    filt(images[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = filt.features(images)
+    feat_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = filt(images)
+    filt_ms = 1e3 * (time.perf_counter() - t0)
+    flags = filt.flags(images)
+    feat_err = float(np.abs(feats[:SAFETY_CPU_FRAMES]
+                            - filt_cpu.features(images[:SAFETY_CPU_FRAMES])).max())
+    t0 = time.perf_counter()
+    marked = safety.embed_watermark(images)
+    marked8 = np.round(marked * 255).astype(np.uint8).astype(np.float32) / 255.0
+    bits = safety.extract_watermark(marked8)
+    wm_s = time.perf_counter() - t0
+    wm_ok = list(bits.astype(int)) == safety.WATERMARK_BITS
+    blurred = np.abs(out - images).max(axis=(1, 2, 3)) > 0
+    ok = (feat_err <= SAFETY_CPU_MAX_ABS and wm_ok and bool(np.isfinite(out).all())
+          and bool((blurred == flags).all()))
+    say(phase, f"safety filter, ViT-L/14 ({sum(p.numel() for p in vit.parameters()):,} "
+        f"parameters, seeded, f32) + seeded heads from $V3D_TPU_SAFETY_HEADS on phase 5's "
+        f"{len(images)} frames: features {feat_ms:.3f} ms, filter {filt_ms:.3f} ms "
+        f"(host clock), {int(flags.sum())} of {len(images)} flagged and blurred | features "
+        f"vs the CPU on {SAFETY_CPU_FRAMES} frames max abs {feat_err:.2e} (<= "
+        f"{SAFETY_CPU_MAX_ABS:g}) | watermark of {len(images)} frames through uint8: "
+        f"48 bits back {wm_ok} in {wm_s:.2f} s | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"safety: features {feat_err}, watermark {wm_ok}")
+    del vit, vit_cpu, filt, filt_cpu
+    torch.cuda.empty_cache()
+    say(phase, f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def _resample_iters() -> list:
+    return [i for i in range(ITER_ITERS) if i > ITER_START and i % ITER_PERIOD == 0]
+
+
+def iterative_launches(engine) -> dict:
+    """Launches of ``train_iterative`` at ITER_* on this engine's modules:
+    three generations (each one CLIP forward, one VAE encode, 25 UNet
+    forwards, one 18-frame decode), and per resample one more VAE encode
+    (of the 18 renders) and two more decoder calls (decoding_t 6); the fit's
+    K4 / K5 a step and K4 for the 18 orbit renders of each resample."""
+    resamples = len(_resample_iters())
+    enc = _summed(vae_sites(engine.vae_encoder, 64 * 64),
+                  {"group_norm": count_group_norms(engine.vae_encoder)})
+    dec = _summed(vae_sites(engine.vae_decoder, 64 * 64),
+                  {"group_norm": count_group_norms(engine.vae_decoder)})
+    out = _summed(_scaled(gen_launches(engine), 1 + resamples),
+                  _scaled(enc, resamples), _scaled(dec, 2 * resamples))
+    out.update(gs_composite_fwd=ITER_ITERS + engine.num_frames * resamples,
+               gs_composite_bwd=ITER_ITERS)
+    return out
+
+
+def phase_iterative(expect: dict, dev="cuda") -> dict:
+    """``apps.recon_gs_iterative.train_iterative`` on phase 5's synthetic
+    image written as a PNG, seeded weights (no checkpoint), its own
+    full-width engine; cut to ITER_ITERS iterations with resamples after
+    ITER_START every ITER_PERIOD; launches exact (``iterative_launches``)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from v3d_tpu_torch.apps.recon_gs_iterative import train_iterative
+    from v3d_tpu_torch.gs.ply import load_ply
+
+    phase = "17 iterative"
+    say(phase, f"cut: {ITER_ITERS} iterations, resamples after {ITER_START} every "
+        f"{ITER_PERIOD} (the JAX CLI's defaults: 4000 / 1000 / 500)")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        Image.fromarray(synthetic_image()).save(os.path.join(d, "in.png"))
+        (trainer, timings), counts, secs = _counted(lambda: train_iterative(
+            os.path.join(d, "in.png"), os.path.join(d, "out"), iterations=ITER_ITERS,
+            resample_period=ITER_PERIOD, resample_start=ITER_START, device=dev))
+        ply = load_ply(os.path.join(d, "out", "point_cloud.ply"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    alive = int(trainer.alive.sum())
+    ply_ok = len(ply["xyz"]) == alive > 0 and all(np.isfinite(v).all() for v in ply.values())
+    ok = counts == expect and len(timings["resample_s"]) == len(_resample_iters()) and ply_ok
+    say(phase, f"train_iterative: {secs:.2f} s | generate {timings['generate_s']:.2f} s "
+        f"(engine build included), fit {timings['fit_s']:.2f} s "
+        f"({1e3 * timings['fit_s'] / ITER_ITERS:.3f} ms a step), resamples "
+        f"{', '.join(f'{s:.2f}' for s in timings['resample_s'])} s | alive {alive} | "
+        f"peak {peak:.2f} GiB | PLY {len(ply['xyz'])} gaussians, finite {ply_ok} | launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in expect.items() if v} }) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"recon_gs_iterative: launches {counts}, resamples "
+                           f"{timings['resample_s']}, PLY ok {ply_ok}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -2623,14 +2957,17 @@ def main(argv=None) -> int:
     if 2 in phases:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
-    engine = build_engine(torch.device("cuda")) if phases & {4, 5, 9, 10, 12} else None
+    engine = (build_engine(torch.device("cuda"))
+              if phases & {4, 5, 9, 10, 12, 16, 17} else None)
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
     routes = phase_routes(engine) if 9 in phases else {}
     if 10 in phases:
         phase_checkpoint(engine, torch.device("cuda"))
+    entry = phase_gen_entry_points(engine, gen) if 16 in phases else {}
     gen_expect = gen_launches(engine) if 12 in phases else {}
+    iter_expect = iterative_launches(engine) if 17 in phases else {}
     del engine
     torch.cuda.empty_cache()
     fit = {}
@@ -2657,6 +2994,14 @@ def main(argv=None) -> int:
         kernel_checks.setdefault("gs_composite_fwd", []).append(gs_mesh["check"])
     if 15 in phases:
         phase_dpt(neus)
+    iterative = phase_iterative(iter_expect) if 17 in phases else {}
+    # phases 16-17 add their launches to the paths that report K1-K6
+    for name, path in KERNEL_PATH.items():
+        if path in ("gen", "fit") and (16 in phases or 17 in phases):
+            total = sum(p.get("launches", {}).get(name, 0)
+                        for p in (paths[path], entry, iterative))
+            paths[path] = {**paths[path], "launches": {**paths[path].get("launches", {}),
+                                                       name: total}}
 
     report = []
     for name, meta in KERNELS.items():

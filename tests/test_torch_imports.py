@@ -4,7 +4,9 @@ tiny generation, a tiny 3DGS fit and a tiny fine-tune step on the CPU, or
 the attention routes under every routing setting, or a tiny NeuS
 reconstruction, a tiny ``full_asset --mesh`` and a tiny ``--checkpoint``
 load, or the refine CLI, a tiny 3DGS -> mesh distillation and the DPT
-loader, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+loader, or the five other samplers, img2img, the U2Net matte in
+preprocess_image, the safety filter and a tiny recon_gs_iterative,
+loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -172,6 +174,60 @@ print("FOREIGN", bad)
 """
 
 
+_GENERATION_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+from PIL import Image
+import chip_smoke
+from v3d_tpu_torch import diffusion as D
+from v3d_tpu_torch.apps import generate, recon_gs_iterative
+from v3d_tpu_torch.data import preprocess
+from v3d_tpu_torch.engines.builder import build_tiny_engine
+from v3d_tpu_torch.engines.video_diffusion import img2img_latents
+from v3d_tpu_torch.models.clip_vit import CLIPVisionTransformer
+from v3d_tpu_torch.models.u2net import U2Net
+from v3d_tpu_torch.utils import safety
+
+x = torch.randn(2, 4, 4, 4)
+for cls in (D.HeunEDMSampler, D.EulerAncestralSampler, D.DPMPP2SAncestralSampler,
+            D.DPMPP2MSampler, D.LinearMultistepSampler):
+    out = cls(discretization=D.EDMDiscretization(), num_steps=3)(
+        lambda xx, s, c: xx / (1 + s[:, None, None, None] ** 2), x, {},
+        generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out).all(), cls
+eng = build_tiny_engine(num_frames=4, num_steps=4, device="cpu")
+frames, _, _ = generate.sample_one(chip_smoke.synthetic_image(96), engine=eng, resolution=64)
+z = eng.encode_first_stage(torch.from_numpy(frames / 127.5 - 1).float(),
+                           generator=torch.Generator().manual_seed(1))
+c, uc = eng.build_cond(torch.randn(1, 1, 64), z[:1], 1, 300, 0.02)
+assert img2img_latents(eng, z, c, uc, 0.5, generator=torch.Generator().manual_seed(2)).shape == z.shape
+with tempfile.TemporaryDirectory() as out:
+    torch.save(U2Net(small=True).state_dict(), os.path.join(out, "u2netp.pth"))
+    os.environ["V3D_U2NET_CKPT"] = os.path.join(out, "u2netp.pth")
+    img = preprocess.preprocess_image(chip_smoke.synthetic_image(64)[..., :3], resolution=32,
+                                      device="cpu")
+    assert preprocess.default_remove_bg("cpu").kind == "u2net" and img.shape == (32, 32, 3)
+    clip = CLIPVisionTransformer(width=32, layers=1, heads=2, patch_size=14, output_dim=8)
+    torch.nn.init.normal_(clip.proj)
+    np.savez(os.path.join(out, "p_head_v1.npz"), weights=np.ones(8, np.float32), biases=np.float32(0))
+    filt = safety.DeepFloydDataFiltering(head_dir=out, clip=clip)
+    assert filt(np.full((2, 28, 28, 3), 0.5, np.float32)).shape == (2, 28, 28, 3)
+    wm = safety.embed_watermark(np.full((1, 64, 64, 3), 0.5))
+    assert list(safety.extract_watermark(wm).astype(int)) == safety.WATERMARK_BITS
+    Image.fromarray(frames[0]).save(os.path.join(out, "in.png"))
+    recon_gs_iterative.sample_one = lambda *a, **k: (frames, eng, {})
+    trainer, timings = recon_gs_iterative.train_iterative(
+        os.path.join(out, "in.png"), os.path.join(out, "it"), iterations=4,
+        resample_period=2, resample_start=1, num_pts=40, device="cpu")
+    assert len(timings["resample_s"]) == 1
+    assert os.path.getsize(os.path.join(out, "it", "point_cloud.ply")) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -230,6 +286,16 @@ def test_refine_gs_to_mesh_and_dpt_run_without_jax():
     """The refine CLI, ``auto_uv``, a tiny ``gs_to_mesh.distill`` and the
     DPT loader on a seeded .ckpt, in a fresh interpreter with no jax."""
     out = subprocess.run([sys.executable, "-c", _MESH_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_generation_entry_points_run_without_jax():
+    """The five samplers beside Euler, img2img, ``preprocess_image`` with a
+    U2Net matte, the safety filter and watermark, and a tiny
+    ``recon_gs_iterative``, in a fresh interpreter with no jax."""
+    out = subprocess.run([sys.executable, "-c", _GENERATION_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

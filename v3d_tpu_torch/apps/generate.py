@@ -58,7 +58,8 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
             load_v3d_params(checkpoint, engine)
     dev = engine.device
     img = preprocess_image(image, border_ratio=border_ratio,
-                           resolution=resolution, ignore_alpha=ignore_alpha)
+                           resolution=resolution, ignore_alpha=ignore_alpha,
+                           device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     t0 = time.perf_counter()

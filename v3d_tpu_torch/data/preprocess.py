@@ -5,13 +5,16 @@ scripts/pub/V3D_512.py:200-227): matte -> recenter with a border margin
 Pure numpy, without cv2, computing what the JAX module computes with cv2
 (preprocess.py:46-47, :111-113): ``area_resize`` is ``cv2.INTER_AREA`` on
 the uint8 crop of ``recenter``, ``linear_resize`` is ``cv2.INTER_LINEAR``
-on the float32 image.  Matting uses the image's own alpha, or
-``luminance_matte``; a learned matting model comes with a later slice.
+on the float32 image.  Matting uses the image's own alpha, else the
+caller's ``remove_bg``, else the U2Net port when its weights are on disk
+(``default_remove_bg``), else ``luminance_matte``: the JAX package's order
+(preprocess.py:100).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import sys
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -133,15 +136,37 @@ def luminance_matte(image: np.ndarray, threshold: int = 250) -> np.ndarray:
     return np.concatenate([rgb.astype(np.uint8), alpha[..., None]], axis=-1)
 
 
+_DEFAULT_MATTE: Dict[str, Optional[Callable]] = {}  # lazy, one per device
+
+
+def default_remove_bg(device="cuda") -> Optional[Callable]:
+    """The production matting callable: the U2Net port (rembg's model,
+    ``models/u2net.py``) on ``device`` when its weights are on disk, else
+    None, said once on stderr (the caller then uses the luminance matte)."""
+    key = str(device)
+    if key not in _DEFAULT_MATTE:
+        from v3d_tpu_torch.models.u2net import load_u2net
+
+        fn = load_u2net(device=device)
+        if fn is None:
+            print("[preprocess] no U2Net weights found (ckpts/u2net*.pth or "
+                  "$V3D_U2NET_CKPT): background removal falls back to a "
+                  "near-white luminance matte", file=sys.stderr)
+        _DEFAULT_MATTE[key] = fn
+    return _DEFAULT_MATTE[key]
+
+
 def preprocess_image(image: np.ndarray, border_ratio: float = 0.3,
                      resolution: int = 512,
                      remove_bg: Optional[Callable] = None,
-                     ignore_alpha: bool = False) -> np.ndarray:
-    """(H, W, 3|4) uint8 -> (resolution, resolution, 3) float32 in [-1, 1]."""
+                     ignore_alpha: bool = False, device="cuda") -> np.ndarray:
+    """(H, W, 3|4) uint8 -> (resolution, resolution, 3) float32 in [-1, 1].
+    ``device`` runs the default matte (U2Net) where one is needed."""
     image = np.asarray(image)
     if border_ratio > 0:
         if image.shape[-1] != 4 or ignore_alpha:
-            rgba = (remove_bg or luminance_matte)(image[..., :3])
+            matte = remove_bg or default_remove_bg(device) or luminance_matte
+            rgba = matte(image[..., :3])
         else:
             rgba = image
         image = recenter(rgba, rgba[..., -1] > 0, border_ratio=border_ratio)

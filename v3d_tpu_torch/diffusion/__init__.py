@@ -1,14 +1,47 @@
-"""EDM diffusion math for sampling (counterpart of v3d_tpu/diffusion)."""
+"""EDM diffusion math (counterpart of v3d_tpu/diffusion): discretizations,
+scalings, guiders, sigma samplers, weightings, denoisers and samplers."""
 
-from v3d_tpu_torch.diffusion.denoise import Denoiser
-from v3d_tpu_torch.diffusion.discretize import EDMDiscretization
+from v3d_tpu_torch.diffusion.scaling import (
+    EDMScaling,
+    EpsScaling,
+    VScaling,
+    VScalingWithEDMcNoise,
+)
+from v3d_tpu_torch.diffusion.discretize import (
+    EDMDiscretization,
+    LegacyDDPMDiscretization,
+)
 from v3d_tpu_torch.diffusion.guidance import (
+    IdentityGuider,
+    VanillaCFG,
     LinearPredictionGuider,
     TrianglePredictionGuider,
 )
-from v3d_tpu_torch.diffusion.sampling import EulerEDMSampler
-from v3d_tpu_torch.diffusion.scaling import VScalingWithEDMcNoise
+from v3d_tpu_torch.diffusion.sigma_sampling import EDMSampling, DiscreteSampling
+from v3d_tpu_torch.diffusion.weighting import (
+    UnitWeighting,
+    EDMWeighting,
+    VWeighting,
+    EpsWeighting,
+)
+from v3d_tpu_torch.diffusion.denoise import Denoiser, DiscreteDenoiser
+from v3d_tpu_torch.diffusion.sampling import (
+    EulerEDMSampler,
+    HeunEDMSampler,
+    EulerAncestralSampler,
+    DPMPP2SAncestralSampler,
+    DPMPP2MSampler,
+    LinearMultistepSampler,
+    to_d,
+)
 
-__all__ = ["Denoiser", "EDMDiscretization", "EulerEDMSampler",
-           "LinearPredictionGuider", "TrianglePredictionGuider",
-           "VScalingWithEDMcNoise"]
+__all__ = [
+    "EDMScaling", "EpsScaling", "VScaling", "VScalingWithEDMcNoise",
+    "EDMDiscretization", "LegacyDDPMDiscretization", "IdentityGuider",
+    "VanillaCFG", "LinearPredictionGuider", "TrianglePredictionGuider",
+    "EDMSampling", "DiscreteSampling", "UnitWeighting", "EDMWeighting",
+    "VWeighting", "EpsWeighting", "Denoiser", "DiscreteDenoiser",
+    "EulerEDMSampler", "HeunEDMSampler", "EulerAncestralSampler",
+    "DPMPP2SAncestralSampler", "DPMPP2MSampler", "LinearMultistepSampler",
+    "to_d",
+]

@@ -1,8 +1,10 @@
 """Classifier-free guidance (counterpart of v3d_tpu/diffusion/guidance.py).
 
-The guider doubles the batch as [uncond, cond] (guidance.py:32-42) and
-recombines the two denoised halves with a per-frame scale over the
-``num_frames`` orbit views of the ``(b*t, ...)`` frame-major batch.
+A CFG guider doubles the batch as [uncond, cond] (guidance.py:32-42) and
+recombines the two denoised halves: ``VanillaCFG`` with one scale, the
+frame guiders with a per-frame scale over the ``num_frames`` orbit views of
+the ``(b*t, ...)`` frame-major batch.  ``IdentityGuider`` (the samplers'
+default) passes the batch through.
 """
 
 from __future__ import annotations
@@ -30,6 +32,27 @@ def _prepare_cfg_inputs(x, s, c: Cond, uc: Cond, extra_keys=()) -> Tuple:
         elif k != "rgb":  # pixelnerf rgb target: cond-only (guiders.py:97)
             c_out[k] = c[k]
     return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), c_out
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityGuider:
+    def prepare_inputs(self, x, s, c: Cond, uc: Cond):
+        return x, s, dict(c)
+
+    def __call__(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaCFG:
+    scale: float = 1.0
+
+    def prepare_inputs(self, x, s, c: Cond, uc: Cond):
+        return _prepare_cfg_inputs(x, s, c, uc)
+
+    def __call__(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        x_u, x_c = x.chunk(2, dim=0)
+        return x_u + self.scale * (x_c - x_u)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,8 @@ latents (t, h, w, 4), frames (t, H, W, 3) in [0, 1], cond dict keys
 crossattn / concat / vector.  Every noise draw is either an explicit tensor
 argument or comes from the ``torch.Generator`` passed in.  Training
 (``training_cond``, ``training_loss``; sgm DiffusionEngine.training_step)
-runs the EDM loss on pre-encoded latents.
+runs the EDM loss on pre-encoded latents; ``img2img_latents`` is the
+SDEdit-style partial denoising of given latents.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from v3d_tpu_torch.diffusion.denoise import Denoiser
+from v3d_tpu_torch.diffusion.discretize import SlicedDiscretization
 from v3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
 from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
 from v3d_tpu_torch.models.clip_vit import clip_preprocess
@@ -64,11 +66,15 @@ class VideoDiffusionEngine:
         """V3D_512.yaml: identity CLIP / VAE cond + three scalar sinusoidal
         embedders (fps, motion bucket, cond aug) -> 768-d vector."""
         return GeneralConditioner(embedders=(
-            EmbedderSpec(IdentityEncoder(), "cond_frames_without_noise", 0.2),
-            EmbedderSpec(ConcatTimestepEmbedderND(256), "fps_id"),
-            EmbedderSpec(ConcatTimestepEmbedderND(256), "motion_bucket_id"),
-            EmbedderSpec(IdentityEncoder(), "cond_frames", 0.2),
-            EmbedderSpec(ConcatTimestepEmbedderND(256), "cond_aug"),
+            EmbedderSpec(IdentityEncoder(), "cond_frames_without_noise",
+                         ucg_rate=0.2),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "fps_id",
+                         is_trainable=True),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "motion_bucket_id",
+                         is_trainable=True),
+            EmbedderSpec(IdentityEncoder(), "cond_frames", ucg_rate=0.2),
+            EmbedderSpec(ConcatTimestepEmbedderND(256), "cond_aug",
+                         is_trainable=True),
         ))
 
     @torch.no_grad()
@@ -208,3 +214,40 @@ class VideoDiffusionEngine:
             generator=generator,
             extra_model_inputs={"image_only_indicator": indicator})
         return per_sample.mean()
+
+
+@torch.no_grad()
+def img2img_latents(engine: VideoDiffusionEngine, init_latents: torch.Tensor,
+                    c: Dict, uc: Dict, strength: float = 0.6,
+                    num_steps: Optional[int] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """SDEdit-style partial denoising (video_diffusion.py:261-297; sgm
+    inference/helpers.py:243 do_img2img): noise the init latents to the
+    level where the last ``round(n * strength)`` steps of the schedule
+    begin (Python's round, half to even: 25 x 0.5 runs 12) and run those
+    steps.  ``noise`` is the standard-normal draw (from ``generator``
+    when not given)."""
+    n = num_steps or engine.sampler.num_steps
+    run_steps = max(1, int(round(n * strength)))
+    sampler = dataclasses.replace(
+        engine.sampler,
+        discretization=SlicedDiscretization(
+            base=engine.sampler.discretization, skip=n - run_steps),
+        num_steps=run_steps)
+    sigma0 = float(sampler.schedule()[0])
+    dev = engine.device
+    init_latents = init_latents.to(dev)
+    eps = _draw(noise, init_latents.shape, dev, generator)
+    # the sampler's prepare() multiplies by sqrt(1 + sigma0^2) again, so
+    # it starts from x0 + sigma0 * eps, the do_img2img noising
+    scale = 1.0 / torch.sqrt(torch.tensor(1.0 + sigma0**2, device=dev))
+    x = (init_latents + sigma0 * eps) * scale
+    indicator = torch.zeros((2, engine.num_frames), device=dev)
+    network = make_unet_network_fn(engine.unet, engine.num_frames)
+
+    def denoiser_fn(xx, sigma, cond):
+        return engine.denoiser(network, xx, sigma, cond,
+                               image_only_indicator=indicator)
+
+    return sampler(denoiser_fn, x, c, uc, generator=generator)
