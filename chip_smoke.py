@@ -76,7 +76,7 @@ Phases, each printing lines before the last:
     as phase 5, fit K4 219 / K5 200, NeuS none);
 13. texture refine of phase 11's 384^3 mesh against its 18 frames at
     512^2 (``meshops.refine.TextureRefiner``, the shipped RefineConfig) for
-    as many iterations as fit in 60 s: ms per iteration, the forward
+    as many iterations as fit in 30 s: ms per iteration, the forward
     render's ms, losses, PSNR of four views before and after, peak memory,
     the share of view 0's true silhouette the rasterizer covers, and a
     profile of 3 iterations;
@@ -101,16 +101,33 @@ Phases, each printing lines before the last:
 17. ``apps.recon_gs_iterative.train_iterative`` on phase 5's synthetic
     image as a PNG with its own full-width engine (seeded weights), cut
     to 500 iterations with resamples at 300 and 450: seconds per stage,
-    ms per fit step, alive count, peak memory, the PLY.
+    ms per fit step, alive count, peak memory, the PLY;
+18. fine-tuning from rendered PNG orbits on phase 8's engine (after phase
+    8): 2 objects of 18 RGBA PNGs at 512^2 written from phase 6's scene
+    (alpha its silhouette), the encode on the way in timed (VAE of 18 + 1
+    frames, CLIP of the front view) and held against ``reference_mode()``
+    (PSNR), then ``apps.train_diffusion.train`` for 4 steps with prefetch
+    and a log directory: ms per step, peak memory, launches per step (K6
+    209 + 44), the rows of metrics.csv;
+19. the autoencoder trainer at V3D's first-stage geometry on 4 of phase
+    6's views at 256^2: one generator step's loss and gradients with the
+    kernels against ``reference_mode()`` under the default backend (K6 52
+    a reconstruction) and under "flash" (K9 2, its backward recomputed),
+    then 8 steps with the discriminator's from step 4: ms per generator
+    and per discriminator step, peak memory;
+20. PixelNeRF (ResUNet encoder, the JAX defaults) from view 0 at 512^2 to
+    18 orbit targets at 64^2, and the forward and backward of the PixelNeRF
+    diffusion loss on a closed-form denoiser: ms per render, peak memory,
+    card against CPU (no kernel of csrc/ runs).
 
-Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, and 17)
-is run with the launch counts set to 0 just before it and read just after
-(phase 12: each stage's launches, the counters read before and after it);
-phases 16 and 17 add theirs to what the JSON line reports for K1-K6.  A
-kernel of the path launched
+Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
+19 and 20) is run with the launch counts set to 0 just before it and read
+just after (phase 12: each stage's launches, the counters read before and
+after it).  A kernel of the path launched
 no time, or another number of times than the path needs (counted from the
 modules and their routing rules, see ``unet_sites``), fails the run.
-Then one JSON line with every kernel's numbers, and last the line
+Then one JSON line with every kernel's numbers (``launches``: the sum over
+the paths run, ``launches_by_path`` each path's), and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  No CUDA device: exit 2 at once.  Nothing here imports JAX or
 v3d_tpu.
@@ -202,15 +219,6 @@ KERNELS = {
         replaces="v3d_tpu/ops/flash_attention.py:68 (_flash_forward, T2, at "
                  "d = 80/128/512; also _flash_packed_forward :196, T4)"),
 }
-# the path whose launches each kernel's JSON entry reports ("routes": the
-# generation under set_default_backend("flash"), phase 9)
-KERNEL_PATH = {"flash_attn_fwd": "gen", "temporal_block": "gen",
-               "temporal_core": "gen", "gs_composite_fwd": "fit",
-               "gs_composite_bwd": "fit", "group_norm": "gen",
-               "flash_attn_bwd_dkv": "train", "flash_attn_bwd_dq": "train",
-               "flash_attn_fwd_wide": "routes"}
-
-
 # K6's calls in one full-width V3D-512 UNet forward (bf16, the CFG-doubled
 # video of 36 frames at 64^2 latents): (B, C, *spatial) of the GroupNorm
 # input, fused SiLU, calls.  105 calls, 18 shapes; the list a meta-device
@@ -1296,25 +1304,27 @@ def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
     return sites
 
 
-def _attention_kernel(sq: int, d: int):
-    """The kernel a bf16 ``attention`` self-attention call over sq tokens at
-    head width d launches on the card under the routing set now."""
+def _attention_kernel(sq: int, d: int, dtype=None):
+    """The kernel an ``attention`` self-attention call over sq tokens at
+    head width d (activations in ``dtype``, default bf16) launches on the
+    card under the routing set now."""
     import torch
 
     from v3d_tpu_torch.ops.attention import attention_route, route_kernel
 
-    return route_kernel(attention_route(sq, sq, d, torch.bfloat16, True), d)
+    return route_kernel(attention_route(sq, sq, d, dtype or torch.bfloat16, True), d)
 
 
-def vae_sites(vae, tokens: int) -> dict:
+def vae_sites(vae, tokens: int, dtype=None) -> dict:
     """Attention launches of one VAE encode or decode call: its AttnBlocks
     (V3D: the mid block's, at the latent resolution, ``tokens`` tokens,
-    single-head d = channels)."""
+    single-head d = channels; activations in ``dtype``, default bf16)."""
     from v3d_tpu_torch.models.vae import AttnBlock
 
     out = dict.fromkeys(ATTENTION_KERNELS, 0)
     for m in vae.modules():
-        kernel = isinstance(m, AttnBlock) and _attention_kernel(tokens, m.q.in_channels)
+        kernel = isinstance(m, AttnBlock) and _attention_kernel(tokens, m.q.in_channels,
+                                                                dtype)
         if kernel:
             out[kernel] += 1
     return out
@@ -1600,8 +1610,9 @@ def phase_routes(engine) -> dict:
 def scene_frames(dev, n: int = 4000, res: int = 512, seed: int = 7):
     """The 18 orbit views (res^2, radius 2, elevation 0, FOV 60) of a seeded
     synthetic object of ``n`` coloured anisotropic gaussians (a shell and a
-    core), rendered by the port in ``reference_mode()``.  (18, res, res, 3)
-    float32 numpy in [0, 1]."""
+    core), rendered by the port in ``reference_mode()``.  (18, res, res, 4)
+    float32 numpy in [0, 1]: rgb on white, then the rendered silhouette
+    (accumulated opacity)."""
     import numpy as np
     import torch
 
@@ -1625,8 +1636,9 @@ def scene_frames(dev, n: int = 4000, res: int = 512, seed: int = 7):
                      for k, v in arrays.items()})
     bg = torch.ones(3, device=dev)
     with reference_mode(), torch.no_grad():
-        views = [render(g, cam, bg, config=RasterizeConfig(max_per_coarse=2048)).image
-                 for cam in orbit_cameras(18, resolution=res)]
+        outs = [render(g, cam, bg, config=RasterizeConfig(max_per_coarse=2048))
+                for cam in orbit_cameras(18, resolution=res)]
+    views = [torch.cat([o.image, o.alpha[..., None]], -1) for o in outs]
     return torch.stack(views).clamp(0, 1).cpu().numpy()
 
 
@@ -1870,6 +1882,22 @@ def profile_steps(phase: str, what: str, step_fn, steps: int, step_ms: float,
             say(phase, f"    {key}: {ms / steps:.3f}")
 
 
+def grad_cosines(gk: dict, gp: dict):
+    """The cosine of each tensor's gradient with the kernels (``gk``) with
+    the plain one (``gp``), the three lowest, and both global norms."""
+    import torch
+
+    names = list(gp)
+    stats = torch.stack([torch.stack([(gk[k].double() * gp[k].double()).sum(),
+                                      gk[k].double().norm(), gp[k].double().norm()])
+                         for k in names]).tolist()
+    cos = {k: (dot / (na * nb) if na * nb > 0 else float(na == nb))
+           for k, (dot, na, nb) in zip(names, stats)}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    return (cos, worst, math.sqrt(sum(na * na for _, na, _ in stats)),
+            math.sqrt(sum(nb * nb for _, _, nb in stats)))
+
+
 def train_grad_check(engine, batch, dev) -> None:
     """One fine-tune step's loss and gradients with the kernels against
     ``reference_mode()`` on the same batch and the same sigmas and noise."""
@@ -1895,15 +1923,7 @@ def train_grad_check(engine, batch, dev) -> None:
                      {k: p.grad for k, p in unet.named_parameters()}))
     unet.zero_grad(set_to_none=True)
     (loss_k, sec_k, gk), (loss_p, sec_p, gp) = runs
-    names = list(gp)
-    stats = torch.stack([torch.stack([(gk[k].double() * gp[k].double()).sum(),
-                                      gk[k].double().norm(), gp[k].double().norm()])
-                         for k in names]).tolist()
-    cos = {k: (dot / (na * nb) if na * nb > 0 else float(na == nb))
-           for k, (dot, na, nb) in zip(names, stats)}
-    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
-    norm_k = math.sqrt(sum(na * na for _, na, _ in stats))
-    norm_p = math.sqrt(sum(nb * nb for _, _, nb in stats))
+    cos, worst, norm_k, norm_p = grad_cosines(gk, gp)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     ok = (math.isfinite(loss_k) and rel <= TRAIN_LOSS_REL
           and all(c >= TRAIN_MIN_COS for c in cos.values()))
@@ -1921,7 +1941,8 @@ def train_grad_check(engine, batch, dev) -> None:
 def phase_train(dev) -> dict:
     """The fine-tune path at V3D-512's full width through its entry point,
     ``apps.train_diffusion.train``, after a gradient check; then one step
-    without checkpointing (peak memory) and a profile of two steps."""
+    without checkpointing (peak memory) and a profile of two steps.  The
+    engine goes on to phase 18."""
     import torch
 
     from v3d_tpu_torch.apps.train_diffusion import (
@@ -1941,6 +1962,7 @@ def phase_train(dev) -> dict:
         f"use_checkpoint {unet.use_checkpoint}; batch 1 video x {t} frames at 64^2")
     data = batches(engine, make_dataset("synthetic", t, unet.context_dim), 1, t)
     train_grad_check(engine, next(data), dev)
+    data.close()
 
     marks, stats = [], []
 
@@ -2006,7 +2028,7 @@ def phase_train(dev) -> dict:
         batch["latents"], batch["cond"]), 2, step_ms, TRAIN_KERNEL_CLASSES,
         TRAIN_OTHER, split=("copies / casts / fills", TRAIN_OTHER))
     return {"launches": counts, "step_ms": step_ms, "peak_gib": peak,
-            "no_checkpoint": nock, "losses": losses, "ab": ab}
+            "no_checkpoint": nock, "losses": losses, "ab": ab, "engine": engine}
 
 
 def train_ab(trainer, batch) -> dict:
@@ -2366,7 +2388,7 @@ def phase_full_asset(gen_expect: dict) -> dict:
 
 
 REFINE_ITERS = 2000        # apps/refine.py's default, cut to REFINE_BUDGET_S
-REFINE_BUDGET_S = 60.0
+REFINE_BUDGET_S = 30.0    # cut from 60 s to keep the whole script in half its limit
 REFINE_PSNR_VIEWS = (0, 5, 11, 17)
 REFINE_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("sort / scan (the candidate lists)", ("sort", "radix", "scan", "cub")),
@@ -2936,10 +2958,411 @@ def phase_iterative(expect: dict, dev="cuda") -> dict:
     torch.cuda.empty_cache()
     return {"launches": counts}
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the training stack's remaining paths
+PNG_OBJECTS = 2               # objects of 18 RGBA PNGs at 512^2 (phase 18)
+PNG_STEPS = 4                 # train() steps on them
+LATENT_MIN_PSNR = 40.0        # dB: one batch's encode, kernels vs reference_mode()
+AE_BATCH, AE_SIZE = 4, 256    # the JAX AutoencoderTrainer's default image_size
+AE_STEPS, AE_DISC_START = 8, 4
+AE_LOSS_REL = 1e-4            # generator step, kernels vs reference_mode(), f32
+AE_MIN_COS = 0.9999           # cosine of each parameter tensor's gradient
+AE_ZERO_GRAD_REL = 1e-6       # the key biases' gradients (0 exactly) against the whole
+NERF_HW = 64                  # PixelNeRF targets at the latent grid (phase 20)
+NERF_CPU_MAX_ABS = 1e-4       # rgb and features, card vs CPU
+NERF_LOSS_REL = 1e-5          # the PixelNeRF diffusion loss, card vs CPU
+
+
+def png_train_launches(engine, hw: int = 64) -> dict:
+    """Launches of one fine-tune step on PNG orbits (batch 1): the step
+    (``train_launches``), two VAE encodes under no_grad (the frames, the
+    noised front view) and one CLIP forward of the front view."""
+    import torch
+
+    enc = _summed(vae_sites(engine.vae_encoder, hw * hw, torch.float32),
+                  {"group_norm": count_group_norms(engine.vae_encoder)})
+    return _summed(train_launches(engine.unet, hw), _scaled(enc, 2), clip_sites(engine.clip))
+
+
+def write_png_orbits(root: str, rgba) -> str:
+    """PNG_OBJECTS directories of the orbit ``rgba`` (t, H, W, 4) in [0, 1] as
+    8-bit RGBA PNGs; object i starts its orbit at view 9 i (another front
+    view).  Returns the data root."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    data = os.path.join(root, "orbits")
+    u8 = np.round(np.clip(rgba, 0, 1) * 255).astype(np.uint8)
+    for i in range(PNG_OBJECTS):
+        d = os.path.join(data, f"obj{i}")
+        os.makedirs(d)
+        for v, frame in enumerate(np.roll(u8, -9 * i, axis=0)):
+            Image.fromarray(frame, "RGBA").save(os.path.join(d, f"{v:03d}.png"))
+    return data
+
+
+def phase_png_train(engine, rgba, dev) -> dict:
+    """Fine-tuning from rendered PNG orbits through ``apps.train_diffusion.train``
+    on phase 8's engine (built here when phase 8 did not run): the encode on the way in (VAE of 18 frames and of
+    the noised front view, CLIP of the front view), timed; one batch's
+    encode with the kernels against ``reference_mode()`` on the same draws;
+    PNG_STEPS steps with prefetch and a log directory, launches exact
+    (``png_train_launches``), the rows of metrics.csv."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from v3d_tpu_torch.apps.train_diffusion import build_train_engine, prepare_batch, train
+    from v3d_tpu_torch.data.objaverse import OrbitItemConfig, OrbitRenderDataset
+    from v3d_tpu_torch.models.clip_vit import clip_preprocess
+    from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
+
+    phase = "18 png train"
+    t_phase = time.perf_counter()
+    engine = engine or build_train_engine(device=dev)
+    t = engine.num_frames
+    root = tempfile.mkdtemp(prefix="v3d_png_")
+    try:
+        t0 = time.perf_counter()
+        data = write_png_orbits(root, rgba)
+        say(phase, f"{PNG_OBJECTS} objects x {t} RGBA PNGs at {rgba.shape[1]}^2 (phase 6's "
+            f"scene, alpha its silhouette: mean {rgba[..., 3].mean():.3f}) written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        batch = next(OrbitRenderDataset(data, OrbitItemConfig(num_frames=t)).iter_batches(1))
+        frames = torch.as_tensor(batch["frames"], device=dev)
+        cond = torch.as_tensor(batch["cond_frames"], device=dev)
+        front = torch.as_tensor(batch["cond_frames_without_noise"], device=dev)
+        gen = torch.Generator(device=dev).manual_seed(18)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t1)
+
+        for _ in range(2):   # the second, warm, is reported
+            enc_ms = {"vae_frames": timed(lambda: engine.encode_first_stage(frames, generator=gen)),
+                      "vae_cond": timed(lambda: engine.encode_first_stage(cond, generator=gen)),
+                      "clip": timed(lambda: engine.clip(clip_preprocess(front).permute(0, 3, 1, 2)))}
+        got = prepare_batch(engine, batch, t, torch.Generator(device=dev).manual_seed(5))
+        with reference_mode():
+            ref = prepare_batch(engine, batch, t, torch.Generator(device=dev).manual_seed(5))
+        p_lat = psnr(got["latents"], ref["latents"])
+        p_cond = psnr(got["cond"]["concat"], ref["cond"]["concat"])
+        p_clip = psnr(got["cond"]["crossattn"], ref["cond"]["crossattn"])
+        clip_abs = float((got["cond"]["crossattn"] - ref["cond"]["crossattn"]).abs().max())
+        ok = min(p_lat, p_cond, p_clip) >= LATENT_MIN_PSNR
+        say(phase, f"encode on the way in (f32, warm, host clock, synchronised): VAE of "
+            f"{t} frames {enc_ms['vae_frames']:.1f} ms, of the cond frame "
+            f"{enc_ms['vae_cond']:.1f} ms, CLIP of the front view {enc_ms['clip']:.1f} ms | "
+            f"kernels vs reference_mode(), same draws: latents {tuple(got['latents'].shape)} "
+            f"PSNR {p_lat:.1f} dB, cond latent {p_cond:.1f} dB (>= {LATENT_MIN_PSNR:g}), "
+            f"CLIP embedding {p_clip:.1f} dB (max abs {clip_abs:.2e}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"PNG encode: PSNR {p_lat}, {p_cond}, CLIP {p_clip}")
+        del got, ref, frames, cond, front
+
+        marks, stats = [], []
+
+        def record(s_):
+            marks.append(time.perf_counter())
+            stats.append(s_)
+
+        log_dir = os.path.join(root, "logs")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        marks.append(time.perf_counter())
+        train(data, num_frames=t, max_steps=PNG_STEPS, engine=engine, log_every=1,
+              log_fn=record, log_dir=log_dir)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = png_train_launches(engine)
+        expect = _scaled(per_step, PNG_STEPS)
+        with open(os.path.join(log_dir, "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        losses = [s_["loss"] for s_ in stats]
+        ok = (counts == expect and len(stats) == PNG_STEPS and len(rows) == PNG_STEPS + 1
+              and all(math.isfinite(x) for x in losses + [s_["grad_norm"] for s_ in stats]))
+        say(phase, f"train(data=<{PNG_OBJECTS} PNG orbits>, prefetch, log_dir) {PNG_STEPS} "
+            f"steps: ms per step (host clock, the encode included) "
+            f"{[round(x, 1) for x in steps_ms]}, median of steps 2-{PNG_STEPS} "
+            f"{statistics.median(steps_ms[1:]):.1f} | peak {peak:.2f} GiB | loss "
+            f"{[round(x, 5) for x in losses]} | launches per step "
+            f"{ {k: v / PNG_STEPS for k, v in counts.items() if v} } (expect "
+            f"{ {k: v for k, v in per_step.items() if v} }) | {'ok' if ok else 'FAIL'}")
+        say(phase, "metrics.csv: " + " / ".join(rows))
+        if not ok:
+            raise SmokeFailure(f"PNG fine-tune: launches {counts} (expect {expect}), "
+                               f"losses {losses}, csv rows {len(rows)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(phase, f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts, "step_ms": statistics.median(steps_ms[1:]),
+            "encode_ms": enc_ms, "peak_gib": peak}
+
+
+def ae_launches(trainer) -> dict:
+    """Launches of one reconstruction (an encode and a decode, f32) under
+    the routing set now: the GroupNorms of both and the attention of their
+    AttnBlocks (V3D's geometry: the two mid blocks, at the latent grid)."""
+    import torch
+
+    tokens = (AE_SIZE // 2 ** (len(trainer.encoder.down) - 1)) ** 2
+    return _summed(vae_sites(trainer.encoder, tokens, torch.float32),
+                   vae_sites(trainer.decoder, tokens, torch.float32),
+                   {"group_norm": count_group_norms(trainer.encoder)
+                    + count_group_norms(trainer.decoder)})
+
+
+def ae_grad_check(trainer, x, backend: str) -> dict:
+    """One generator step's objective and its gradients (every encoder and
+    decoder tensor), with the kernels and in ``reference_mode()``, on the
+    same images and draw, under ``set_default_backend(backend)``; the kernel
+    run's launches must be one reconstruction's."""
+    import torch
+
+    from v3d_tpu_torch.ops import reference_mode
+
+    phase = "19 ae"
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    with torch.no_grad():
+        z = trainer.encoder(x)
+    noise = torch.randn((x.shape[0], z.shape[2], z.shape[3], z.shape[1] // 2),
+                        device=dev, generator=gen)
+    names = [n for n, _ in trainer.encoder.named_parameters(prefix="encoder")] + \
+        [n for n, _ in trainer.decoder.named_parameters(prefix="decoder")]
+    runs = []
+    with routing(backend=backend):
+        expect = ae_launches(trainer)
+        for mode in (contextlib.nullcontext, reference_mode):
+            def step():
+                with mode():
+                    total, _ = trainer.generator_loss(x, noise)
+                    grads = torch.autograd.grad(total, trainer.ae_params)
+                return float(total.detach()), dict(zip(names, grads))
+            (loss, grads), counts, secs = _counted(step)
+            runs.append((loss, grads, counts, secs))
+    (loss_k, gk, counts, sec_k), (loss_p, gp, counts_p, sec_p) = runs
+    # the AttnBlocks' key biases: softmax(q . (k + b)) = softmax(q . k) for
+    # every query, so their gradient is 0 in exact arithmetic and its cosine
+    # is rounding's; they are held to a norm below AE_ZERO_GRAD_REL of the
+    # whole gradient's on both sides instead
+    zero = {k: (float(gk[k].norm()), float(gp[k].norm())) for k in gp if k.endswith(".k.bias")}
+    cos, worst, norm_k, norm_p = grad_cosines({k: gk[k] for k in gp if k not in zero},
+                                              {k: gp[k] for k in gp if k not in zero})
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (counts == expect and not any(counts_p.values()) and rel <= AE_LOSS_REL
+          and all(c >= AE_MIN_COS for c in cos.values())
+          and all(max(v) <= AE_ZERO_GRAD_REL * norm_p for v in zero.values()))
+    say(phase, f"generator step under \"{backend}\", kernels vs reference_mode() (same "
+        f"images, draw): loss {loss_k:.7f} vs {loss_p:.7f} (rel {rel:.2e} <= {AE_LOSS_REL:g}) | "
+        f"gradient norm {norm_k:.6e} vs {norm_p:.6e} | cosine per tensor: min "
+        f"{worst[0][1]:.7f} (>= {AE_MIN_COS:g}) over {len(cos)} tensors, lowest "
+        f"{[(k, round(c, 7)) for k, c in worst]}; key biases' gradient norms (kernels, "
+        f"plain) { {k: (f'{a:.2e}', f'{b:.2e}') for k, (a, b) in zero.items()} } (<= "
+        f"{AE_ZERO_GRAD_REL:g} x {norm_p:.3e}) | {sec_k:.2f} s vs {sec_p:.2f} s | launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in expect.items() if v} }) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"AE gradients under {backend}: loss {loss_k} {loss_p}, "
+                           f"lowest cosines {worst}, launches {counts}")
+    return counts
+
+
+def phase_ae(rgb, dev) -> dict:
+    """The autoencoder trainer at V3D's first-stage geometry (ch 128,
+    ch_mult (1, 2, 4, 4), 2 res blocks, z 4, double_z, no down-path
+    attention), seeded, on AE_BATCH views of phase 6's scene at AE_SIZE^2
+    with ``NLayerDiscriminator()``: one generator step's gradients with the
+    kernels against ``reference_mode()`` under the default backend and
+    under "flash" (K9, d = 512, f32, its backward recomputed), then
+    AE_STEPS steps (the discriminator's from AE_DISC_START), launches exact
+    (``ae_launches`` per reconstruction)."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.engines.ae_trainer import AETrainConfig, AutoencoderTrainer
+    from v3d_tpu_torch.engines.builder import seeded_init_
+    from v3d_tpu_torch.models.vae import Decoder, Encoder
+
+    phase = "19 ae"
+    t_phase = time.perf_counter()
+    kw = dict(ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2, z_channels=4,
+              attn_resolutions=(), resolution=AE_SIZE)
+    trainer = AutoencoderTrainer(
+        seeded_init_(Encoder(double_z=True, **kw).to(dev), 190),
+        seeded_init_(Decoder(out_ch=3, **kw).to(dev), 191),
+        AETrainConfig(disc_start=AE_DISC_START), seed=19, device=dev)
+    views = torch.as_tensor(rgb[[0, 4, 9, 13]], device=dev).permute(0, 3, 1, 2)
+    images = F.interpolate(views, size=(AE_SIZE, AE_SIZE), mode="area").permute(0, 2, 3, 1)
+    images = images * 2 - 1
+    n = [sum(p.numel() for p in m.parameters())
+         for m in (trainer.encoder, trainer.decoder, trainer.disc)]
+    say(phase, f"AutoencoderTrainer: encoder {n[0]:,}, decoder {n[1]:,}, discriminator "
+        f"{n[2]:,} parameters (seeded, f32); {AE_BATCH} images at {AE_SIZE}^2; Adam "
+        f"(lr {trainer.cfg.lr:g}, betas 0.5 / 0.9) x 2, disc_start {AE_DISC_START}")
+    x = trainer.images(images)
+    flash = ae_grad_check(trainer, x, "flash")
+    ae_grad_check(trainer, x, "auto")
+    per_recon = ae_launches(trainer)
+    expect = _scaled(per_recon, AE_STEPS + AE_STEPS - AE_DISC_START)
+    times, logs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        for _ in range(AE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs.append(trainer.train_step(images))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+
+    _, counts, secs = _counted(run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen_ms = statistics.median(times[1:AE_DISC_START])
+    both_ms = statistics.median(times[AE_DISC_START + 1:])
+    finite = all(math.isfinite(v) for lg in logs for v in lg.values())
+    ok = (counts == expect and finite and all("g" in lg for lg in logs)
+          and ["d_loss" in lg for lg in logs] == [i >= AE_DISC_START for i in range(AE_STEPS)])
+    say(phase, f"{AE_STEPS} train_steps (default routing, host clock, synchronised): ms "
+        f"{[round(v, 1) for v in times]} | generator step {gen_ms:.1f} ms (median of steps "
+        f"2-{AE_DISC_START}), discriminator step {both_ms - gen_ms:.1f} ms (steps "
+        f"{AE_DISC_START + 2}-{AE_STEPS} less the generator's) | peak {peak:.2f} GiB | loss "
+        f"{[round(lg['loss'], 5) for lg in logs]} | g {[round(lg['g'], 4) for lg in logs]} | "
+        f"d_loss {[round(lg['d_loss'], 4) for lg in logs if 'd_loss' in lg]} | launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expect "
+        f"{ {k: v for k, v in expect.items() if v} }: {AE_STEPS + AE_STEPS - AE_DISC_START} "
+        f"reconstructions) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"AE trainer: launches {counts} (expect {expect}), logs {logs}")
+    say(phase, f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": _summed(counts, flash), "gen_ms": gen_ms,
+            "disc_ms": both_ms - gen_ms, "peak_gib": peak}
+
+
+def phase_pixelnerf(rgb, dev) -> dict:
+    """PixelNeRF at the JAX defaults (32 samples, feat_dim 64,
+    out_feature_dim 4) with the ResUNet encoder, seeded, on view 0 of phase
+    6's scene at 512^2: 18 targets at NERF_HW^2 on the orbit cameras of
+    ``data/cameras.py``, the stratified jitter drawn once; then the forward
+    and backward of ``StandardDiffusionLossWithPixelNeRFLoss`` on a
+    closed-form denoiser whose network adds the rendered features (V3D's
+    concat channels), the rendered rgb against the 18 views at NERF_HW^2.
+    The card against the CPU on the same inputs; no kernel of csrc/ runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.data.cameras import fov2focal, get_uniform_poses
+    from v3d_tpu_torch.diffusion import (
+        Denoiser,
+        EDMSampling,
+        EDMWeighting,
+        VScalingWithEDMcNoise,
+    )
+    from v3d_tpu_torch.diffusion.loss import StandardDiffusionLossWithPixelNeRFLoss
+    from v3d_tpu_torch.engines.builder import seeded_init_
+    from v3d_tpu_torch.models.pixelnerf import PixelNeRF
+
+    phase = "20 pixelnerf"
+    t_phase = time.perf_counter()
+    t, res = rgb.shape[0], rgb.shape[1]
+    model = seeded_init_(PixelNeRF(encoder_type="resunet").to(dev), 20)
+    c2ws = torch.tensor(get_uniform_poses(t, 2.0, 0.0))
+    f = fov2focal(math.radians(60.0), res)
+    K = torch.tensor([[f, 0, res / 2], [0, f, res / 2], [0, 0, 1.0]])
+    views = torch.as_tensor(rgb)
+    src = views[0] * 2 - 1
+    target = F.interpolate(views.permute(0, 3, 1, 2), size=(NERF_HW, NERF_HW),
+                           mode="area").permute(0, 2, 3, 1) * 2 - 1
+    cpu_gen = torch.Generator().manual_seed(20)
+    jitter = torch.rand(model.num_samples, generator=cpu_gen)
+    latents = torch.randn(t, NERF_HW, NERF_HW, 4, generator=cpu_gen)
+    sigmas = EDMSampling()(t, generator=cpu_gen)
+    noise = torch.randn(latents.shape, generator=cpu_gen)
+    loss_fn = StandardDiffusionLossWithPixelNeRFLoss(sigma_sampler=EDMSampling(),
+                                                     loss_weighting=EDMWeighting(1.0))
+
+    def network(x, c_noise, cond, **kw):
+        return x / (1 + c_noise.reshape(-1, 1, 1, 1) ** 2) + cond["concat"]
+
+    def inputs(d):
+        return [a.to(d) for a in (src, torch.linalg.inv(c2ws[0]), K, c2ws,
+                                  K.expand(t, 3, 3))]
+
+    def render(m, d):
+        return m(*inputs(d), (NERF_HW, NERF_HW), jitter=jitter.to(d))
+
+    def loss_and_grads(m, d):
+        m.zero_grad(set_to_none=True)
+        rgb_, feats = render(m, d)
+        loss = loss_fn(network, Denoiser(VScalingWithEDMcNoise()),
+                       {"concat": feats, "rgb": rgb_}, latents.to(d), sigmas=sigmas.to(d),
+                       noise=noise.to(d), rgb_target=target.to(d)).mean()
+        loss.backward()
+        return rgb_.detach(), feats.detach(), float(loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (rgb_k, feats_k, loss_k), counts, secs = _counted(lambda: loss_and_grads(model, dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        render_ms = cuda_ms(lambda: render(model, dev), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loss_and_grads(model, dev)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 3
+    grads_k = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    cpu = PixelNeRF(encoder_type="resunet")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    rgb_c, feats_c, loss_c = loss_and_grads(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _, _, norm_k, norm_c = grad_cosines(grads_k, {k: p.grad for k, p in cpu.named_parameters()})
+    err_rgb = float((rgb_k.cpu() - rgb_c).abs().max())
+    err_feats = float((feats_k.cpu() - feats_c).abs().max())
+    rel = abs(loss_k - loss_c) / abs(loss_c)
+    ok = (not any(counts.values()) and max(err_rgb, err_feats) <= NERF_CPU_MAX_ABS
+          and rel <= NERF_LOSS_REL and math.isfinite(loss_k)
+          and tuple(rgb_k.shape) == (t, NERF_HW, NERF_HW, 3)
+          and tuple(feats_k.shape) == (t, NERF_HW, NERF_HW, 4))
+    n = sum(p.numel() for p in model.parameters())
+    say(phase, f"PixelNeRF (ResUNet encoder, {n:,} parameters, seeded, f32; {model.num_samples} "
+        f"samples) from a {res}^2 source, {t} targets at {NERF_HW}^2: render "
+        f"{render_ms:.2f} ms (CUDA events, no grad), loss forward + backward {step_ms:.1f} ms "
+        f"(host clock, synchronised) | peak {peak:.2f} GiB | card vs CPU ({cpu_s:.1f} s on "
+        f"the CPU): rgb max abs {err_rgb:.2e}, features {err_feats:.2e} (<= "
+        f"{NERF_CPU_MAX_ABS:g}), loss {loss_k:.7f} vs {loss_c:.7f} (rel {rel:.2e} <= "
+        f"{NERF_LOSS_REL:g}), gradient norm {norm_k:.6e} vs {norm_c:.6e} | rgb mean "
+        f"{float(rgb_k.mean()):.4f} | launches { {k: v for k, v in counts.items() if v} } "
+        f"(expect none) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"PixelNeRF: rgb {err_rgb}, features {err_feats}, loss "
+                           f"{loss_k} {loss_c}, launches {counts}")
+    say(phase, f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": counts, "render_ms": render_ms, "step_ms": step_ms,
+            "peak_gib": peak}
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    p.add_argument("--phases",
+                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -2952,67 +3375,75 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    dev = torch.device("cuda")
     phase_env()
     say("run", f"phases {sorted(phases)}")
     if 2 in phases:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
-    engine = (build_engine(torch.device("cuda"))
+    engine = (build_engine(dev)
               if phases & {4, 5, 9, 10, 12, 16, 17} else None)
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
     routes = phase_routes(engine) if 9 in phases else {}
     if 10 in phases:
-        phase_checkpoint(engine, torch.device("cuda"))
+        phase_checkpoint(engine, dev)
     entry = phase_gen_entry_points(engine, gen) if 16 in phases else {}
     gen_expect = gen_launches(engine) if 12 in phases else {}
     iter_expect = iterative_launches(engine) if 17 in phases else {}
     del engine
     torch.cuda.empty_cache()
-    fit = {}
-    if phases & {6, 7}:
+    fit, rgba = {}, None
+    if phases & {6, 7, 18, 19, 20}:
         t0 = time.perf_counter()
-        frames = scene_frames(torch.device("cuda"))
-        say("6 fit", f"target frames {frames.shape} rendered in reference_mode() "
-            f"in {time.perf_counter() - t0:.2f} s, mean {frames.mean():.3f}")
-        fit = phase_fit(frames, torch.device("cuda"))
+        rgba = scene_frames(dev)
+        say("6 fit", f"target frames {rgba.shape} (rgb + silhouette) rendered in "
+            f"reference_mode() in {time.perf_counter() - t0:.2f} s, mean "
+            f"{rgba[..., :3].mean():.3f}")
+    if phases & {6, 7}:
+        fit = phase_fit(rgba[..., :3], dev)
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
     paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})}}
     g_np = fit["trainer"].gaussians_np() if fit and 14 in phases else None
     del fit
     torch.cuda.empty_cache()
-    paths["train"] = phase_train(torch.device("cuda")) if 8 in phases else {}
+    paths["train"] = phase_train(dev) if 8 in phases else {}
+    train_engine = paths["train"].pop("engine", None)
+    if 18 in phases:
+        paths["png_train"] = phase_png_train(train_engine, rgba, dev)
+    del train_engine
+    torch.cuda.empty_cache()
+    paths["ae"] = phase_ae(rgba[..., :3], dev) if 19 in phases else {}
+    paths["pixelnerf"] = phase_pixelnerf(rgba[..., :3], dev) if 20 in phases else {}
     neus = phase_neus() if 11 in phases else {}
     if 12 in phases:
-        phase_full_asset(gen_expect)
+        assets = phase_full_asset(gen_expect)["assets"]
+        paths["full_asset"] = {"launches": _summed(*(stage for a in assets
+                                                     for stage in a["launches"].values()))}
     if 13 in phases:
         phase_refine(neus)
     if 14 in phases:
         gs_mesh = phase_gs_to_mesh(g_np)
         kernel_checks.setdefault("gs_composite_fwd", []).append(gs_mesh["check"])
+        paths["gs_to_mesh"] = gs_mesh
     if 15 in phases:
         phase_dpt(neus)
-    iterative = phase_iterative(iter_expect) if 17 in phases else {}
-    # phases 16-17 add their launches to the paths that report K1-K6
-    for name, path in KERNEL_PATH.items():
-        if path in ("gen", "fit") and (16 in phases or 17 in phases):
-            total = sum(p.get("launches", {}).get(name, 0)
-                        for p in (paths[path], entry, iterative))
-            paths[path] = {**paths[path], "launches": {**paths[path].get("launches", {}),
-                                                       name: total}}
+    paths["entry"] = entry
+    paths["iterative"] = phase_iterative(iter_expect) if 17 in phases else {}
 
     report = []
     for name, meta in KERNELS.items():
         checks = kernel_checks.get(name, [])
         bf16 = [c for c in checks if c["dtype"] == "bfloat16"]
         head = bf16[0] if bf16 else checks[0] if checks else {}
-        path = paths[KERNEL_PATH[name]]
+        by_path = {k: p["launches"][name] for k, p in paths.items()
+                   if p.get("launches", {}).get(name)}
         report.append({
             "name": f"{meta['label']} {name}", "route": "cuda",
             "source": meta["source"], "replaces": meta["replaces"],
-            "launches": path.get("launches", {}).get(name),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": head.get("max_abs_err"), "ms": head.get("ms"),
             "plain_ms": head.get("plain_ms"), "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),

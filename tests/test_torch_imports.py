@@ -6,6 +6,8 @@ reconstruction, a tiny ``full_asset --mesh`` and a tiny ``--checkpoint``
 load, or the refine CLI, a tiny 3DGS -> mesh distillation and the DPT
 loader, or the five other samplers, img2img, the U2Net matte in
 preprocess_image, the safety filter and a tiny recon_gs_iterative,
+or a tiny autoencoder trainer step, a tiny PixelNeRF render with its loss and
+a tiny fine-tune step on PNG orbits with prefetch and a log directory,
 loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
@@ -228,6 +230,43 @@ print("FOREIGN", bad)
 """
 
 
+_TRAINING_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from v3d_tpu_torch.apps.train_diffusion import train
+from v3d_tpu_torch.engines.ae_trainer import AETrainConfig, AutoencoderTrainer
+from v3d_tpu_torch.engines.builder import build_tiny_engine
+from v3d_tpu_torch.models.pixelnerf import PixelNeRF
+from v3d_tpu_torch.models.vae import Decoder, Encoder
+
+kw = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, resolution=32)
+ae = AutoencoderTrainer(Encoder(**kw), Decoder(**kw), AETrainConfig(disc_start=0), device="cpu")
+out = ae.train_step(np.zeros((1, 32, 32, 3), np.float32))
+assert np.isfinite(out["loss"]) and "d_loss" in out, out
+nerf = PixelNeRF(num_samples=4, feat_dim=16, out_feature_dim=2, encoder_type="resunet")
+K = torch.tensor([[30.0, 0, 16], [0, 30.0, 16], [0, 0, 1]])
+rgb, feats = nerf(torch.zeros(32, 32, 3), torch.eye(4), K, torch.eye(4)[None].repeat(2, 1, 1),
+                  K[None].repeat(2, 1, 1), (8, 8), generator=torch.Generator().manual_seed(0))
+assert rgb.shape == (2, 8, 8, 3) and feats.shape == (2, 8, 8, 2)
+with tempfile.TemporaryDirectory() as out:
+    for o in range(2):
+        os.makedirs(os.path.join(out, "orbits", f"o{o}"))
+        for i in range(4):
+            Image.fromarray(np.full((64, 64, 4), 40 * i + o, np.uint8)).save(
+                os.path.join(out, "orbits", f"o{o}", f"{i:03d}.png"))
+    trainer = train(os.path.join(out, "orbits"), num_frames=4, max_steps=1, log_every=1,
+                    engine=build_tiny_engine(num_frames=4, device="cpu"), log_fn=lambda s: None,
+                    log_dir=os.path.join(out, "logs"))
+    assert trainer.step == 1
+    assert os.path.getsize(os.path.join(out, "logs", "metrics.csv")) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -296,6 +335,16 @@ def test_generation_entry_points_run_without_jax():
     U2Net matte, the safety filter and watermark, and a tiny
     ``recon_gs_iterative``, in a fresh interpreter with no jax."""
     out = subprocess.run([sys.executable, "-c", _GENERATION_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_training_stack_runs_without_jax():
+    """One autoencoder trainer step, a PixelNeRF render with the ResUNet
+    encoder, and ``train`` on a directory of PNG orbits (the encode on the
+    way in, prefetch, ``metrics.csv``), in a fresh interpreter with no jax."""
+    out = subprocess.run([sys.executable, "-c", _TRAINING_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

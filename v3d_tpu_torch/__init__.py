@@ -8,9 +8,11 @@ reference.  This package imports torch and never jax.
                 plain versions, launch counters, ``reference_mode()``
 - ``csrc``      the CUDA C++ kernels; ``kernels/build.py`` builds them
 - ``diffusion`` EDM scaling, discretization, denoiser, guiders, Euler sampler
-- ``models``    VideoUNet, VAE (+ temporal decoder), CLIP ViT-H, conditioner
-- ``engines``   the generation engine and its builders
-- ``data``      input-image preprocessing
+- ``models``    VideoUNet, VAE (+ image and temporal decoders), CLIP ViT-H,
+                conditioner, regularizers, PatchGAN, PixelNeRF (+ ResUNet)
+- ``engines``   the generation engine, its builders, the diffusion and
+                autoencoder trainers
+- ``data``      input-image preprocessing, orbit training data, prefetch
 - ``apps``      ``python -m v3d_tpu_torch.apps.generate``
 - ``core``      weight bridge to and from the JAX package's param trees
 """

@@ -1,16 +1,20 @@
 """Video-diffusion fine-tuning CLI (counterpart of
 v3d_tpu/apps/train_diffusion.py): the V3D-512 VideoUNet, f32 master weights
 under bf16 compute with gradient checkpointing, AdamW + LambdaLinear + EMA,
-on pre-encoded latent orbits, on one card.
+on orbits of rendered PNG frames or of pre-encoded latents, on one card.
 
     python -m v3d_tpu_torch.apps.train_diffusion --data synthetic --max-steps 10
-    python -m v3d_tpu_torch.apps.train_diffusion --data /path/to/latent_orbits
+    python -m v3d_tpu_torch.apps.train_diffusion --data /path/to/orbits --log-dir logs
 
-``--data`` is a directory of ``<object>/latents.npy`` + ``clip_emb.npy``
-(``data.objaverse.OrbitRenderDataset``) or ``synthetic``: 64 seeded latent
-orbits with seeded CLIP embeddings.  ``--checkpoint`` loads a V3D / SVD
-checkpoint (sgm key names) into the engine; without it the UNet starts from
-seeded random weights.  One JSON line of stats per logged step.
+``--data`` is a directory of objects (``data.objaverse.OrbitRenderDataset``):
+each ``<object>/*.png`` (a rendered orbit, encoded on the way in by the VAE,
+its front view embedded by CLIP) or ``<object>/latents.npy``, with an
+optional ``clip_emb.npy``; or ``synthetic``: 64 seeded latent orbits with
+seeded CLIP embeddings.  ``--checkpoint`` loads a V3D / SVD checkpoint (sgm
+key names) into the engine; without it the weights are seeded random.  The
+data's host side (decode, collate) runs in a background thread one batch
+ahead.  One JSON line of stats per logged step, and the same rows in
+``<log-dir>/metrics.csv``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import argparse
 import json
 from typing import Callable, Dict, Iterator, Optional
 
-import numpy as np
 import torch
 
 from v3d_tpu_torch.core.checkpoint import load_v3d_params
@@ -28,8 +31,11 @@ from v3d_tpu_torch.data.objaverse import (
     OrbitRenderDataset,
     SyntheticOrbitDataset,
 )
+from v3d_tpu_torch.data.prefetch import device_prefetch
 from v3d_tpu_torch.engines.builder import build_v3d_engine
 from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
+from v3d_tpu_torch.models.clip_vit import clip_preprocess
+from v3d_tpu_torch.utils.logging import ExperimentLogger
 
 
 def build_train_engine(num_frames: int = 18, device="cuda",
@@ -47,24 +53,58 @@ def build_train_engine(num_frames: int = 18, device="cuda",
 
 def make_dataset(data: str, num_frames: int, clip_dim: int):
     """``synthetic``: the JAX CLI's 64 orbits of 64^2 latents, with seeded
-    CLIP embeddings; else a directory of pre-encoded orbits."""
+    CLIP embeddings; else a directory of orbits (PNG frames or latents)."""
     if data == "synthetic":
         return SyntheticOrbitDataset(num_objects=64, num_frames=num_frames,
                                      clip_dim=clip_dim)
     return OrbitRenderDataset(data, OrbitItemConfig(num_frames=num_frames))
 
 
-def batches(engine, dataset, batch_size: int, num_frames: int
-            ) -> Iterator[Dict]:
+@torch.no_grad()
+def prepare_batch(engine, batch: Dict, num_frames: int,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+    """The device stage of one ``video_collate`` batch, on the engine's
+    device (train_diffusion.py:75-93): pixel orbits are encoded, the frames
+    to ``latents`` and the noised front views to ``cond_frames``, both by
+    ``encode_first_stage`` (scaled by scale_factor, as the JAX CLI does,
+    where inference's ``encode_image`` is not: ROADMAP C13), each sample's
+    noise drawn from ``generator`` in that order; a front view given as
+    pixels becomes its CLIP embedding.  -> ``{"latents", "cond"}``."""
+    dev = engine.device
+    batch = dict(batch)
+    if "latents" in batch:
+        latents = torch.as_tensor(batch["latents"], device=dev)
+    else:
+        latents = engine.encode_first_stage(
+            torch.as_tensor(batch["frames"], device=dev), generator=generator)
+        batch["cond_frames"] = engine.encode_first_stage(
+            torch.as_tensor(batch["cond_frames"], device=dev), generator=generator)
+    front = torch.as_tensor(batch["cond_frames_without_noise"], device=dev)
+    if front.dim() == 4:
+        if front.shape[-1] != 3:
+            raise ValueError("a latent front view has no CLIP embedding: the "
+                             "item needs clip_emb.npy")
+        emb = engine.clip(clip_preprocess(front.float()).permute(0, 3, 1, 2)).float()
+        batch["cond_frames_without_noise"] = emb[:, None] if emb.dim() == 2 else emb
+    return {"latents": latents,
+            "cond": engine.training_cond(batch, num_frames=num_frames)}
+
+
+def batches(engine, dataset, batch_size: int, num_frames: int,
+            generator: Optional[torch.Generator] = None) -> Iterator[Dict]:
     """``{"latents": ((b t), h, w, 4), "cond": {...}}`` on the engine's
-    device, from a dataset of pre-encoded latents and CLIP embeddings."""
-    for batch in dataset.iter_batches(batch_size):
-        if np.ndim(batch["cond_frames_without_noise"]) not in (2, 3):
-            raise ValueError("training items need a CLIP embedding (clip_emb.npy); "
-                             "front views are not encoded on the way in")
-        latents = torch.as_tensor(batch["latents"], device=engine.device)
-        yield {"latents": latents,
-               "cond": engine.training_cond(batch, num_frames=num_frames)}
+    device: the batches of ``dataset`` assembled in a background thread and
+    copied to the device one ahead (``data.prefetch.device_prefetch``), then
+    each through ``prepare_batch`` here, on the consumer's thread and in
+    batch order, its draws from ``generator`` (by default one seeded with 1
+    as the JAX CLI's key), so the draws do not depend on the prefetch."""
+    generator = generator or torch.Generator(device=engine.device).manual_seed(1)
+    src = device_prefetch(dataset.iter_batches(batch_size), device=engine.device)
+    try:
+        for batch in src:
+            yield prepare_batch(engine, batch, num_frames, generator)
+    finally:
+        src.close()
 
 
 def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
@@ -72,10 +112,13 @@ def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 5000,
           log_every: int = TrainConfig.log_every, device="cuda", engine=None,
           log_fn: Callable[[Dict], None] = print,
-          checkpoint: Optional[str] = None) -> DiffusionTrainer:
+          checkpoint: Optional[str] = None,
+          log_dir: Optional[str] = None) -> DiffusionTrainer:
     """Fine-tune ``engine`` (by default the full-width V3D-512 training
     engine on ``device``, from ``checkpoint`` when given) for ``max_steps``
-    steps; returns the trainer."""
+    steps on ``batches`` of ``data``; each logged step goes to ``log_fn``
+    and, with ``log_dir``, to an ``ExperimentLogger`` there.  Returns the
+    trainer."""
     engine = engine or build_train_engine(num_frames=num_frames, device=device,
                                           checkpoint=checkpoint)
     trainer = DiffusionTrainer(
@@ -83,17 +126,26 @@ def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
                             ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                             log_every=log_every),
         num_frames=num_frames)
-    dataset = make_dataset(data, num_frames, engine.unet.context_dim)
-    trainer.fit(batches(engine, dataset, batch_size, num_frames),
-                log_fn=log_fn)
+    if log_dir:
+        logger, show = ExperimentLogger(log_dir), log_fn
+
+        def log_fn(stats):
+            show(stats)
+            logger.log(stats, stats.get("step"))
+    data_iter = batches(engine, make_dataset(data, num_frames, engine.unet.context_dim),
+                        batch_size, num_frames)
+    try:
+        trainer.fit(data_iter, log_fn=log_fn)
+    finally:
+        data_iter.close()
     return trainer
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--data", required=True,
-                   help="root of <object>/latents.npy + clip_emb.npy dirs, "
-                        "or 'synthetic'")
+                   help="root of <object>/ dirs of rendered PNG frames or "
+                        "latents.npy (+ clip_emb.npy), or 'synthetic'")
     p.add_argument("--checkpoint", default=None,
                    help="V3D / SVD checkpoint (.ckpt, .pt, .safetensors); "
                         "default: seeded random weights")
@@ -103,6 +155,7 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--ckpt-dir", default="ckpts_out")
     p.add_argument("--ckpt-every", type=int, default=5000)
+    p.add_argument("--log-dir", default="logs")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if not args.checkpoint:
@@ -110,7 +163,7 @@ def main(argv=None) -> None:
     train(args.data, args.batch_size, args.num_frames, args.max_steps, args.lr,
           args.ckpt_dir, args.ckpt_every, device=args.device,
           log_fn=lambda s: print(json.dumps(s), flush=True),
-          checkpoint=args.checkpoint)
+          checkpoint=args.checkpoint, log_dir=args.log_dir)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Weight bridges from the JAX package's trees to the port.
 
 - ``state_dict_from_jax``: a Flax param tree -> the state dict of a port
-  module.  The port names its parameters exactly as the checkpoint does, so
-  the checkpoint key maps (``core/keymap.py``, a copy of the JAX package's)
-  apply to ``module.state_dict()`` as it is: each key is mapped to its Flax
-  path and transform, and the transform is inverted.
+  module (``ae_trainer_state_from_jax``: the three modules of an
+  autoencoder trainer).  The port names its parameters exactly as the
+  checkpoint does, so the checkpoint key maps (``core/keymap.py``, a copy
+  of the JAX package's) apply to ``module.state_dict()`` as it is: each key
+  is mapped to its Flax path and transform, and the transform is inverted.
 - ``gaussians_from_jax``: a ``GaussianParams`` (numpy or device arrays) ->
   the port's ``Gaussians``.
 - ``trainer_state_from_jax``: ``GSTrainer.capture()`` or
@@ -26,14 +27,19 @@ import torch
 
 from v3d_tpu_torch.core import keymap
 
-KINDS = ("unet", "vae_encoder", "vae_video_decoder", "clip", "dpt")
+KINDS = ("unet", "vae_encoder", "vae_decoder", "vae_video_decoder", "clip",
+         "dpt", "resunet", "discriminator", "pixelnerf")
 
 KEY_MAPS = {
     "unet": keymap.convert_unet_key,
     "vae_encoder": lambda k: keymap.convert_vae_key(k, False),
+    "vae_decoder": lambda k: keymap.convert_vae_key(k, False),
     "vae_video_decoder": lambda k: keymap.convert_vae_key(k, True),
     "clip": keymap.convert_clip_key,
     "dpt": keymap.convert_dpt_key,
+    "resunet": keymap.convert_resunet_key,
+    "discriminator": keymap.convert_discriminator_key,
+    "pixelnerf": keymap.convert_pixelnerf_key,
 }
 # keys a module holds (to load its checkpoint strictly) that its forward
 # never reads: a Flax tree may lack them, and then they keep the module's
@@ -57,8 +63,9 @@ def _key_map(kind: str) -> Callable[[str], Tuple]:
 def state_dict_from_jax(flax_params: Mapping, kind: str,
                         module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Flax params (numpy leaves, with or without the top "params" level) ->
-    a state dict for ``module`` (one of VideoUNet, Encoder, VideoDecoder,
-    CLIPVisionTransformer, DPT, as ``kind`` says), float32 on the CPU.
+    a state dict for ``module`` (one of VideoUNet, Encoder, Decoder,
+    VideoDecoder, CLIPVisionTransformer, DPT, ResUNet, NLayerDiscriminator,
+    PixelNeRF, as ``kind`` says), float32 on the CPU.
     Raises on a key the map does not know, a missing leaf or a shape
     mismatch; a key of ``UNUSED[kind]`` without a leaf keeps the module's
     value."""
@@ -85,6 +92,19 @@ def state_dict_from_jax(flax_params: Mapping, kind: str,
                              f"{tuple(ref.shape)} in the port")
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def ae_trainer_state_from_jax(params: Mapping, disc_params: Mapping,
+                              trainer) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``AutoencoderTrainer``'s ``params`` ({"encoder", "decoder"})
+    and ``disc_params`` -> a state dict for each module of the port's
+    ``AutoencoderTrainer`` ({"encoder", "decoder", "disc"}; each loads with
+    ``getattr(trainer, name).load_state_dict``)."""
+    return {"encoder": state_dict_from_jax(params["encoder"], "vae_encoder",
+                                           trainer.encoder),
+            "decoder": state_dict_from_jax(params["decoder"], "vae_decoder",
+                                           trainer.decoder),
+            "disc": state_dict_from_jax(disc_params, "discriminator", trainer.disc)}
 
 
 def gaussians_from_jax(g, device="cpu"):

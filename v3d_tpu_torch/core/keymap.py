@@ -1,13 +1,15 @@
 """Checkpoint key maps: each torch state-dict key of the VideoUNet, the VAE
-encoder / temporal decoder, the CLIP vision tower and the DPT normal
-predictor -> (Flax param path, transform of the torch tensor into the Flax
-leaf).
+encoder / image decoder / temporal decoder, the CLIP vision tower, the DPT
+normal predictor and the PixelNeRF ResUNet -> (Flax param path, transform of
+the torch tensor into the Flax leaf).
 
 A copy of the key maps of the JAX package's ``core/convert.py`` (:25-409,
-:436-537), kept here so that the port imports nothing of that package.  The
-entry points are ``convert_unet_key``, ``convert_vae_key``,
-``convert_clip_key`` and ``convert_dpt_key``; each returns None for a key
-it does not know.
+:436-537, ``convert_resunet`` :540-589), kept here so that the port imports
+nothing of that package.  The entry points are ``convert_unet_key``,
+``convert_vae_key``, ``convert_clip_key``, ``convert_dpt_key`` and
+``convert_resunet_key``; each returns None for a key it does not know.
+``convert_discriminator_key`` and ``convert_pixelnerf_key`` map modules that
+have no published checkpoint and take the JAX tree's own names.
 
 - Linear:  torch (out, in)            -> flax kernel (in, out)      [transpose]
 - Conv2d:  torch (O, I, kh, kw)       -> flax kernel (kh, kw, I, O)
@@ -439,4 +441,81 @@ def convert_dpt_key(key: str):
     if m:
         head = {"0": "head_conv1", "2": "head_conv2", "4": "head_conv3"}[m.group(1)]
         return _map_conv(head, m.group(2))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# PixelNeRF ResUNet (sgm/modules/encoders/image_encoder.py:200-349 names),
+# the discriminator and PixelNeRF (the JAX tree's names)
+# ---------------------------------------------------------------------------
+
+_BN_LEAF = {"weight": "scale", "bias": "bias"}
+
+
+def convert_resunet_key(key: str):
+    """A ResUNet key -> (path in models.pixelnerf_encoder.ResUNet's tree,
+    transform), as ``convert_resunet`` maps it (BatchNorm without running
+    statistics: only its affine scale and bias)."""
+    m = re.match(r"conv1\.weight$", key)
+    if m:
+        return ("conv1", "kernel"), conv2_w
+    m = re.match(r"bn1\.(weight|bias)$", key)
+    if m:
+        return ("bn1", _BN_LEAF[m.group(1)]), t2j
+    m = re.match(r"layer(\d)\.(\d+)\.(.*)$", key)
+    if m:
+        li, bi, rest = m.groups()
+        blk = (f"layer{li}_block{bi}",)
+        mm = re.match(r"(conv[12])\.weight$", rest)
+        if mm:
+            return blk + (mm.group(1), "kernel"), conv2_w
+        mm = re.match(r"(bn[12])\.(weight|bias)$", rest)
+        if mm:
+            return blk + (mm.group(1), _BN_LEAF[mm.group(2)]), t2j
+        if rest == "downsample.0.weight":
+            return blk + ("down_conv", "kernel"), conv2_w
+        mm = re.match(r"downsample\.1\.(weight|bias)$", rest)
+        if mm:
+            return blk + ("down_bn", _BN_LEAF[mm.group(1)]), t2j
+        return None
+    m = re.match(r"(upconv[23])\.conv\.(conv|bn)\.(weight|bias)$", key) or \
+        re.match(r"(iconv[23])\.(conv|bn)\.(weight|bias)$", key)
+    if m:
+        name, sub, param = m.groups()
+        if sub == "conv":
+            p, f = _map_conv("conv", param)
+            return (name,) + p, f
+        return (name, "bn", _BN_LEAF[param]), t2j
+    m = re.match(r"out_conv\.(weight|bias)$", key)
+    if m:
+        return _map_conv("out_conv", m.group(1))
+    return None
+
+
+def convert_discriminator_key(key: str):
+    """An NLayerDiscriminator key -> its path in the JAX tree (the port
+    names its modules as the tree does)."""
+    m = re.match(r"(conv_in|conv_\d+|conv_out)\.(weight|bias)$", key)
+    if m:
+        return _map_conv(m.group(1), m.group(2))
+    m = re.match(r"(GroupNorm_\d+)\.(weight|bias)$", key)
+    if m:
+        return (m.group(1), _BN_LEAF[m.group(2)]), t2j
+    return None
+
+
+def convert_pixelnerf_key(key: str):
+    """A PixelNeRF key -> its path in the JAX tree: the heads and the
+    small UNet by their own names, the ResUNet encoder by its checkpoint
+    names under ``encoder``."""
+    m = re.match(r"(mlp1|mlp2|density_head|rgb_head)\.(weight|bias)$", key)
+    if m:
+        return _map_linear(m.group(1), m.group(2))
+    m = re.match(r"encoder\.(enc[123]|dec[12])\.(weight|bias)$", key)
+    if m:
+        p, f = _map_conv(m.group(1), m.group(2))
+        return ("encoder",) + p, f
+    if key.startswith("encoder."):
+        mapped = convert_resunet_key(key[len("encoder."):])
+        return None if mapped is None else (("encoder",) + mapped[0], mapped[1])
     return None

@@ -2,21 +2,21 @@
 data/objaverse.py).
 
 A training item holds the target views (``latents``, (T, h, w, 4) already
-VAE-encoded and scaled), the front view's CLIP embedding
-(``cond_frames_without_noise``), the front view plus cond-aug noise
-(``cond_frames``), and per-frame fps / motion bucket / cond aug.
-``video_collate`` flattens frame fields (b, t, ...) -> (b*t, ...) and stacks
-per-video fields.  Items are numpy arrays; the trainer moves batches to the
-device.
+VAE-encoded and scaled, or ``frames``, (T, H, W, 3) pixels in [-1, 1]), the
+front view's CLIP embedding or its pixels (``cond_frames_without_noise``),
+the front view plus cond-aug noise (``cond_frames``), and per-frame fps /
+motion bucket / cond aug.  ``video_collate`` flattens frame fields (b, t,
+...) -> (b*t, ...) and stacks per-video fields.  Items are numpy arrays; the
+trainer encodes pixels on the way in (``apps.train_diffusion.prepare_batch``)
+and moves batches to the device.
 
-``OrbitRenderDataset`` reads the pre-encoded layout, ``<object>/latents.npy``
-(T, h, w, 4) with ``<object>/clip_emb.npy`` (1, d) beside it; orbits stored
-only as PNG frames need the VAE encode and CLIP on the way in, which this
-port does not run yet.  ``SyntheticOrbitDataset`` makes seeded latent orbits
-and, with ``clip_dim``, a seeded embedding per object in place of the
-clip_emb.npy file: the JAX package's synthetic items carry the latent front
-view there, which its CLI then sends through CLIP and fails on (ROADMAP
-Queue C, C3).
+``OrbitRenderDataset`` reads ``<object>/latents.npy`` (T, h, w, 4) where it
+exists, else the rendered orbit ``<object>/*.png``, each with an optional
+``<object>/clip_emb.npy`` (1, d).  ``SyntheticOrbitDataset`` makes seeded
+latent orbits and, with ``clip_dim``, a seeded embedding per object in place
+of the clip_emb.npy file: the JAX package's synthetic items carry the latent
+front view there, which its CLI then sends through CLIP and fails on
+(ROADMAP Queue C, C3).
 """
 
 from __future__ import annotations
@@ -68,10 +68,18 @@ _FRAME_FIELDS = ("frames", "latents", "fps_id", "motion_bucket_id",
                  "cond_aug", "image_only_indicator", "elevation")
 
 
+def _collate_default(vals):
+    if isinstance(vals[0], dict):
+        return {k: _collate_default([v[k] for v in vals]) for k in vals[0]}
+    if isinstance(vals[0], str):
+        return list(vals)
+    return np.stack(vals)
+
+
 def video_collate(items: Sequence[Dict]) -> Dict:
     """objaverse.py:83-103 (video_collate_fn): frame fields flatten, per-video
-    fields stack.  (The PixelNeRF inputs it also stacks wait for the
-    PixelNeRF loss.)"""
+    fields stack; nested dicts (``pixelnerf_input``) stack recursively, with
+    their ``rgb`` flattened (b, t, ...) -> (b*t, ...)."""
     out: Dict = {}
     for key in items[0]:
         vals = [it[key] for it in items]
@@ -81,18 +89,37 @@ def video_collate(items: Sequence[Dict]) -> Dict:
             stacked = np.stack(vals)
             out[key] = stacked.reshape((-1,) + stacked.shape[2:])
         else:
-            out[key] = np.stack(vals)
+            out[key] = _collate_default(vals)
     if "image_only_indicator" in out:
         out["image_only_indicator"] = out["image_only_indicator"].reshape(
             -1, out["num_video_frames"])
+    if "pixelnerf_input" in out:
+        rgb = out["pixelnerf_input"]["rgb"]
+        out["pixelnerf_input"]["rgb"] = rgb.reshape((-1,) + rgb.shape[2:])
     return out
 
 
+def _decode_orbit(pngs: Sequence[str]) -> np.ndarray:
+    """An orbit's frames -> (t, h, w, 3) float32 in [0, 255], by PIL (the JAX
+    package's path where its native decoder is absent, objaverse.py:106-120):
+    RGB, the alpha of RGBA renders dropped, not composited."""
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(p).convert("RGB"), np.float32)
+                     for p in pngs])
+
+
 class OrbitRenderDataset:
-    """Directory of objects, each ``<root>/<object>/latents.npy`` (T, h, w, 4)
-    and ``clip_emb.npy`` (1, d) (GObjaverse's latents256 / clip_emb256
-    shortcut, objaverse.py:328-351); an unreadable item falls back to item 0
-    (objaverse.py:294-306)."""
+    """Directory of objects (objaverse.py:123-166):
+
+        <root>/<object>/000.png ... 0TT.png   the rendered orbit
+        <root>/<object>/latents.npy           optional, (T, h, w, 4) pre-encoded
+        <root>/<object>/clip_emb.npy          optional, (1, d)
+
+    GObjaverse's latents256 / clip_emb256 shortcut (objaverse.py:328-351)
+    where latents.npy exists, else the PNG frames in [-1, 1]; an item that
+    cannot be read (a missing or truncated file, frames of unequal size)
+    falls back to item 0 (objaverse.py:294-306)."""
 
     def __init__(self, root: str, cfg: OrbitItemConfig = OrbitItemConfig(),
                  seed: int = 0):
@@ -109,14 +136,21 @@ class OrbitRenderDataset:
 
     def _load(self, idx: int) -> Dict:
         obj = self.objects[idx]
-        lat = np.load(os.path.join(obj, "latents.npy")).astype(np.float32)
-        clip_emb = np.load(os.path.join(obj, "clip_emb.npy")).astype(np.float32)
-        return assemble_item(lat, self.cfg, self.rng, clip_emb, is_latent=True)
+        lat_path = os.path.join(obj, "latents.npy")
+        clip_path = os.path.join(obj, "clip_emb.npy")
+        clip_emb = (np.load(clip_path).astype(np.float32)
+                    if os.path.exists(clip_path) else None)
+        if os.path.exists(lat_path):
+            lat = np.load(lat_path).astype(np.float32)
+            return assemble_item(lat, self.cfg, self.rng, clip_emb, is_latent=True)
+        frames = _decode_orbit(sorted(glob.glob(os.path.join(obj, "*.png"))))
+        return assemble_item((frames / 127.5 - 1.0).astype(np.float32), self.cfg,
+                             self.rng, clip_emb)
 
     def __getitem__(self, idx: int) -> Dict:
         try:
             return self._load(idx)
-        except (OSError, ValueError):
+        except (OSError, ValueError, EOFError):
             return self._load(0)
 
     def iter_batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Dict]:

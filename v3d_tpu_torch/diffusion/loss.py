@@ -51,3 +51,30 @@ class StandardDiffusionLoss:
         else:
             raise NotImplementedError(self.loss_type)
         return per.reshape(n, -1).mean(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StandardDiffusionLossWithPixelNeRFLoss(StandardDiffusionLoss):
+    """loss.py:51-71 (sgm loss.py:120-186): the base loss without
+    ``cond["rgb"]``, plus ``pixelnerf_loss_weight`` times the per-sample mean
+    squared error of the PixelNeRF-rendered ``cond["rgb"]`` against
+    ``rgb_target`` where both are given."""
+
+    pixelnerf_loss_weight: float = 1.0
+
+    def __call__(self, network: Callable, denoiser: Callable, cond: Dict,
+                 inputs: torch.Tensor, sigmas: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 extra_model_inputs: Optional[Dict] = None,
+                 rgb_target: Optional[torch.Tensor] = None) -> torch.Tensor:
+        base = super().__call__(network, denoiser,
+                                {k: v for k, v in cond.items() if k != "rgb"},
+                                inputs, sigmas=sigmas, noise=noise,
+                                generator=generator,
+                                extra_model_inputs=extra_model_inputs)
+        if "rgb" in cond and rgb_target is not None:
+            err = (cond["rgb"] - rgb_target) ** 2.0
+            base = base + self.pixelnerf_loss_weight * err.mean(
+                dim=tuple(range(1, rgb_target.dim())))
+        return base

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from v3d_tpu_torch.data.prefetch import device_prefetch
 from v3d_tpu_torch.engines.ema import ema_init, ema_update_
 from v3d_tpu_torch.engines.lr_schedule import lambda_linear
 
@@ -116,26 +117,40 @@ class DiffusionTrainer:
 
     def fit(self, data_iter: Iterator[Dict], max_steps: Optional[int] = None,
             log_fn: Callable[[Dict], None] = print,
-            auto_resume: bool = True) -> None:
+            auto_resume: bool = True, prefetch: bool = False) -> None:
         """Train on ``{"latents", "cond"}`` batches until ``max_steps``; with
         ``auto_resume`` a restarted process first restores the newest
         checkpoint in ``ckpt_dir``.  The data iterator's position is the
-        caller's (a stateless or seeded stream)."""
+        caller's (a stateless or seeded stream).
+
+        ``prefetch`` (trainer.py:116-121): ``data_iter`` (host batches) is
+        iterated in a background thread and each batch copied to this
+        trainer's device one step ahead (``data.prefetch.device_prefetch``),
+        so that thread must do host work only.  ``apps.train_diffusion.batches``
+        prefetches its host stage itself, ahead of its device stage."""
         max_steps = max_steps or self.cfg.max_steps
         if auto_resume and self.cfg.ckpt_dir and self.step == 0:
             self.resume_latest()
+        data_iter = device_prefetch(data_iter, device=self.device) if prefetch else iter(data_iter)
         t0 = time.perf_counter()
-        for batch in data_iter:
-            if self.step >= max_steps:
-                break
-            stats = self.train_step(batch["latents"], batch["cond"])
-            if self.step % self.cfg.log_every == 0:
-                stats["steps_per_sec"] = self.cfg.log_every / (time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                log_fn(stats)
-            if self.cfg.ckpt_dir and self.step % self.cfg.ckpt_every == 0:
-                self.save(os.path.join(self.cfg.ckpt_dir, f"step_{self.step}.pt"))
-                prune_checkpoints(self.cfg.ckpt_dir, self.cfg.keep_last)
+        try:
+            while self.step < max_steps:
+                # no batch is drawn past the last step: a batch's device
+                # stage (``train_diffusion.batches``) runs as it is drawn
+                batch = next(data_iter, None)
+                if batch is None:
+                    break
+                stats = self.train_step(batch["latents"], batch["cond"])
+                if self.step % self.cfg.log_every == 0:
+                    stats["steps_per_sec"] = self.cfg.log_every / (time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    log_fn(stats)
+                if self.cfg.ckpt_dir and self.step % self.cfg.ckpt_every == 0:
+                    self.save(os.path.join(self.cfg.ckpt_dir, f"step_{self.step}.pt"))
+                    prune_checkpoints(self.cfg.ckpt_dir, self.cfg.keep_last)
+        finally:
+            if prefetch:
+                data_iter.close()
 
     def state_dict(self) -> Dict:
         state = {"params": self.unet.state_dict(), "opt_state": self.opt.state_dict(),

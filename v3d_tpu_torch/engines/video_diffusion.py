@@ -15,7 +15,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from v3d_tpu_torch.diffusion.denoise import Denoiser
@@ -177,8 +176,7 @@ class VideoDiffusionEngine:
         t = num_frames or self.num_frames
 
         def dev(x):
-            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                   device=self.device)
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
         clip_emb = dev(batch["cond_frames_without_noise"])
         if clip_emb.dim() == 2:

@@ -1,11 +1,14 @@
-"""VAE encoder and temporal video decoder (counterpart of v3d_tpu/models/vae.py;
-sgm diffusionmodules/model.py and autoencoding/temporal_ae.py).
+"""VAE encoder, image decoder and temporal video decoder (counterpart of
+v3d_tpu/models/vae.py; sgm diffusionmodules/model.py and
+autoencoding/temporal_ae.py).
 
 NCHW in channels_last memory.  V3D's first stage: ch 128, ch_mult (1,2,4,4),
 2 res blocks, mid attention only, z_channels 4 (double_z), decoder in
-"conv-only" time mode with (3,1,1) temporal kernels.  Parameter names follow
-the checkpoint (``down.{i}.block.{j}``, ``mid.attn_1.q``, ``up.{i}.upsample``,
-``conv_out.time_mix_conv``, ...).
+"conv-only" time mode with (3,1,1) temporal kernels.  ``attn_resolutions``
+adds attention after each res block of the levels at those resolutions (the
+image autoencoder's option).  Parameter names follow the checkpoint
+(``down.{i}.block.{j}``, ``down.{i}.attn.{j}``, ``mid.attn_1.q``,
+``up.{i}.upsample``, ``conv_out.time_mix_conv``, ...).
 """
 
 from __future__ import annotations
@@ -117,18 +120,31 @@ class _Mid(nn.Module):
         self.block_1, self.attn_1, self.block_2 = block_1, attn_1, block_2
 
 
+def _blocks_and_attention(level: _Level, h, *extra):
+    """A level's res blocks, each followed by its attention where the level
+    has one (model.py:590-593, :730-733)."""
+    for j, block in enumerate(level.block):
+        h = block(h, *extra)
+        if len(level.attn):
+            h = level.attn[j](h)
+    return h
+
+
 class Encoder(nn.Module):
     """model.py:487-604.  (n, 3, H, W) in [-1, 1] -> (n, 2*z, H/8, W/8)
-    moments (double_z)."""
+    moments (double_z); attention after each res block of the levels whose
+    resolution (``resolution`` halved per level) is in ``attn_resolutions``
+    (JAX vae.py:127-132)."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, in_channels: int = 3,
-                 z_channels: int = 4, double_z: bool = True):
+                 z_channels: int = 4, double_z: bool = True,
+                 attn_resolutions: Sequence[int] = (), resolution: int = 256):
         super().__init__()
         self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
         in_mult = (1,) + tuple(ch_mult)
         self.down = nn.ModuleList()
-        block_in = ch
+        block_in, curr_res = ch, resolution
         for i, mult in enumerate(ch_mult):
             block_in, block_out = ch * in_mult[i], ch * mult
             blocks = []
@@ -136,8 +152,12 @@ class Encoder(nn.Module):
                 blocks.append(ResnetBlock(block_in, block_out))
                 block_in = block_out
             last = i == len(ch_mult) - 1
-            self.down.append(_Level(blocks, None if last else "downsample",
-                                    None if last else Downsample(block_in)))
+            level = _Level(blocks, None if last else "downsample",
+                           None if last else Downsample(block_in))
+            if curr_res in attn_resolutions:
+                level.attn.extend(AttnBlock(block_in) for _ in blocks)
+            self.down.append(level)
+            curr_res //= 2
         self.mid = _Mid(ResnetBlock(block_in), AttnBlock(block_in),
                         ResnetBlock(block_in))
         self.norm_out = vae_norm(block_in, "silu")
@@ -148,8 +168,7 @@ class Encoder(nn.Module):
         h = self.conv_in(x.to(self.conv_in.weight.dtype)
                          .contiguous(memory_format=torch.channels_last))
         for level in self.down:
-            for block in level.block:
-                h = block(h)
+            h = _blocks_and_attention(level, h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
@@ -186,44 +205,71 @@ class AE3DConv(nn.Conv2d):
         return from_video(self.time_mix_conv(x5))
 
 
-class VideoDecoder(nn.Module):
-    """temporal_ae.py:293-349 (time_mode "conv-only"): every ResnetBlock has a
-    temporal stack and conv_out is an AE3DConv; attention stays spatial.
-    (n, z, h, w) -> (n, 3, 8h, 8w), n = a whole number of videos of
-    ``num_frames`` frames."""
+class Decoder(nn.Module):
+    """model.py:604-748 (the JAX package's ``DecoderBase``, vae.py:192-236):
+    (n, z, h, w) -> (n, out_ch, h * 2^(levels-1), ...), attention after each
+    res block of the levels whose resolution is in ``attn_resolutions``
+    (``up.{i}.attn.{j}``)."""
+
+    resblock = ResnetBlock
 
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
-                 z_channels: int = 4):
+                 z_channels: int = 4, attn_resolutions: Sequence[int] = (),
+                 resolution: int = 256):
         super().__init__()
         block_in = ch * ch_mult[-1]
+        curr_res = resolution // 2 ** (len(ch_mult) - 1)
         self.conv_in = nn.Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(VideoResBlockAE(block_in, block_in), AttnBlock(block_in),
-                        VideoResBlockAE(block_in, block_in))
+        self.mid = _Mid(self.resblock(block_in, block_in), AttnBlock(block_in),
+                        self.resblock(block_in, block_in))
         levels = [None] * len(ch_mult)
         for i in reversed(range(len(ch_mult))):
             block_out = ch * ch_mult[i]
             blocks = []
             for _ in range(num_res_blocks + 1):
-                blocks.append(VideoResBlockAE(block_in, block_out))
+                blocks.append(self.resblock(block_in, block_out))
                 block_in = block_out
             levels[i] = _Level(blocks, "upsample" if i else None,
                                Upsample(block_in) if i else None)
+            if curr_res in attn_resolutions:
+                levels[i].attn.extend(AttnBlock(block_in) for _ in blocks)
+            curr_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = vae_norm(block_in, "silu")
-        self.conv_out = AE3DConv(block_in, out_ch)
+        self.conv_out = self.make_conv_out(block_in, out_ch)
 
-    def forward(self, z, num_frames: int):
+    @staticmethod
+    def make_conv_out(block_in: int, out_ch: int) -> nn.Module:
+        return nn.Conv2d(block_in, out_ch, 3, padding=1)
+
+    def decode(self, z, *extra):
+        """The forward; ``extra`` goes to every res block and conv_out."""
         h = self.conv_in(z.to(self.conv_in.weight.dtype)
                          .contiguous(memory_format=torch.channels_last))
-        h = self.mid.block_1(h, num_frames)
-        h = self.mid.block_2(self.mid.attn_1(h), num_frames)
+        h = self.mid.block_1(h, *extra)
+        h = self.mid.block_2(self.mid.attn_1(h), *extra)
         for level in reversed(self.up):
-            for block in level.block:
-                h = block(h, num_frames)
+            h = _blocks_and_attention(level, h, *extra)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(self.norm_out(h), num_frames)
+        return self.conv_out(self.norm_out(h), *extra)
+
+    def forward(self, z):
+        return self.decode(z)
+
+
+class VideoDecoder(Decoder):
+    """temporal_ae.py:293-349 (time_mode "conv-only"): every ResnetBlock has a
+    temporal stack and conv_out is an AE3DConv; attention stays spatial.
+    (n, z, h, w) -> (n, 3, 8h, 8w), n = a whole number of videos of
+    ``num_frames`` frames."""
+
+    resblock = VideoResBlockAE
+    make_conv_out = AE3DConv
+
+    def forward(self, z, num_frames: int):
+        return self.decode(z, num_frames)
 
 
 def gaussian_moments_split(moments: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -241,3 +287,11 @@ def gaussian_sample(moments: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
 
 def gaussian_mode(moments: torch.Tensor) -> torch.Tensor:
     return gaussian_moments_split(moments)[0]
+
+
+def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0, 1)) of channels-last moments, summed over the non-batch
+    dims (distributions.py:49-60, JAX vae.py:281-286)."""
+    mean, logvar = gaussian_moments_split(moments)
+    kl = 0.5 * (mean ** 2 + torch.exp(logvar) - 1.0 - logvar)
+    return kl.sum(dim=tuple(range(1, kl.dim())))
