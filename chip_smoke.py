@@ -76,7 +76,7 @@ Phases, each printing lines before the last:
     as phase 5, fit K4 219 / K5 200, NeuS none);
 13. texture refine of phase 11's 384^3 mesh against its 18 frames at
     512^2 (``meshops.refine.TextureRefiner``, the shipped RefineConfig) for
-    as many iterations as fit in 30 s: ms per iteration, the forward
+    as many iterations as fit in 20 s: ms per iteration, the forward
     render's ms, losses, PSNR of four views before and after, peak memory,
     the share of view 0's true silhouette the rasterizer covers, and a
     profile of 3 iterations;
@@ -120,8 +120,29 @@ Phases, each printing lines before the last:
     diffusion loss on a closed-form denoiser: ms per render, peak memory,
     card against CPU (no kernel of csrc/ runs).
 
+21. image diffusion at SD 2.1's width (the JAX UNetModel's defaults: 320
+    channels, (1, 2, 4, 4), attention at ds 1/2/4, heads of 64, context
+    1024, linear projections) with the image VAE, seeded bf16: the
+    parameter count against the JAX module's, one CFG-doubled forward
+    against ``reference_mode()`` (and a narrower ``use_scale_shift_norm``
+    net's), then ``ImageDiffusionEngine``: a 50-step txt2img sample (Euler,
+    DDPM eps, CFG 5) at 512^2 on a seeded (1, 77, 1024) context, its
+    decode, the encode of a synthetic image and img2img at strength 0.6 (30
+    of 50 steps), with exact K1 / K6 launches; then the V3D-512 engine of
+    ``engine_from_config(configs/v3d_512.yaml)`` against
+    ``build_v3d_engine``'s at the same seeds (every tensor and a UNet
+    forward bit for bit);
+22. LPIPS on seeded VGG16 weights the phase writes: card vs CPU on 4 pairs
+    at 512^2 with cuDNN's TF32 switch on (PyTorch's default), forward and
+    backward times; 100 iterations of phase 6's fit
+    with lambda_dssim 1 and lambda_lpips 2 (one step's gradients against
+    ``reference_mode()`` first; K4 / K5 exact); ``apps.render_cli`` on its
+    PLY (spiral 54 frames, depth, orbit) and ``apps.metrics_cli`` on the
+    orbit renders against the frames; refine with lambda_lpips 1 and
+    without on a sphere mesh, and ``apps.refine.do_refine`` with it.
+
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
-19 and 20) is run with the launch counts set to 0 just before it and read
+19, 20, 21, and 22's fit and renders) is run with the launch counts set to 0 just before it and read
 just after (phase 12: each stage's launches, the counters read before and
 after it).  A kernel of the path launched
 no time, or another number of times than the path needs (counted from the
@@ -134,7 +155,9 @@ v3d_tpu.
 
 TF32: both ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False, so float32 products and
-convolutions run in full float32 (generation itself runs in bf16).
+convolutions run in full float32 (generation itself runs in bf16); phase
+22's LPIPS check turns cuDNN's back on, since LPIPS keeps its own
+convolutions in float32 whatever the switch says.
 """
 
 from __future__ import annotations
@@ -235,6 +258,40 @@ K6_FORWARD_SHAPES = (
     ((36, 1920, 16, 16), True, 1), ((36, 640, 16, 16), True, 1),
     ((2, 320, 18, 64, 64), True, 10), ((2, 640, 18, 32, 32), True, 10),
     ((2, 1280, 18, 16, 16), True, 10), ((2, 1280, 18, 8, 8), True, 14),
+)
+
+# phase 21: the image UNet at SD 2.1's width (the JAX UNetModel's defaults),
+# one CFG-doubled 512^2 image (64^2 latents); its parameter count, as
+# jax.eval_shape of the JAX module gives it (tests/test_torch_unet2d.py)
+IMAGE_BATCH = 2
+IMAGE_LATENT = 64
+UNET2D_PARAMS = 865_910_724
+# K6's calls in one such forward, read off a meta-device forward
+# (tests/test_torch_unet2d.py holds them so): 61 calls, 18 shapes
+K6_UNET2D_SHAPES = (
+    ((2, 320, 64, 64), False, 5), ((2, 320, 64, 64), True, 8),
+    ((2, 640, 32, 32), False, 5), ((2, 640, 32, 32), True, 6),
+    ((2, 1280, 16, 16), False, 5), ((2, 1280, 16, 16), True, 6),
+    ((2, 1280, 8, 8), False, 1), ((2, 1280, 8, 8), True, 11),
+    ((2, 2560, 8, 8), True, 3), ((2, 640, 64, 64), True, 2),
+    ((2, 960, 64, 64), True, 1), ((2, 1920, 32, 32), True, 1),
+    ((2, 1280, 32, 32), True, 1), ((2, 960, 32, 32), True, 1),
+    ((2, 320, 32, 32), True, 1), ((2, 2560, 16, 16), True, 2),
+    ((2, 1920, 16, 16), True, 1), ((2, 640, 16, 16), True, 1),
+)
+# the narrower use_scale_shift_norm net of phase 21 and its K6 calls: each
+# res block's out-norm runs without SiLU (the affine comes between)
+UNET2D_SS_KW = dict(model_channels=192, use_scale_shift_norm=True)
+K6_UNET2D_SS_SHAPES = (
+    ((2, 192, 64, 64), False, 10), ((2, 192, 64, 64), True, 3),
+    ((2, 384, 32, 32), False, 10), ((2, 384, 32, 32), True, 1),
+    ((2, 768, 16, 16), False, 10), ((2, 768, 16, 16), True, 1),
+    ((2, 768, 8, 8), False, 8), ((2, 768, 8, 8), True, 4),
+    ((2, 1536, 8, 8), True, 3), ((2, 384, 64, 64), True, 2),
+    ((2, 576, 64, 64), True, 1), ((2, 1152, 32, 32), True, 1),
+    ((2, 768, 32, 32), True, 1), ((2, 576, 32, 32), True, 1),
+    ((2, 192, 32, 32), True, 1), ((2, 1536, 16, 16), True, 2),
+    ((2, 1152, 16, 16), True, 1), ((2, 384, 16, 16), True, 1),
 )
 
 
@@ -505,7 +562,7 @@ def phase_kernels() -> dict:
     results["flash_attn_fwd_wide"] = wide_checks(randn)
     for name, checks in route_checks(randn).items():
         results[name] += checks
-    results["group_norm"] = group_norm_checks(randn)
+    results["group_norm"] = group_norm_checks(randn) + group_norm_unet2d_checks(randn)
     results.update(flash_bwd_checks(randn))
     results.update(phase_gs_kernels())
     return results
@@ -912,6 +969,47 @@ def group_norm_checks(randn) -> list:
     return out + group_norm_forward_mix(randn)
 
 
+def group_norm_unet2d_checks(randn) -> list:
+    """K6 at every GroupNorm shape of the image UNet's CFG-doubled forward
+    (phase 21): the SD-2.1-width net's (``K6_UNET2D_SHAPES``) and the
+    narrower ``use_scale_shift_norm`` net's (``K6_UNET2D_SS_SHAPES``, whose
+    res-block out-norms run without SiLU), bf16 with bf16 scale and bias,
+    each against its plain version; the summed time per forward against
+    the summed bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.group_norm import group_norm_act_plain, group_norm_fwd
+
+    out = []
+    for net, shapes in (("SD 2.1", K6_UNET2D_SHAPES),
+                        ("scale-shift", K6_UNET2D_SS_SHAPES)):
+        total_ms = total_bound = 0.0
+        for shape, silu, calls in shapes:
+            C = shape[1]
+            x = (randn(*shape) + 0.3).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            w = (1 + randn(C, scale=0.1)).to(torch.bfloat16)
+            bias = randn(C, scale=0.1).to(torch.bfloat16)
+            up = x.float()
+            res = _check(
+                "group_norm", f"unet2d {net} {shape}{' +SiLU' if silu else ''}",
+                torch.bfloat16,
+                lambda: group_norm_fwd(x, w, bias, 32, 1e-5, silu),
+                lambda: group_norm_act_plain(x, w, bias, 32, 1e-5, silu),
+                lambda: group_norm_act_plain(up, w, bias, 32, 1e-5, silu),
+                group_norm_work(shape, silu, 2, 2),
+                lambda: F.group_norm(x, 32, w, bias, 1e-5))
+            out.append(res)
+            total_ms += calls * res["ms"]
+            total_bound += calls * res["bound_ms"]
+        say("3 kernels", f"K6 an image-UNet forward ({net}, batch 2 at 64^2 latents): "
+            f"{sum(c for _, _, c in shapes)} launches, summed kernel time "
+            f"{total_ms:.4f} ms against a summed bound of {total_bound:.4f} ms "
+            f"({100 * total_bound / total_ms:.1f}% of the bound)")
+    return out
+
+
 # the fine-tune step's spatial self-attention, b = 18 frames
 FLASH_BWD_SHAPES = (("ds1", (18, 5, 4096)), ("ds2", (18, 10, 1024)))
 # products per (q, k) pair: K8 (S, dP, dQ), K7 (S^T, dP^T, dV, dK), and a
@@ -1304,6 +1402,38 @@ def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
     return sites
 
 
+def unet2d_sites(unet, hw: int, context_tokens: int, dtype=None) -> dict:
+    """What one image-UNet forward at hw^2 latents (activations in
+    ``dtype``, default bf16) launches under the routing set now, counted
+    from its modules as ``unet_sites`` counts the VideoUNet's: each
+    self- and cross-attention by ``CrossAttention.route``, every GroupNorm
+    once (K6)."""
+    import torch
+
+    from v3d_tpu_torch.models.attention_blocks import SpatialTransformer
+    from v3d_tpu_torch.models.layers import Downsample, GroupNorm32, Upsample
+    from v3d_tpu_torch.ops.attention import route_kernel
+
+    sites = dict.fromkeys(ATTENTION_KERNELS + ("group_norm",), 0)
+    sites["group_norm"] = sum(isinstance(m, GroupNorm32) for m in unet.modules())
+    res = hw
+    blocks = list(unet.input_blocks) + [unet.middle_block] + list(unet.output_blocks)
+    for layer in (m for block in blocks for m in block):
+        if isinstance(layer, SpatialTransformer):
+            for blk in layer.transformer_blocks:
+                for attn, ctx in ((blk.attn1, context_tokens if blk.disable_self_attn
+                                   else None), (blk.attn2, context_tokens)):
+                    _, route = attn.route(res * res, ctx, dtype or torch.bfloat16, True)
+                    kernel = route_kernel(route, attn.dim_head)
+                    if kernel:
+                        sites[kernel] += 1
+        elif isinstance(layer, Downsample):
+            res //= 2
+        elif isinstance(layer, Upsample):
+            res *= 2
+    return sites
+
+
 def _attention_kernel(sq: int, d: int, dtype=None):
     """The kernel an ``attention`` self-attention call over sq tokens at
     head width d (activations in ``dtype``, default bf16) launches on the
@@ -1642,30 +1772,31 @@ def scene_frames(dev, n: int = 4000, res: int = 512, seed: int = 7):
     return torch.stack(views).clamp(0, 1).cpu().numpy()
 
 
-def phase_fit(frames, dev) -> dict:
-    """One step's gradients with the kernels against reference_mode() (on
-    the init made anisotropic and rotated), then
-    the fit through its entry point, train_from_frames, at the reference
-    operating point, with the launch counts set to 0 just before it."""
-    import os
-    import tempfile
+def gs_fit_launches(iters: int, renders: int) -> dict:
+    """Launches of a fit of ``iters`` steps (one K4 call and one K5 a step)
+    followed by ``renders`` renders (one K4 call each)."""
+    out = {name: 0 for name in KERNELS}
+    out.update(gs_composite_fwd=iters + renders, gs_composite_bwd=iters)
+    return out
 
-    import numpy as np
+
+def fit_grad_check(frames, dev, phase: str, lpips_fn=None, **config) -> None:
+    """The fit recipe's first step on view 0 (the init made anisotropic and
+    rotated), its loss and every gradient with the kernels against
+    ``reference_mode()``: loss rel 1e-5, each field's max abs <=
+    GS_GRAD_REL x max |plain|.  ``config`` overrides GSTrainConfig fields."""
     import torch
 
-    from v3d_tpu_torch.apps.recon_gs import train_from_frames
     from v3d_tpu_torch.data.cameras import orbit_cameras
-    from v3d_tpu_torch.gs.losses import psnr as gs_psnr
     from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
-    from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
+    from v3d_tpu_torch.ops import reference_mode
 
-    t = frames.shape[0]
-    # gradient check: the recipe's first step on view 0, kernels vs plain
-    cfg = GSTrainConfig(lambda_dssim=1.0, opacity_reset_mode="none",
-                        opacity_decay=0.995)
-    tr = GSTrainer(orbit_cameras(t, resolution=frames.shape[1], images=list(frames)),
+    cfg = GSTrainConfig(**{**dict(lambda_dssim=1.0, opacity_reset_mode="none",
+                                  opacity_decay=0.995), **config})
+    tr = GSTrainer(orbit_cameras(frames.shape[0], resolution=frames.shape[1],
+                                 images=list(frames)),
                    cfg, num_pts=FIT_POINTS, capacity=FIT_CAPACITY, seed=0,
-                   device=dev)
+                   lpips_fn=lpips_fn, device=dev)
     # anisotropic, rotated gaussians: at the isotropic init the rotation
     # gradient is 0 up to rounding, and rounding is not what is compared
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1686,7 +1817,8 @@ def phase_fit(frames, dev) -> dict:
     ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
           and all(bool(torch.isfinite(v).all()) for v in gk.values())
           and all(e <= GS_GRAD_REL * sc and sc > 0 for e, sc in rows.values()))
-    say("6 fit", f"step-1 gradients, kernels vs reference_mode(): loss "
+    say(phase, f"step-1 gradients (lambda_dssim {cfg.lambda_dssim:g}, lambda_lpips "
+        f"{cfg.lambda_lpips:g}), kernels vs reference_mode(): loss "
         f"{loss_k:.7f} vs {loss_p:.7f}; max_abs / max|plain| "
         + ", ".join(f"{k} {e / sc:.2e}" for k, (e, sc) in rows.items())
         + f" (<= {GS_GRAD_REL:g}) | {'ok' if ok else 'FAIL'}")
@@ -1694,6 +1826,25 @@ def phase_fit(frames, dev) -> dict:
         raise SmokeFailure(f"fit gradients disagree: {loss_k} {loss_p} {rows}")
     del tr, gk, gp, grads
     torch.cuda.empty_cache()
+
+
+def phase_fit(frames, dev) -> dict:
+    """One step's gradients with the kernels against reference_mode() (on
+    the init made anisotropic and rotated), then
+    the fit through its entry point, train_from_frames, at the reference
+    operating point, with the launch counts set to 0 just before it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps.recon_gs import train_from_frames
+    from v3d_tpu_torch.gs.losses import psnr as gs_psnr
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    t = frames.shape[0]
+    fit_grad_check(frames, dev, "6 fit")
 
     marks, losses, event = [], [], {}
 
@@ -1719,8 +1870,7 @@ def phase_fit(frames, dev) -> dict:
         orbit = np.load(os.path.join(out_dir, "orbit.npy"))
         ply_bytes = os.path.getsize(os.path.join(out_dir, "point_cloud.ply"))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    expect = {name: 0 for name in KERNELS}
-    expect.update(gs_composite_fwd=FIT_ITERS + t, gs_composite_bwd=FIT_ITERS)
+    expect = gs_fit_launches(FIT_ITERS, t)
     steps = [b - a for a, b in zip(marks, marks[1:])]     # steps 2..200
     step_ms = 1e3 * statistics.median(steps[9:-1])        # after 10 warm-up
     event_ms = 1e3 * steps[-1] - step_ms
@@ -2388,7 +2538,7 @@ def phase_full_asset(gen_expect: dict) -> dict:
 
 
 REFINE_ITERS = 2000        # apps/refine.py's default, cut to REFINE_BUDGET_S
-REFINE_BUDGET_S = 30.0    # cut from 60 s to keep the whole script in half its limit
+REFINE_BUDGET_S = 20.0    # cut from 60 s (30 s in PR 13) to keep the script in half its limit
 REFINE_PSNR_VIEWS = (0, 5, 11, 17)
 REFINE_KERNEL_CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("sort / scan (the candidate lists)", ("sort", "radix", "scan", "cub")),
@@ -3359,10 +3509,499 @@ def phase_pixelnerf(rgb, dev) -> dict:
             "peak_gib": peak}
 
 
+# phase 21: image diffusion at SD 2.1's width
+
+IMAGE_STEPS = 50          # EulerEDMSampler steps of a txt2img sample
+IMAGE_CFG = 5.0           # VanillaCFG scale
+IMAGE_STRENGTH = 0.6      # img2img: the last 30 of 50 steps
+IMAGE_RES = 512           # pixels (64^2 latents)
+
+
+def build_image_engine(dev, seed: int = 0, **unet_kw):
+    """SD 2.1's image pipeline with seeded bf16 weights on ``dev``: the
+    UNet2D at the JAX UNetModel's defaults (``unet_kw`` overrides), the
+    image VAE at V3D's first-stage geometry (ch 128, (1, 2, 4, 4), z 4),
+    ``DiscreteDenoiser(EpsScaling, LegacyDDPMDiscretization)``, Euler with
+    ``VanillaCFG``."""
+    import torch
+
+    from v3d_tpu_torch import diffusion as D
+    from v3d_tpu_torch.engines.builder import materialise
+    from v3d_tpu_torch.engines.image_diffusion import ImageDiffusionEngine
+    from v3d_tpu_torch.models.unet2d import UNetModel
+    from v3d_tpu_torch.models.vae import Decoder, Encoder
+
+    with torch.device("meta"):
+        mods = (UNetModel(**unet_kw), Encoder(double_z=True), Decoder(out_ch=3))
+    unet, enc, dec = (materialise(m, dev, torch.bfloat16, seed + i)
+                      for i, m in enumerate(mods))
+    return ImageDiffusionEngine(
+        unet=unet,
+        denoiser=D.DiscreteDenoiser(scaling=D.EpsScaling(),
+                                    discretization=D.LegacyDDPMDiscretization()),
+        sampler=D.EulerEDMSampler(discretization=D.LegacyDDPMDiscretization(),
+                                  num_steps=IMAGE_STEPS, guider=D.VanillaCFG(IMAGE_CFG)),
+        vae_encoder=enc, vae_decoder=dec)
+
+
+def image_forward_launches(unet) -> dict:
+    """Launches of one CFG-doubled image-UNet forward at 64^2 latents on
+    77 context tokens, under the routing set now."""
+    u = unet2d_sites(unet, IMAGE_LATENT, 77)
+    out = {name: 0 for name in KERNELS}
+    out.update({k: u[k] for k in ATTENTION_KERNELS}, group_norm=u["group_norm"])
+    return out
+
+
+def vae_launches(vae, tokens: int) -> dict:
+    out = {name: 0 for name in KERNELS}
+    out.update(vae_sites(vae, tokens), group_norm=count_group_norms(vae))
+    return out
+
+
+def _image_forward_check(engine, what: str) -> tuple:
+    """One CFG-doubled UNet forward with the kernels against
+    ``reference_mode()`` (PSNR >= UNET_MIN_PSNR, as phase 4), its launches
+    exact; returns (PSNR, ms per forward)."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
+
+    dev = engine.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(IMAGE_BATCH, 4, IMAGE_LATENT, IMAGE_LATENT, device=dev, generator=gen)
+    ts = torch.tensor([999.0, 250.0], device=dev)
+    ctx = torch.randn(IMAGE_BATCH, 77, 1024, device=dev, generator=gen)
+
+    def fwd():
+        with torch.no_grad():
+            return engine.unet(x, ts, ctx)
+
+    reset_launch_counts()
+    out = fwd()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    with reference_mode():
+        ref = fwd()
+    quality = psnr(out, ref)
+    expect = image_forward_launches(engine.unet)
+    ms = cuda_ms(fwd, iters=5, warmup=1)
+    ok = (bool(torch.isfinite(out).all()) and out.dtype == torch.float32
+          and quality >= UNET_MIN_PSNR and counts == expect)
+    say("21 image", f"{what} UNet2D forward {tuple(out.shape)} bf16: kernels vs plain "
+        f"PSNR {quality:.2f} dB (>= {UNET_MIN_PSNR:g}) | {ms:.3f} ms a forward "
+        f"(CUDA events) | launches {_nonzero(counts)} (expect {_nonzero(expect)}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{what} UNet2D forward: {quality} dB, launches {counts}")
+    return quality, ms
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_image(dev) -> dict:
+    """The image-diffusion path at SD 2.1's width: the parameter count
+    against the JAX UNetModel's, one forward against ``reference_mode()``
+    (and the narrower ``use_scale_shift_norm`` net's), then on one engine a
+    50-step txt2img sample, its decode, the encode of a synthetic 512^2
+    image and img2img at strength 0.6, the launch counts set to 0 before
+    the four and read after; then the V3D-512 engine of
+    configs/v3d_512.yaml against ``build_v3d_engine``'s."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    phase = "21 image"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    engine = build_image_engine(dev)
+    n = sum(p.numel() for p in engine.unet.parameters())
+    say(phase, f"SD-2.1-width UNet2D (320, (1, 2, 4, 4), attention at ds 1/2/4, heads "
+        f"of 64, context 1024, linear projections) + image VAE, seeded bf16, built "
+        f"in {time.perf_counter() - t0:.1f} s | UNet {n:,} parameters (the JAX "
+        f"UNetModel's, by jax.eval_shape: {UNET2D_PARAMS:,}) | "
+        f"{'ok' if n == UNET2D_PARAMS else 'FAIL'}")
+    if n != UNET2D_PARAMS:
+        raise SmokeFailure(f"UNet2D has {n} parameters, the JAX module {UNET2D_PARAMS}")
+    quality, forward_ms = _image_forward_check(engine, "SD 2.1")
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ctx = torch.randn(1, 77, 1024, device=dev, generator=gen)
+    c, uc = {"crossattn": ctx}, {"crossattn": torch.zeros_like(ctx)}
+    image = torch.tensor(synthetic_image(IMAGE_RES)[..., :3] / 127.5 - 1.0,
+                         dtype=torch.float32, device=dev)[None]
+    fwd = image_forward_launches(engine.unet)
+    runs = max(1, int(round(IMAGE_STEPS * IMAGE_STRENGTH)))
+    stages, times, counts = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for name, fn in (
+            ("sample", lambda: engine.sample(c, uc, 1, IMAGE_RES, IMAGE_RES, generator=gen)),
+            ("decode", lambda: engine.decode(stages["sample"])),
+            ("encode", lambda: engine.encode(image, generator=gen)),
+            ("img2img", lambda: engine.img2img(stages["encode"], c, uc, IMAGE_STRENGTH,
+                                               generator=gen))):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        stages[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[name] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    total = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = {"sample": _scaled(fwd, IMAGE_STEPS),
+              "decode": vae_launches(engine.vae_decoder, IMAGE_LATENT ** 2),
+              "encode": vae_launches(engine.vae_encoder, IMAGE_LATENT ** 2),
+              "img2img": _scaled(fwd, runs)}
+    shapes = {"sample": (1, IMAGE_LATENT, IMAGE_LATENT, 4),
+              "decode": (1, IMAGE_RES, IMAGE_RES, 3),
+              "encode": (1, IMAGE_LATENT, IMAGE_LATENT, 4),
+              "img2img": (1, IMAGE_LATENT, IMAGE_LATENT, 4)}
+    ok = (all(counts[k] == expect[k] for k in expect)
+          and total == _summed(*expect.values())
+          and all(tuple(stages[k].shape) == shapes[k]
+                  and bool(torch.isfinite(stages[k]).all()) for k in shapes)
+          and 0.0 <= float(stages["decode"].min()) <= float(stages["decode"].max()) <= 1.0)
+    say(phase, f"txt2img {IMAGE_STEPS} steps (Euler, DDPM eps, CFG {IMAGE_CFG:g}) at "
+        f"{IMAGE_RES}^2: {times['sample']:.3f} s ({1e3 * times['sample'] / IMAGE_STEPS:.2f} "
+        f"ms a step; {forward_ms:.3f} ms a UNet forward alone) | decode "
+        f"{times['decode']:.3f} s | encode {times['encode']:.3f} s | img2img strength "
+        f"{IMAGE_STRENGTH:g} ({runs} of {IMAGE_STEPS} steps) {times['img2img']:.3f} s | "
+        f"peak {peak:.2f} GiB | latents std {float(stages['sample'].std()):.3f}, image "
+        f"mean {float(stages['decode'].mean()):.3f}")
+    say(phase, "launches (counts set to 0 before the four stages, read after each): "
+        + "; ".join(f"{k} {_nonzero(counts[k])} (expect {_nonzero(expect[k])})"
+                    for k in expect) + f" | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"image path: launches {counts}, expected {expect}")
+    del engine, stages
+    torch.cuda.empty_cache()
+
+    narrow = build_image_engine(dev, seed=7, **UNET2D_SS_KW)
+    ss_quality, ss_ms = _image_forward_check(
+        narrow, f"use_scale_shift_norm ({UNET2D_SS_KW['model_channels']} channels)")
+    del narrow
+    torch.cuda.empty_cache()
+    config = phase_config_engine(dev)
+    say(phase, f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total, "psnr": quality, "forward_ms": forward_ms,
+            "ss_psnr": ss_quality, "ss_forward_ms": ss_ms, "seconds": times,
+            "peak_gib": peak, "config": config}
+
+
+def phase_config_engine(dev) -> dict:
+    """``engine_from_config(load_config("configs/v3d_512.yaml"))`` on the card
+    against ``build_v3d_engine``, both at their default seeds: the same
+    state-dict keys, shapes and dtypes in each module and every tensor bit
+    for bit (the seeded init is the builder's), the config's 30-step
+    sampler; one UNet forward of each bit for bit (cuDNN deterministic)."""
+    import os
+
+    import torch
+
+    from v3d_tpu_torch.core.config import load_config
+    from v3d_tpu_torch.engines.builder import build_v3d_engine
+    from v3d_tpu_torch.engines.from_config import engine_from_config
+
+    t0 = time.perf_counter()
+    yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                             "v3d_512.yaml")
+    cfg_engine = engine_from_config(load_config(yaml_path), dtype=torch.bfloat16,
+                                    device=dev)
+    built_s = time.perf_counter() - t0
+    ref = build_v3d_engine(device=dev, dtype=torch.bfloat16)
+    same = weights_equal = True
+    for name in ("unet", "vae_encoder", "vae_decoder", "clip"):
+        a, b = getattr(cfg_engine, name).state_dict(), getattr(ref, name).state_dict()
+        same &= list(a) == list(b) and all(
+            a[k].shape == b[k].shape and a[k].dtype == b[k].dtype for k in a)
+        weights_equal &= same and all(torch.equal(a[k], b[k]) for k in a)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = [unet_forward_fn(e)() for e in (ref, cfg_engine)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    equal = torch.equal(*outs)
+    n = sum(p.numel() for p in cfg_engine.unet.parameters())
+    ok = (same and weights_equal and equal and cfg_engine.sampler.num_steps == 30
+          and cfg_engine.unet.use_checkpoint and cfg_engine.num_frames == 18)
+    say("21 config", f"engine_from_config(configs/v3d_512.yaml) on the card in "
+        f"{built_s:.1f} s: UNet {n:,} parameters, sampler {cfg_engine.sampler.num_steps} "
+        f"steps; keys / shapes / dtypes equal build_v3d_engine's: {same}; every "
+        f"tensor bit for bit at the default seeds: {weights_equal}; a UNet forward "
+        f"{tuple(outs[0].shape)} bit for bit equal: {equal} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"config engine: same {same}, weights {weights_equal}, "
+                           f"equal {equal}")
+    del cfg_engine, ref, outs
+    torch.cuda.empty_cache()
+    return {"same": same, "weights_equal": weights_equal, "equal": equal}
+
+
+# phase 22: LPIPS and the scene CLIs
+
+def write_seeded_lpips(path: str, seed: int = 0, dead_tap: bool = False) -> str:
+    """A VGG16 + LPIPS-heads .npz in the JAX package's layout (no real
+    weights ship with the repository): He-scaled conv kernels (HWIO), small
+    biases, non-negative heads, from one numpy seed.  ``dead_tap`` sets the
+    last tap's biases (relu5_3) to -100, so that tap is 0 for any image."""
+    import numpy as np
+
+    from v3d_tpu_torch.metrics.lpips import VGG_PLAN
+
+    rs = np.random.RandomState(seed)
+    out, cin, i = {}, 3, 0
+    for spec in VGG_PLAN:
+        if spec == "M":
+            continue
+        out[f"conv{i}_w"] = (rs.randn(3, 3, cin, spec) * math.sqrt(2.0 / (9 * cin))
+                             ).astype(np.float32)
+        out[f"conv{i}_b"] = (0.01 * rs.randn(spec)).astype(np.float32)
+        cin, i = spec, i + 1
+    if dead_tap:
+        out["conv12_b"] = np.full_like(out["conv12_b"], -100.0)
+    for li, c in enumerate((64, 128, 256, 512, 512)):
+        out[f"lin{li}"] = (0.1 * np.abs(rs.randn(c))).astype(np.float32)
+    np.savez(path, **out)
+    return path
+
+
+LPIPS_PAIRS = 4               # image pairs of the card-vs-CPU check, at 512^2
+LPIPS_CPU_REL = 1e-5          # distances card vs CPU; input gradients TF32 on vs off
+LPIPS_FIT_ITERS = 100         # the readme step-4 recipe's 4000 iterations, cut
+LPIPS_FIT = dict(lambda_dssim=1.0, lambda_lpips=2.0)
+REFINE_LPIPS_ITERS = 10       # refine iterations with lambda_lpips 1.0 (and without)
+
+
+def _lpips_weights():
+    """Seeded LPIPS weights written to a temporary .npz, pointed at by
+    ``$V3D_TPU_LPIPS_WEIGHTS`` for the entry points; the directory and the
+    variable's old value, to restore."""
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="v3d_lpips_")
+    path = write_seeded_lpips(os.path.join(tmp, "lpips_vgg.npz"), seed=22)
+    old = os.environ.get("V3D_TPU_LPIPS_WEIGHTS")
+    os.environ["V3D_TPU_LPIPS_WEIGHTS"] = path
+    return path, tmp, old
+
+
+def phase_lpips(rgba, dev, fit_step_ms=None) -> dict:
+    """LPIPS and its users at 512^2: the distance card vs CPU, its forward
+    and forward + backward times; 100 iterations of phase 6's fit with the
+    readme step-4 recipe (lambda_dssim 1, lambda_lpips 2) through
+    ``train_from_frames`` (one step's gradients first against
+    ``reference_mode()``); ``render_cli`` on its PLY (spiral: 54 frames,
+    depth and orbit: 18) and ``metrics_cli`` on the orbit renders against
+    the frames; refine iterations with lambda_lpips 1.0 and without on a
+    sphere mesh the phase makes, and ``apps.refine.do_refine`` with it."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from v3d_tpu_torch.apps import metrics_cli, refine, render_cli
+    from v3d_tpu_torch.apps.recon_gs import train_from_frames
+    from v3d_tpu_torch.meshops.mcubes import isosurface
+    from v3d_tpu_torch.meshops.mesh import Mesh
+    from v3d_tpu_torch.meshops.refine import RefineConfig, TextureRefiner
+    from v3d_tpu_torch.metrics.lpips import load_lpips, lpips_distance, lpips_params
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    phase = "22 lpips"
+    t_phase = time.perf_counter()
+    path, tmp, old_env = _lpips_weights()
+    paths = {}
+    try:
+        frames = rgba[..., :3]
+        t, res = frames.shape[:2]
+        # the distance on the card against the CPU
+        with np.load(path) as data:
+            arrays = dict(data)
+        params, params_cpu = lpips_params(arrays, dev), lpips_params(arrays, "cpu")
+        x_np = frames[:LPIPS_PAIRS]
+        y_np = frames[LPIPS_PAIRS:2 * LPIPS_PAIRS][:, ::-1].copy()
+        x, y = torch.tensor(x_np, device=dev), torch.tensor(y_np, device=dev)
+        xg = x.clone().requires_grad_()
+
+        def input_grad():
+            (g,) = torch.autograd.grad(lpips_distance(params, xg, y).sum(), xg)
+            return g
+
+        # with cuDNN's TF32 switch at PyTorch's default (on), as the entry
+        # points run: LPIPS keeps its convolutions and their gradients in f32
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                d = lpips_distance(params, x, y).cpu()
+            grad_on = input_grad()
+            fwd_ms = cuda_ms(lambda: lpips_distance(params, x, y), iters=5)
+
+            def fwd_bwd():
+                lpips_distance(params, xg, y).sum().backward()
+
+            bwd_ms = cuda_ms(fwd_bwd, iters=5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        # the input gradient with the switch off: the same float32 math
+        grad_off = input_grad()
+        grad_rel = float((grad_on - grad_off).abs().max() / grad_off.abs().max())
+        d_cpu = lpips_distance(params_cpu, torch.tensor(x_np), torch.tensor(y_np))
+        rel = float((d - d_cpu).abs().max() / d_cpu.abs().max())
+        ok = (rel <= LPIPS_CPU_REL and grad_rel <= LPIPS_CPU_REL
+              and bool(torch.isfinite(d).all()))
+        say(phase, f"LPIPS (VGG16, seeded weights) of {LPIPS_PAIRS} pairs at {res}^2, "
+            f"f32 (process cuDNN TF32 on): distances {[round(float(v), 5) for v in d]}, "
+            f"card vs CPU max rel {rel:.2e} (<= {LPIPS_CPU_REL:g}); input gradient "
+            f"against the TF32-off process's max rel {grad_rel:.2e} (<= "
+            f"{LPIPS_CPU_REL:g}) | forward {fwd_ms:.3f} ms, forward + backward "
+            f"{bwd_ms:.3f} ms ({LPIPS_PAIRS} pairs, CUDA events) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"LPIPS card vs CPU: rel {rel}, gradient {grad_rel}")
+        del x, y, xg, params, grad_on, grad_off
+
+        # the fit with the readme step-4 recipe
+        fit_grad_check(frames, dev, phase, lpips_fn=load_lpips(path, device=dev),
+                       **LPIPS_FIT)
+        marks = []
+
+        def record(stats):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        out_dir = os.path.join(tmp, "fit")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_from_frames(
+            frames, out_dir, iterations=LPIPS_FIT_ITERS, num_pts=FIT_POINTS,
+            capacity=FIT_CAPACITY, test_every=1, log_fn=record, device=dev, **LPIPS_FIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect = gs_fit_launches(LPIPS_FIT_ITERS, t)
+        steps = [b - a for a, b in zip(marks, marks[1:])]
+        step_ms = 1e3 * statistics.median(steps[9:])
+        ok = counts == expect and trainer.lpips_fn is not None
+        say(phase, f"train_from_frames {LPIPS_FIT_ITERS} iterations (lambda_dssim 1, "
+            f"lambda_lpips 2; the readme's 4000 cut) at {res}^2: {wall:.3f} s | ms per "
+            f"step (median of steps 11-{LPIPS_FIT_ITERS}, host clock, synchronised) "
+            f"{step_ms:.3f}, phase 6's without LPIPS "
+            f"{'not run' if fit_step_ms is None else f'{fit_step_ms:.3f}'} | peak "
+            f"{peak:.2f} GiB | launches {_nonzero(counts)} (expect {_nonzero(expect)}) "
+            f"| {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"LPIPS fit: launches {counts}, expected {expect}")
+        paths["lpips_fit"] = {"launches": counts}
+        del trainer
+        torch.cuda.empty_cache()
+
+        # render_cli on the fit's PLY, metrics_cli on the orbit renders
+        ply = os.path.join(out_dir, "point_cloud.ply")
+        renders = os.path.join(tmp, "renders")
+        reset_launch_counts()
+        render_ms = {}
+        for mode, num in (("spiral", 60), ("depth", t), ("orbit", t)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, depth = render_cli.render_scene(ply, renders, mode, num, res, device=dev)
+            torch.cuda.synchronize()
+            render_ms[mode] = (len(rgb), 1e3 * (time.perf_counter() - t0) / len(rgb))
+            if not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
+                raise SmokeFailure(f"render_cli {mode}: non-finite renders")
+        counts = dict(LAUNCHES)
+        expect = gs_fit_launches(0, sum(n for n, _ in render_ms.values()))
+        gt = os.path.join(tmp, "gt")
+        os.makedirs(gt)
+        for i, f in enumerate(frames):
+            Image.fromarray((np.clip(f, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(gt, f"{i:04d}.png"))
+        t0 = time.perf_counter()
+        scores = metrics_cli.evaluate(os.path.join(renders, "orbit"), gt, device=dev)
+        metrics_s = time.perf_counter() - t0
+        ok = (counts == expect and render_ms["spiral"][0] == 54
+              and scores["n_images"] == t and "lpips" in scores
+              and all(math.isfinite(scores[k]) for k in ("psnr", "ssim", "lpips")))
+        say(phase, "render_cli at " f"{res}^2 (ms per frame, host clock, synchronised, PNG "
+            "writes included): " + ", ".join(f"{m} {n} frames {ms:.2f}"
+                                             for m, (n, ms) in render_ms.items())
+            + f" | launches {_nonzero(counts)} (expect {_nonzero(expect)}) | metrics_cli "
+            f"on the orbit renders vs the {t} frames: PSNR {scores['psnr']:.3f} dB, SSIM "
+            f"{scores['ssim']:.4f}, LPIPS {scores['lpips']:.4f} in {metrics_s:.2f} s | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"render_cli / metrics_cli: {counts} {render_ms} {scores}")
+        paths["render_cli"] = {"launches": counts}
+
+        # refine with LPIPS on a sphere mesh made here
+        verts, faces = isosurface(lambda p: np.linalg.norm(p, axis=-1) - 0.45, radius=1.0,
+                                  resolution=128, coarse_resolution=32)
+        mesh = Mesh(verts, faces)
+        cfg = dict(iters=REFINE_LPIPS_ITERS, lambda_lpips=1.0)
+        refine_ms = {}
+        for name, lpips_fn in (("mse", None), ("mse + lpips", load_lpips(path, device=dev))):
+            refiner = TextureRefiner(mesh, frames, RefineConfig(**cfg), lpips_fn=lpips_fn,
+                                     device=dev)
+            refiner.run(2)                        # warm-up
+            stamps = []
+            step = refiner.step
+
+            def timed(slot, step=step, stamps=stamps):
+                loss = step(slot)
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                return loss
+
+            refiner.step = timed
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            losses = refiner.run(REFINE_LPIPS_ITERS)
+            refine_ms[name] = (1e3 * statistics.median(
+                [b - a for a, b in zip(stamps, stamps[1:])]), losses[0], losses[-1])
+            del refiner
+        np.save(os.path.join(tmp, "frames.npy"), (frames * 255).astype(np.uint8))
+        mesh.write_obj(os.path.join(tmp, "sphere.obj"))
+        t0 = time.perf_counter()
+        refine.do_refine(os.path.join(tmp, "sphere.obj"), os.path.join(tmp, "frames.npy"),
+                         os.path.join(tmp, "refined"), iters=REFINE_LPIPS_ITERS,
+                         lambda_lpips=1.0, device=dev)
+        app_s = time.perf_counter() - t0
+        ok = (all(math.isfinite(v) for r in refine_ms.values() for v in r)
+              and refine_ms["mse + lpips"][1] > refine_ms["mse"][1]
+              and os.path.getsize(os.path.join(tmp, "refined", "refined.obj")) > 0)
+        say(phase, f"refine of a {len(verts)}-vertex sphere against the {t} frames at "
+            f"{res}^2, {REFINE_LPIPS_ITERS} iterations, ms per iteration (median, "
+            f"synchronised): " + ", ".join(f"{k} {ms:.3f} (loss {a:.5f} -> {b:.5f})"
+                                           for k, (ms, a, b) in refine_ms.items())
+            + f" | apps.refine.do_refine --lambda-lpips 1.0, {REFINE_LPIPS_ITERS} "
+            f"iterations and the writes: {app_s:.2f} s | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"refine with LPIPS: {refine_ms}")
+    finally:
+        if old_env is None:
+            os.environ.pop("V3D_TPU_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["V3D_TPU_LPIPS_WEIGHTS"] = old_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(phase, f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
+                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -3394,8 +4033,9 @@ def main(argv=None) -> int:
     iter_expect = iterative_launches(engine) if 17 in phases else {}
     del engine
     torch.cuda.empty_cache()
+    image = phase_image(dev) if 21 in phases else {}
     fit, rgba = {}, None
-    if phases & {6, 7, 18, 19, 20}:
+    if phases & {6, 7, 18, 19, 20, 22}:
         t0 = time.perf_counter()
         rgba = scene_frames(dev)
         say("6 fit", f"target frames {rgba.shape} (rgb + silhouette) rendered in "
@@ -3405,7 +4045,10 @@ def main(argv=None) -> int:
         fit = phase_fit(rgba[..., :3], dev)
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
-    paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})}}
+    paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})},
+             "image": image}
+    if 22 in phases:
+        paths.update(phase_lpips(rgba, dev, fit.get("step_ms")))
     g_np = fit["trainer"].gaussians_np() if fit and 14 in phases else None
     del fit
     torch.cuda.empty_cache()

@@ -8,6 +8,8 @@ loader, or the five other samplers, img2img, the U2Net matte in
 preprocess_image, the safety filter and a tiny recon_gs_iterative,
 or a tiny autoencoder trainer step, a tiny PixelNeRF render with its loss and
 a tiny fine-tune step on PNG orbits with prefetch and a log directory,
+or a tiny ``engine_from_config``, a tiny image diffusion engine, a 3DGS fit
+with LPIPS, ``render_cli``, ``metrics_cli`` and ``validate_ckpt --lpips``,
 loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
@@ -267,6 +269,72 @@ print("FOREIGN", bad)
 """
 
 
+_CONFIG_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+import chip_smoke
+from v3d_tpu_torch import diffusion as D
+from v3d_tpu_torch.apps import metrics_cli, recon_gs, render_cli, validate_ckpt
+from v3d_tpu_torch.core.config import load_config
+from v3d_tpu_torch.core import registry
+from v3d_tpu_torch.engines.builder import materialise
+from v3d_tpu_torch.engines.from_config import engine_from_config
+from v3d_tpu_torch.engines.image_diffusion import ImageDiffusionEngine
+from v3d_tpu_torch.models.unet2d import UNetModel
+from v3d_tpu_torch.models.vae import Decoder, Encoder
+
+assert len(registry.names()) == 39
+try:
+    registry.resolve("v3d_tpu.models.unet2d.UNetModel")
+    raise SystemExit("a v3d_tpu target resolved")
+except ValueError:
+    pass
+tiny = ["model.network.params.model_channels=32", "model.network.params.num_res_blocks=1",
+        "model.network.params.attention_resolutions=[1]", "model.network.params.channel_mult=[1]",
+        "model.network.params.num_head_channels=16", "model.network.params.context_dim=64",
+        "model.first_stage.encoder.params.ch=32", "model.first_stage.decoder.params.ch=32",
+        "model.num_frames=4", "model.sampler.params.guider.params.num_frames=4",
+        "model.sampler.params.num_steps=2"]
+eng = engine_from_config(load_config("configs/v3d_512.yaml", tiny), dtype=torch.float32,
+                         device="meta")
+eng.unet = materialise(eng.unet, "cpu", torch.float32, 0)
+out = eng.unet(torch.randn(4, 8, 8, 8), torch.ones(4), torch.randn(4, 1, 64),
+               torch.randn(4, 768), 4, torch.zeros(1, 4))
+assert out.shape == (4, 4, 8, 8) and eng.sampler.num_steps == 2
+kw = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=4)
+img = ImageDiffusionEngine(
+    unet=UNetModel(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                   attention_resolutions=(1,), num_head_channels=16, context_dim=16),
+    denoiser=D.DiscreteDenoiser(scaling=D.EpsScaling(),
+                                discretization=D.LegacyDDPMDiscretization()),
+    sampler=D.EulerEDMSampler(discretization=D.LegacyDDPMDiscretization(), num_steps=2,
+                              guider=D.VanillaCFG(5.0)),
+    vae_encoder=Encoder(**kw), vae_decoder=Decoder(**kw), downscale=2)
+c = {"crossattn": torch.randn(1, 3, 16)}
+z = img.sample(c, {"crossattn": torch.zeros(1, 3, 16)}, height=16, width=16,
+               generator=torch.Generator().manual_seed(0))
+assert img.decode(img.img2img(z, c, c, 0.5)).shape == (1, 16, 16, 3)
+with tempfile.TemporaryDirectory() as out:
+    os.environ["V3D_TPU_LPIPS_WEIGHTS"] = chip_smoke.write_seeded_lpips(
+        os.path.join(out, "lpips.npz"))
+    frames = np.random.RandomState(0).rand(4, 32, 32, 3).astype(np.float32)
+    trainer = recon_gs.train_from_frames(frames, out, iterations=2, num_pts=40,
+                                         capacity=64, lambda_lpips=2.0, device="cpu")
+    assert trainer.lpips_fn is not None
+    rgb, _ = render_cli.render_scene(os.path.join(out, "point_cloud.ply"),
+                                     os.path.join(out, "r"), "spiral", 18, 16, device="cpu")
+    assert rgb.shape == (18, 16, 16, 3)
+    scores = metrics_cli.evaluate(os.path.join(out, "r", "spiral"),
+                                  os.path.join(out, "r", "spiral"), device="cpu")
+    assert scores["n_images"] == 18 and scores["lpips"] == 0.0
+    validate_ckpt.main(["--lpips", os.environ["V3D_TPU_LPIPS_WEIGHTS"], "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -345,6 +413,19 @@ def test_training_stack_runs_without_jax():
     encoder, and ``train`` on a directory of PNG orbits (the encode on the
     way in, prefetch, ``metrics.csv``), in a fresh interpreter with no jax."""
     out = subprocess.run([sys.executable, "-c", _TRAINING_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_configs_image_diffusion_and_scene_clis_run_without_jax():
+    """The registry (39 names, a ``v3d_tpu.`` target refused), a tiny
+    ``engine_from_config`` of configs/v3d_512.yaml, a tiny
+    ``ImageDiffusionEngine`` sample / img2img / decode, a 3DGS fit with
+    ``--lambda-lpips`` on seeded LPIPS weights, ``render_cli``,
+    ``metrics_cli`` and ``validate_ckpt --lpips``, in a fresh interpreter
+    with no jax."""
+    out = subprocess.run([sys.executable, "-c", _CONFIG_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

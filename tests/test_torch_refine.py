@@ -21,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from v3d_tpu.meshops.mcubes import isosurface
 from v3d_tpu.meshops.mesh import Mesh as JMesh
 from v3d_tpu.meshops.refine import RefineConfig as JConfig
@@ -80,7 +81,7 @@ def test_refine_lpips_term_matches_jax(sphere):
     assert pl[0] > plain.run(1)[0]
 
 
-def test_do_refine_writes_the_refined_mesh(sphere, tmp_path):
+def test_do_refine_writes_the_refined_mesh(sphere, tmp_path, monkeypatch):
     verts, faces, frames = sphere
     mesh_path = tmp_path / "mesh.obj"
     Mesh(verts, faces).write_obj(str(mesh_path))
@@ -93,6 +94,13 @@ def test_do_refine_writes_the_refined_mesh(sphere, tmp_path):
     assert (tmp_path / "out" / "refined.glb").stat().st_size > 0
     spiral = np.load(tmp_path / "out" / "refined_spiral.npy")
     assert spiral.shape == frames.shape and spiral.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        do_refine(str(mesh_path), str(tmp_path / "frames.npy"), str(tmp_path / "o2"),
-                  iters=1, lambda_lpips=0.1, device="cpu")
+    # --lambda-lpips: LPIPS from $V3D_TPU_LPIPS_WEIGHTS, or the MSE alone
+    # without the file, as the JAX CLI does
+    monkeypatch.setenv("V3D_TPU_LPIPS_WEIGHTS", str(tmp_path / "absent.npz"))
+    do_refine(str(mesh_path), str(tmp_path / "frames.npy"), str(tmp_path / "o2"),
+              iters=1, lambda_lpips=0.1, device="cpu")
+    monkeypatch.setenv("V3D_TPU_LPIPS_WEIGHTS", chip_smoke.write_seeded_lpips(
+        str(tmp_path / "lpips.npz")))
+    do_refine(str(mesh_path), str(tmp_path / "frames.npy"), str(tmp_path / "o3"),
+              iters=1, lambda_lpips=0.1, device="cpu")
+    assert (tmp_path / "o3" / "refined.obj").stat().st_size > 0

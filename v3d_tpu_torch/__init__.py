@@ -8,13 +8,17 @@ reference.  This package imports torch and never jax.
                 plain versions, launch counters, ``reference_mode()``
 - ``csrc``      the CUDA C++ kernels; ``kernels/build.py`` builds them
 - ``diffusion`` EDM scaling, discretization, denoiser, guiders, Euler sampler
-- ``models``    VideoUNet, VAE (+ image and temporal decoders), CLIP ViT-H,
-                conditioner, regularizers, PatchGAN, PixelNeRF (+ ResUNet)
-- ``engines``   the generation engine, its builders, the diffusion and
-                autoencoder trainers
-- ``data``      input-image preprocessing, orbit training data, prefetch
-- ``apps``      ``python -m v3d_tpu_torch.apps.generate``
-- ``core``      weight bridge to and from the JAX package's param trees
+- ``models``    VideoUNet, the image UNet2D, VAE (+ image and temporal
+                decoders), CLIP ViT-H, conditioner, regularizers, PatchGAN,
+                PixelNeRF (+ ResUNet)
+- ``engines``   the video and image diffusion engines, their builders (from
+                code or a YAML config), the diffusion and autoencoder trainers
+- ``metrics``   LPIPS
+- ``data``      input-image preprocessing, orbit training data, prefetch,
+                camera paths
+- ``apps``      ``python -m v3d_tpu_torch.apps.generate`` and the other CLIs
+- ``core``      weight bridge to and from the JAX package's param trees,
+                YAML configs, the component registry
 """
 
 __version__ = "0.1.0"

@@ -25,11 +25,12 @@ from v3d_tpu_torch.data.cameras import orbit_cameras
 from v3d_tpu_torch.gs.losses import psnr
 from v3d_tpu_torch.gs.ply import save_ply
 from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
+from v3d_tpu_torch.metrics.lpips import load_lpips
 
 
 def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
                       num_pts: int = 100_000, lambda_dssim: float = 1.0,
-                      radius: float = 2.0, elevation: float = 0.0,
+                      lambda_lpips: float = 0.0, radius: float = 2.0, elevation: float = 0.0,
                       fov: float = 60.0, white_background: bool = True,
                       test_every: int = 1000, seed: int = 0,
                       opacity_reset_mode: str = "none",
@@ -41,7 +42,10 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
     re-rendered orbit under ``output``.  The defaults are the shipped
     transient-free recipe at the reference operating point: 100k random
     points in 300k slots, SSIM weight 1, no opacity resets, per-step opacity
-    decay 0.995.  ``config_overrides`` replaces fields of the GSTrainConfig;
+    decay 0.995.  ``lambda_lpips`` > 0 adds LPIPS (``metrics.lpips``,
+    weights from ``$V3D_TPU_LPIPS_WEIGHTS``; without them the term is left
+    out with a note, as the JAX CLI does: V3D's readme step 4 uses 2.0).
+    ``config_overrides`` replaces fields of the GSTrainConfig;
     ``log_fn(stats)`` runs every ``test_every`` iterations (default: print
     the loss, view 0's PSNR and, at densify events, the alive count)."""
     frames = np.asarray(frames)
@@ -54,12 +58,19 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
     cams = orbit_cameras(t, radius=radius, elevation=elevation, fov_deg=fov,
                          resolution=h, images=list(frames))
     cfg = GSTrainConfig(iterations=iterations, lambda_dssim=lambda_dssim,
+                        lambda_lpips=lambda_lpips,
                         white_background=white_background,
                         opacity_reset_mode=opacity_reset_mode,
                         opacity_decay=opacity_decay)
     cfg = dataclasses.replace(cfg, **(config_overrides or {}))
+    lpips_fn = None
+    if lambda_lpips > 0:
+        lpips_fn = load_lpips(device=device)
+        if lpips_fn is None:
+            print("LPIPS weights not found ($V3D_TPU_LPIPS_WEIGHTS): fitting "
+                  "without the LPIPS term", flush=True)
     trainer = GSTrainer(cams, cfg, num_pts=num_pts, capacity=capacity,
-                        seed=seed, radius=radius, device=device)
+                        seed=seed, radius=radius, lpips_fn=lpips_fn, device=device)
     os.makedirs(output, exist_ok=True)
 
     def print_stats(stats):
@@ -100,6 +111,9 @@ def main(argv=None):
     p.add_argument("--capacity", type=int, default=300_000,
                    help="gaussian slots (densification headroom)")
     p.add_argument("--lambda-dssim", type=float, default=1.0)
+    p.add_argument("--lambda-lpips", type=float, default=0.0,
+                   help="LPIPS weight (V3D's readme: 2.0); needs "
+                        "$V3D_TPU_LPIPS_WEIGHTS")
     p.add_argument("--radius", type=float, default=2.0)
     p.add_argument("--elevation", type=float, default=0.0)
     p.add_argument("--fov", type=float, default=60.0)
@@ -114,7 +128,7 @@ def main(argv=None):
                    help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)
     train_from_frames(read_frames(args.frames), args.output, args.iterations,
-                      args.num_pts, args.lambda_dssim, args.radius,
+                      args.num_pts, args.lambda_dssim, args.lambda_lpips, args.radius,
                       args.elevation, args.fov, test_every=args.test_every,
                       seed=args.seed,
                       opacity_reset_mode=args.opacity_reset_mode,

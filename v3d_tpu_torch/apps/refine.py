@@ -10,6 +10,9 @@ orbit frames, then writes the refined mesh and its orbit re-render.
 read or written (that needs cv2, which the port does not use).  Outputs:
 ``refined.obj``, ``refined.glb`` and ``refined_spiral.npy`` (the T
 re-rendered views, uint8) in place of the JAX CLI's refined_spiral.mp4.
+``--lambda-lpips`` adds LPIPS (``metrics/lpips.py``) with the weights of
+``$V3D_TPU_LPIPS_WEIGHTS``; without the file the term is left out, as the
+JAX CLI leaves it.
 """
 
 from __future__ import annotations
@@ -23,23 +26,26 @@ import torch
 from v3d_tpu_torch.apps.recon_gs import read_frames
 from v3d_tpu_torch.meshops.mesh import Mesh
 from v3d_tpu_torch.meshops.refine import RefineConfig, TextureRefiner
+from v3d_tpu_torch.metrics.lpips import load_lpips
 
 
 def do_refine(mesh_path: str, video_path: str, output: str,
               iters: int = 2000, num_opt_views: int = 16,
               lambda_lpips: float = 0.0, lr: float = 1e-3,
               device="cuda") -> Mesh:
-    if lambda_lpips > 0:
-        raise NotImplementedError(
-            "--lambda-lpips > 0 needs LPIPS, which the port does not have yet "
-            "(metrics/lpips.py); refine with the MSE loss alone")
     mesh = Mesh.read_obj(mesh_path)
     frames = read_frames(video_path)
     frames = (frames.astype(np.float32) / 255.0 if frames.dtype == np.uint8
               else frames.astype(np.float32))
+    lpips_fn = None
+    if lambda_lpips > 0:
+        lpips_fn = load_lpips(device=device)
+        if lpips_fn is None:
+            print("LPIPS weights not found ($V3D_TPU_LPIPS_WEIGHTS): refining "
+                  "with the MSE loss alone", flush=True)
     cfg = RefineConfig(iters=iters, num_opt_views=num_opt_views,
                        lambda_lpips=lambda_lpips, lr=lr)
-    refiner = TextureRefiner(mesh, frames, cfg, device=device)
+    refiner = TextureRefiner(mesh, frames, cfg, lpips_fn=lpips_fn, device=device)
     losses = refiner.run()
     print(f"refined {iters} iters, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     os.makedirs(output, exist_ok=True)
@@ -66,7 +72,7 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=2000)
     p.add_argument("--num-opt-views", type=int, default=16)
     p.add_argument("--lambda-lpips", type=float, default=0.0,
-                   help="must be 0: LPIPS is not ported yet")
+                   help="LPIPS weight beside the MSE; needs $V3D_TPU_LPIPS_WEIGHTS")
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)

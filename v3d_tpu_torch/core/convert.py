@@ -20,6 +20,7 @@ leaves ``np.asarray`` reads.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
@@ -27,11 +28,12 @@ import torch
 
 from v3d_tpu_torch.core import keymap
 
-KINDS = ("unet", "vae_encoder", "vae_decoder", "vae_video_decoder", "clip",
-         "dpt", "resunet", "discriminator", "pixelnerf")
+KINDS = ("unet", "unet2d", "vae_encoder", "vae_decoder", "vae_video_decoder",
+         "clip", "dpt", "resunet", "discriminator", "pixelnerf")
 
 KEY_MAPS = {
     "unet": keymap.convert_unet_key,
+    "unet2d": keymap.convert_unet2d_key,
     "vae_encoder": lambda k: keymap.convert_vae_key(k, False),
     "vae_decoder": lambda k: keymap.convert_vae_key(k, False),
     "vae_video_decoder": lambda k: keymap.convert_vae_key(k, True),
@@ -54,22 +56,25 @@ _INVERSES = {
 }
 
 
-def _key_map(kind: str) -> Callable[[str], Tuple]:
+def _key_map(kind: str, module: torch.nn.Module) -> Callable[[str], Tuple]:
     if kind not in KEY_MAPS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if kind == "unet2d":
+        return functools.partial(keymap.convert_unet2d_key,
+                                 use_linear=module.use_linear_in_transformer)
     return KEY_MAPS[kind]
 
 
 def state_dict_from_jax(flax_params: Mapping, kind: str,
                         module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Flax params (numpy leaves, with or without the top "params" level) ->
-    a state dict for ``module`` (one of VideoUNet, Encoder, Decoder,
+    a state dict for ``module`` (one of VideoUNet, UNetModel, Encoder, Decoder,
     VideoDecoder, CLIPVisionTransformer, DPT, ResUNet, NLayerDiscriminator,
     PixelNeRF, as ``kind`` says), float32 on the CPU.
     Raises on a key the map does not know, a missing leaf or a shape
     mismatch; a key of ``UNUSED[kind]`` without a leaf keeps the module's
     value."""
-    key_map = _key_map(kind)
+    key_map = _key_map(kind, module)
     unused = UNUSED.get(kind)
     tree = flax_params.get("params", flax_params)
     out = {}
@@ -91,6 +96,23 @@ def state_dict_from_jax(flax_params: Mapping, kind: str,
             raise ValueError(f"{kind}: {key} is {arr.shape} from Flax, "
                              f"{tuple(ref.shape)} in the port")
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def expand_unet_input_channels(state: Mapping[str, torch.Tensor], new_in: int
+                               ) -> Dict[str, torch.Tensor]:
+    """Zero-pad the UNet's first conv to ``new_in`` input channels
+    (counterpart of v3d_tpu/core/convert.py:410-428): an image UNet takes
+    extra concat-conditioning channels and starts out ignoring them.  A
+    torch state dict in, a new one out; refuses to shrink."""
+    key = "input_blocks.0.0.weight"
+    w = state[key]
+    cur = w.shape[1]
+    if new_in < cur:
+        raise ValueError(f"cannot shrink input channels {cur} -> {new_in}")
+    out = dict(state)
+    out[key] = torch.cat([w, w.new_zeros((w.shape[0], new_in - cur) + tuple(w.shape[2:]))],
+                         dim=1)
     return out
 
 

@@ -6,8 +6,10 @@ the torch tensor into the Flax leaf).
 A copy of the key maps of the JAX package's ``core/convert.py`` (:25-409,
 :436-537, ``convert_resunet`` :540-589), kept here so that the port imports
 nothing of that package.  The entry points are ``convert_unet_key``,
-``convert_vae_key``, ``convert_clip_key``, ``convert_dpt_key`` and
-``convert_resunet_key``; each returns None for a key it does not know.
+``convert_unet2d_key`` (the image UNet, whose map the JAX package lacks:
+it takes the Flax tree's own names), ``convert_vae_key``,
+``convert_clip_key``, ``convert_dpt_key`` and ``convert_resunet_key``; each
+returns None for a key it does not know.
 ``convert_discriminator_key`` and ``convert_pixelnerf_key`` map modules that
 have no published checkpoint and take the JAX tree's own names.
 
@@ -165,8 +167,9 @@ def _map_spatial_video_transformer(rest: str, prefix: Tuple[str, ...]):
     return None
 
 
-def _map_unet_layer(rest: str, prefix: Tuple[str, ...]):
-    """Translate one layer inside a TimestepEmbedSequential."""
+def _map_unet_layer(rest: str, prefix: Tuple[str, ...], block_map=None):
+    """Translate one layer inside a TimestepEmbedSequential; ``block_map``
+    maps the attention and res blocks (default: the VideoUNet's)."""
     # Downsample / Upsample
     m = re.match(r"op\.(weight|bias)$", rest)
     if m:
@@ -181,13 +184,15 @@ def _map_unet_layer(rest: str, prefix: Tuple[str, ...]):
     if m:
         p, f = _map_conv(prefix[-1], m.group(1))
         return prefix[:-1] + p, f
+    if block_map is not None:
+        return block_map(rest, prefix)
     out = _map_spatial_video_transformer(rest, prefix)
     if out is not None:
         return out
     return _map_video_resblock(rest, prefix)
 
 
-def convert_unet_key(key: str):
+def convert_unet_key(key: str, block_map=None):
     m = re.match(r"time_embed\.(0|2)\.(weight|bias)$", key)
     if m:
         return _map_linear(f"time_embed_{m.group(1)}", m.group(2))
@@ -202,14 +207,47 @@ def convert_unet_key(key: str):
         return _map_conv("out_conv", m.group(1))
     m = re.match(r"input_blocks\.(\d+)\.(\d+)\.(.*)$", key)
     if m:
-        return _map_unet_layer(m.group(3), (f"in_{m.group(1)}_{m.group(2)}",))
+        return _map_unet_layer(m.group(3), (f"in_{m.group(1)}_{m.group(2)}",), block_map)
     m = re.match(r"middle_block\.(\d+)\.(.*)$", key)
     if m:
-        return _map_unet_layer(m.group(2), (f"mid_{m.group(1)}",))
+        return _map_unet_layer(m.group(2), (f"mid_{m.group(1)}",), block_map)
     m = re.match(r"output_blocks\.(\d+)\.(\d+)\.(.*)$", key)
     if m:
-        return _map_unet_layer(m.group(3), (f"out_{m.group(1)}_{m.group(2)}",))
+        return _map_unet_layer(m.group(3), (f"out_{m.group(1)}_{m.group(2)}",), block_map)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the image UNet (v3d_tpu/models/unet2d.py).  The JAX package has no
+# converter for it (its convert_video_unet sends every res block through
+# the video map); this map takes the Flax tree's own names: in_{b}_{l},
+# mid_{l}, out_{b}_{l}, blocks_{i}, in_norm / in_conv / emb_linear /
+# out_norm / out_conv / skip_conv.
+# ---------------------------------------------------------------------------
+
+def _map_spatial_transformer(rest: str, prefix: Tuple[str, ...], use_linear: bool):
+    """attention_blocks.SpatialTransformer: proj_in / proj_out are Dense
+    layers or, without ``use_linear``, 1x1 convolutions."""
+    m = re.match(r"norm\.(weight|bias)$", rest)
+    if m:
+        return prefix + _norm_path("norm", "gn", m.group(1)), t2j
+    m = re.match(r"proj_(in|out)\.(weight|bias)$", rest)
+    if m:
+        mapper = _map_linear if use_linear else _map_conv
+        p, f = mapper(f"proj_{m.group(1)}", m.group(2))
+        return prefix + p, f
+    m = re.match(r"transformer_blocks\.(\d+)\.(.*)$", rest)
+    if m:
+        return _map_transformer_block(m.group(2), prefix + (f"blocks_{m.group(1)}",))
+    return None
+
+
+def convert_unet2d_key(key: str, use_linear: bool = True):
+    def block_map(rest, prefix):
+        out = _map_spatial_transformer(rest, prefix, use_linear)
+        return out if out is not None else _map_plain_resblock(rest, prefix)
+
+    return convert_unet_key(key, block_map)
 
 
 # ---------------------------------------------------------------------------

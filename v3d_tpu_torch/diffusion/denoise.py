@@ -15,6 +15,8 @@ from typing import Callable, Dict
 
 import torch
 
+from v3d_tpu_torch.core.registry import register
+
 
 def append_dims(x: torch.Tensor, target_ndim: int) -> torch.Tensor:
     """Append trailing singleton dims until ``x.dim() == target_ndim``."""
@@ -24,6 +26,7 @@ def append_dims(x: torch.Tensor, target_ndim: int) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * extra)
 
 
+@register("denoiser")
 @dataclasses.dataclass(frozen=True)
 class Denoiser:
     scaling: Callable
@@ -43,6 +46,7 @@ class Denoiser:
         return model_out * c_out + x * c_skip
 
 
+@register("discrete_denoiser")
 @dataclasses.dataclass(frozen=True)
 class DiscreteDenoiser(Denoiser):
     """Sigma quantized to the nearest of ``num_idx`` levels of

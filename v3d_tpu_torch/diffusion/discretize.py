@@ -12,6 +12,8 @@ import dataclasses
 
 import numpy as np
 
+from v3d_tpu_torch.core.registry import register
+
 
 class Discretization:
     def __call__(self, n: int, do_append_zero: bool = True,
@@ -25,6 +27,7 @@ class Discretization:
         raise NotImplementedError
 
 
+@register("edm_discretization")
 @dataclasses.dataclass(frozen=True)
 class EDMDiscretization(Discretization):
     """Karras rho-ramp from sigma_max down to sigma_min."""
@@ -48,6 +51,7 @@ def make_beta_schedule_linear(n_timestep: int, linear_start: float,
                        dtype=np.float64) ** 2
 
 
+@register("legacy_ddpm_discretization")
 @dataclasses.dataclass(frozen=True)
 class LegacyDDPMDiscretization(Discretization):
     linear_start: float = 0.00085
@@ -68,6 +72,7 @@ class LegacyDDPMDiscretization(Discretization):
         return sigmas[::-1].astype(np.float32)
 
 
+@register("sliced_discretization")
 @dataclasses.dataclass(frozen=True)
 class SlicedDiscretization(Discretization):
     """img2img's truncated schedule (sgm inference/helpers.py do_img2img,

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.diffusion.denoise import append_dims
 
 Cond = Dict[str, torch.Tensor]
@@ -34,6 +35,7 @@ def _prepare_cfg_inputs(x, s, c: Cond, uc: Cond, extra_keys=()) -> Tuple:
     return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), c_out
 
 
+@register("identity_guider")
 @dataclasses.dataclass(frozen=True)
 class IdentityGuider:
     def prepare_inputs(self, x, s, c: Cond, uc: Cond):
@@ -43,6 +45,7 @@ class IdentityGuider:
         return x
 
 
+@register("vanilla_cfg")
 @dataclasses.dataclass(frozen=True)
 class VanillaCFG:
     scale: float = 1.0
@@ -80,6 +83,7 @@ class _FrameScaleGuider:
         return out.reshape((b * t,) + out.shape[2:])
 
 
+@register("linear_prediction_guider")
 @dataclasses.dataclass(frozen=True)
 class LinearPredictionGuider(_FrameScaleGuider):
     """guiders.py:60-103: scale ramps linspace(min, max) over the frames."""
@@ -89,6 +93,7 @@ class LinearPredictionGuider(_FrameScaleGuider):
                            dtype=np.float32)
 
 
+@register("triangle_prediction_guider")
 @dataclasses.dataclass(frozen=True)
 class TrianglePredictionGuider(_FrameScaleGuider):
     """guiders.py:104-146: up to 2*max_scale mid-orbit, mirrored back down."""

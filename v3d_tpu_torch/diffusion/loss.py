@@ -14,9 +14,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.diffusion.denoise import append_dims
 
 
+@register("standard_diffusion_loss")
 @dataclasses.dataclass(frozen=True)
 class StandardDiffusionLoss:
     sigma_sampler: Callable = None
@@ -53,6 +55,7 @@ class StandardDiffusionLoss:
         return per.reshape(n, -1).mean(dim=1)
 
 
+@register("diffusion_loss_with_pixelnerf")
 @dataclasses.dataclass(frozen=True)
 class StandardDiffusionLossWithPixelNeRFLoss(StandardDiffusionLoss):
     """loss.py:51-71 (sgm loss.py:120-186): the base loss without

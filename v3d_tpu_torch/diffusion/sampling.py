@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.diffusion.denoise import append_dims
 from v3d_tpu_torch.diffusion.guidance import IdentityGuider
 
@@ -84,6 +85,7 @@ class BaseDiffusionSampler:
                            generator=generator)
 
 
+@register("euler_edm_sampler")
 @dataclasses.dataclass(frozen=True)
 class EulerEDMSampler(BaseDiffusionSampler):
     """EDM stochastic Euler sampler (sgm sampling.py:85-133, 214-219).  With
@@ -128,6 +130,7 @@ class EulerEDMSampler(BaseDiffusionSampler):
         return x
 
 
+@register("heun_edm_sampler")
 @dataclasses.dataclass(frozen=True)
 class HeunEDMSampler(EulerEDMSampler):
     """2nd-order Heun correction (sampling.py:221-238), skipped on the last
@@ -142,6 +145,7 @@ class HeunEDMSampler(EulerEDMSampler):
         return x + dt * (d + d_new) / 2.0
 
 
+@register("euler_ancestral_sampler")
 @dataclasses.dataclass(frozen=True)
 class EulerAncestralSampler(BaseDiffusionSampler):
     """Ancestral Euler with eta-controlled noise (sampling.py:240-248)."""
@@ -167,6 +171,7 @@ class EulerAncestralSampler(BaseDiffusionSampler):
         return x
 
 
+@register("dpmpp2s_ancestral_sampler")
 @dataclasses.dataclass(frozen=True)
 class DPMPP2SAncestralSampler(BaseDiffusionSampler):
     """DPM-Solver++(2S) ancestral (sampling.py:250-288); the second-order
@@ -207,6 +212,7 @@ class DPMPP2SAncestralSampler(BaseDiffusionSampler):
         return x
 
 
+@register("dpmpp2m_sampler")
 @dataclasses.dataclass(frozen=True)
 class DPMPP2MSampler(BaseDiffusionSampler):
     """DPM-Solver++(2M) multistep (sampling.py:290-365): the first step and
@@ -242,6 +248,7 @@ class DPMPP2MSampler(BaseDiffusionSampler):
         return x
 
 
+@register("linear_multistep_sampler")
 @dataclasses.dataclass(frozen=True)
 class LinearMultistepSampler(BaseDiffusionSampler):
     """Adams-Bashforth style multistep (sampling.py:176-212): coefficients

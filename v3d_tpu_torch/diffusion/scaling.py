@@ -12,9 +12,12 @@ from typing import Tuple
 
 import torch
 
+from v3d_tpu_torch.core.registry import register
+
 Coeffs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+@register("edm_scaling")
 @dataclasses.dataclass(frozen=True)
 class EDMScaling:
     sigma_data: float = 0.5
@@ -28,6 +31,7 @@ class EDMScaling:
         return c_skip, c_out, c_in, c_noise
 
 
+@register("eps_scaling")
 @dataclasses.dataclass(frozen=True)
 class EpsScaling:
     def __call__(self, sigma: torch.Tensor) -> Coeffs:
@@ -38,6 +42,7 @@ class EpsScaling:
         return c_skip, c_out, c_in, c_noise
 
 
+@register("v_scaling")
 @dataclasses.dataclass(frozen=True)
 class VScaling:
     def __call__(self, sigma: torch.Tensor) -> Coeffs:
@@ -48,6 +53,7 @@ class VScaling:
         return c_skip, c_out, c_in, c_noise
 
 
+@register("v_scaling_edm_cnoise")
 @dataclasses.dataclass(frozen=True)
 class VScalingWithEDMcNoise:
     def __call__(self, sigma: torch.Tensor) -> Coeffs:

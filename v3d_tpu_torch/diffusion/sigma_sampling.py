@@ -10,7 +10,10 @@ from typing import Optional
 
 import torch
 
+from v3d_tpu_torch.core.registry import register
 
+
+@register("edm_sigma_sampling")
 @dataclasses.dataclass(frozen=True)
 class EDMSampling:
     p_mean: float = -1.2
@@ -23,6 +26,7 @@ class EDMSampling:
         return torch.exp(log_sigma)
 
 
+@register("discrete_sigma_sampling")
 @dataclasses.dataclass(frozen=True)
 class DiscreteSampling:
     """Uniform over the levels of a fixed discretization

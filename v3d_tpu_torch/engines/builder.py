@@ -65,9 +65,13 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
-def _materialise(module: nn.Module, device, dtype, seed: int) -> nn.Module:
-    module = module.to_empty(device=device)
-    seeded_init_(module, seed)
+def materialise(module: nn.Module, device, dtype, seed: int) -> nn.Module:
+    """A module built on the meta device -> on ``device``, filled by
+    ``seeded_init_``, in ``dtype``, frozen for inference.  On "meta" it
+    stays without storage (shapes only)."""
+    if torch.device(device).type != "meta":
+        module = module.to_empty(device=device)
+        seeded_init_(module, seed)
     return module.to(dtype).eval().requires_grad_(False)
 
 
@@ -102,7 +106,7 @@ def build_v3d_engine(num_frames: int = 18, num_steps: int = 25,
         encoder = Encoder(double_z=True, **vae_kw)
         decoder = VideoDecoder(out_ch=3, **vae_kw)
         clip = CLIPVisionTransformer(**(clip_cfg or {}))
-    mods = [_materialise(m, device, dtype, seed + i)
+    mods = [materialise(m, device, dtype, seed + i)
             for i, m in enumerate((unet, encoder, decoder, clip))]
     return VideoDiffusionEngine(
         unet=mods[0], denoiser=Denoiser(scaling=VScalingWithEDMcNoise()),

@@ -9,7 +9,10 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
+from v3d_tpu_torch.core.registry import register
 
+
+@register("lambda_linear_scheduler")
 def lambda_linear(warm_up_steps: Sequence[int] = (1,),
                   f_start: Sequence[float] = (1e-6,),
                   f_max: Sequence[float] = (1.0,),
@@ -31,6 +34,7 @@ def lambda_linear(warm_up_steps: Sequence[int] = (1,),
     return schedule
 
 
+@register("lambda_warmup_cosine_scheduler")
 def lambda_warmup_cosine(warm_up_steps: int, lr_min: float, lr_max: float,
                          lr_start: float, max_decay_steps: int
                          ) -> Callable[[int], float]:

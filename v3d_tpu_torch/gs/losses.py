@@ -7,8 +7,8 @@ zero-padded SAME (the JAX package's banded matmuls are a TPU recast of the
 same filter).  Its variance terms are cancellations (m11 - mu1^2 is ~1e-4 in
 flat regions), so the convolution runs in full float32: TF32 (cuDNN's default
 for float32 convolutions) leaves the SSIM map as noise and the loss can go
-negative.  ``ssim`` turns TF32 off for its convolution whatever the global
-flags say.
+negative.  ``ssim`` turns TF32 off for its convolution and its gradient
+whatever the global flags say (``utils.precision.conv2d_f32``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from v3d_tpu_torch.utils.precision import conv2d_f32
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,10 +43,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, size: int = 11,
                       dim=-1).permute(0, 3, 1, 2)
     win = torch.from_numpy(_gaussian_window(size, sigma)).to(stack.device)
     weight = win.expand(5 * c, 1, size, size)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        f = F.conv2d(stack, weight, padding=size // 2, groups=5 * c)
+    f = conv2d_f32(stack, weight, padding=size // 2, groups=5 * c)
     mu1, mu2, m11, m22, m12 = f.split(c, dim=1)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     s1 = m11 - mu1_sq

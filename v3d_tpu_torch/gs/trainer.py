@@ -1,8 +1,8 @@
 """3DGS fitting loop (counterpart of v3d_tpu/gs/trainer.py, itself of
 recon/train_from_vid.py:38-208).
 
-Each step renders one training view, takes L1 + SSIM + an opacity penalty,
-backpropagates through the compositor (T10 forward, T11 backward on the
+Each step renders one training view, takes L1 + SSIM (+ LPIPS where a
+``lpips_fn`` is given) + an opacity penalty, backpropagates through the compositor (T10 forward, T11 backward on the
 card) and the projection, and takes an Adam step; densify/prune events and
 opacity resets come at exact iteration multiples.  Parameters, Adam moments
 and the densification statistics stay on the device for the whole fit:
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ ADAM_EPS = 1e-15
 class GSTrainConfig:
     """OptimizationParams (recon/arguments/__init__.py:88-108) +
     train_from_vid defaults, as the JAX package's GSTrainConfig (without its
-    scan chunking, host-densify and LPIPS options)."""
+    scan chunking and host-densify options); V3D's readme step 4 runs 4000
+    iterations with lambda_dssim 1.0 and lambda_lpips 2.0."""
 
     iterations: int = 4000
     position_lr_init: float = 0.00016
@@ -52,6 +53,7 @@ class GSTrainConfig:
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
     lambda_dssim: float = 0.2
+    lambda_lpips: float = 0.0
     lambda_opacity: float = 0.1
     percent_dense: float = 0.01
     densification_interval: int = 100
@@ -94,15 +96,18 @@ def camera_extent(cameras: List) -> float:
 
 class GSTrainer:
     """Fits gaussians to a set of posed images (the VideoNVS scene) on
-    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    ``device`` (the card unless the caller passes ``device="cpu"``).
+    ``lpips_fn(image, target)`` on (1, H, W, 3) tensors adds
+    ``lambda_lpips`` times its value to the loss."""
 
     def __init__(self, cameras: List, config: GSTrainConfig = GSTrainConfig(),
                  num_pts: int = 100_000, capacity: Optional[int] = None,
                  seed: int = 0, sh_degree: int = 0, radius: float = 2.0,
-                 device="cuda"):
+                 lpips_fn: Optional[Callable] = None, device="cuda"):
         self.device = torch.device(device)
         self.cams = cameras
         self.cfg = config
+        self.lpips_fn = lpips_fn
         self.rng = np.random.RandomState(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.extent = camera_extent(cameras)
@@ -177,6 +182,8 @@ class GSTrainer:
         loss = (1.0 - cfg.lambda_dssim) * l1_loss(out.image, target)
         if cfg.lambda_dssim > 0:
             loss = loss + cfg.lambda_dssim * (1.0 - ssim(out.image, target))
+        if cfg.lambda_lpips > 0 and self.lpips_fn is not None:
+            loss = loss + cfg.lambda_lpips * self.lpips_fn(out.image[None], target[None])
         op = torch.sigmoid(self.params["opacity"][:, 0]) * self.alive
         loss = loss + cfg.lambda_opacity * op.sum() / torch.clamp(
             self.alive.sum(), min=1)

@@ -5,13 +5,14 @@ softmax run in float32, products in the module dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from v3d_tpu_torch.models.layers import GroupNorm32, LayerNormF32, Linear
+from v3d_tpu_torch.models.layers import Conv2d, GroupNorm32, LayerNormF32, Linear
 from v3d_tpu_torch.ops._dispatch import use_plain
 from v3d_tpu_torch.ops.attention import (
     attention,
@@ -115,12 +116,16 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """attention.py:461-560: pre-norm self-attn, cross-attn, GEGLU FF."""
+    """attention.py:461-560: pre-norm self-attn, cross-attn, GEGLU FF.  With
+    ``disable_self_attn`` the first attention also attends to the context."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None,
+                 disable_self_attn: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, None, n_heads, d_head)
+        self.disable_self_attn = disable_self_attn
+        self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None,
+                                    n_heads, d_head)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
         self.norm1 = LayerNormF32(dim)
@@ -128,7 +133,7 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
 
     def forward(self, x, context=None):
-        x = self.attn1(self.norm1(x)) + x
+        x = self.attn1(self.norm1(x), context if self.disable_self_attn else None) + x
         x = self.attn2(self.norm2(x), context) + x
         return self.ff(self.norm3(x)) + x
 
@@ -146,24 +151,35 @@ def from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 class SpatialTransformer(nn.Module):
-    """attention.py:624-764 with linear projections (V3D's use_linear):
-    GroupNorm -> proj_in -> blocks -> proj_out, plus the residual.  Input
-    (n, c, h, w); context (n, s_ctx, context_dim)."""
+    """attention.py:624-764: GroupNorm -> proj_in -> blocks -> proj_out,
+    plus the residual.  Input (n, c, h, w); context (n, s_ctx, context_dim).
+    The projections are linear on the tokens (V3D's and SD 2.x's
+    ``use_linear``) or, with ``use_linear=False``, 1x1 convolutions on the
+    map (SD 1.x)."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
-                 depth: int = 1, context_dim: Optional[int] = None):
+                 depth: int = 1, context_dim: Optional[int] = None,
+                 use_linear: bool = True, disable_self_attn: bool = False):
         super().__init__()
         inner = n_heads * d_head
+        self.use_linear = use_linear
         self.norm = GroupNorm32(in_channels, eps=1e-6)
-        self.proj_in = Linear(in_channels, inner)
+        proj = Linear if use_linear else functools.partial(Conv2d, kernel_size=1)
+        self.proj_in = proj(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim)
+            BasicTransformerBlock(inner, n_heads, d_head, context_dim,
+                                  disable_self_attn)
             for _ in range(depth))
-        self.proj_out = Linear(inner, in_channels)
+        self.proj_out = proj(inner, in_channels)
 
     def forward(self, x, context=None):
         _, _, h, w = x.shape
-        tokens = self.proj_in(to_tokens(self.norm(x)))
+        if self.use_linear:
+            tokens = self.proj_in(to_tokens(self.norm(x)))
+        else:
+            tokens = to_tokens(self.proj_in(self.norm(x)))
         for block in self.transformer_blocks:
             tokens = block(tokens, context)
-        return from_tokens(self.proj_out(tokens), h, w) + x
+        if self.use_linear:
+            return from_tokens(self.proj_out(tokens), h, w) + x
+        return self.proj_out(from_tokens(tokens, h, w)) + x

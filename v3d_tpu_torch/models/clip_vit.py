@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.models.layers import LayerNormF32
 from v3d_tpu_torch.ops.attention import attention
 
@@ -69,6 +70,7 @@ class _Transformer(nn.Module):
                                        for _ in range(layers))
 
 
+@register("clip_vit")
 class CLIPVisionTransformer(nn.Module):
     """(n, 3, image_size, image_size) CLIP-normalised -> (n, output_dim)."""
 

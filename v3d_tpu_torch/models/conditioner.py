@@ -16,6 +16,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.diffusion.denoise import append_dims
 from v3d_tpu_torch.models.layers import timestep_embedding
 
@@ -23,12 +24,14 @@ from v3d_tpu_torch.models.layers import timestep_embedding
 OUTPUT_DIM2KEYS = {2: "vector", 3: "crossattn", 4: "concat", 5: "concat"}
 
 
+@register("identity_encoder")
 @dataclasses.dataclass(frozen=True)
 class IdentityEncoder:
     def __call__(self, x):
         return x
 
 
+@register("concat_timestep_embedder_nd")
 @dataclasses.dataclass(frozen=True)
 class ConcatTimestepEmbedderND:
     """modules.py:937-953: sinusoidal embedding of each scalar column,
@@ -56,6 +59,7 @@ class EmbedderSpec:
     needs_rng: bool = False
 
 
+@register("general_conditioner")
 @dataclasses.dataclass(frozen=True)
 class GeneralConditioner:
     embedders: Sequence[EmbedderSpec] = ()

@@ -166,12 +166,16 @@ class ResBlock(nn.Module):
     ``kernel_size`` of (3, 1, 1) gives a temporal-only conv.  With
     ``exchange_temb_dims`` the embedding arrives (b, t, e) and is broadcast
     per frame.  ``skip_t_emb`` drops the embedding (the VAE's temporal
-    stacks)."""
+    stacks).  With ``use_scale_shift_norm`` (openaimodel.py:334-341) the
+    embedding is a (scale, shift) pair applied after the out-norm:
+    ``GN(h) * (1 + scale) + shift``, then SiLU; that norm runs without the
+    fused SiLU and ``out_layers.1`` is the SiLU itself."""
 
     def __init__(self, channels: int, emb_channels: int,
                  out_channels: Optional[int] = None, dims: int = 2,
                  kernel_size: Union[int, Sequence[int]] = 3,
-                 exchange_temb_dims: bool = False, skip_t_emb: bool = False):
+                 exchange_temb_dims: bool = False, skip_t_emb: bool = False,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
         out_channels = out_channels or channels
         ks = (kernel_size,) * dims if isinstance(kernel_size, int) else tuple(kernel_size)
@@ -179,15 +183,18 @@ class ResBlock(nn.Module):
         self.dims = dims
         self.exchange_temb_dims = exchange_temb_dims
         self.skip_t_emb = skip_t_emb
+        self.use_scale_shift_norm = use_scale_shift_norm
         # the GroupNorm + SiLU pairs are fused (K6); Identity keeps the index
         self.in_layers = nn.Sequential(
             GroupNorm32(channels, act="silu"), nn.Identity(),
             conv_nd(dims, channels, out_channels, ks, padding=pad))
         if not skip_t_emb:
-            self.emb_layers = nn.Sequential(nn.SiLU(),
-                                            Linear(emb_channels, out_channels))
+            self.emb_layers = nn.Sequential(nn.SiLU(), Linear(
+                emb_channels, 2 * out_channels if use_scale_shift_norm else out_channels))
+        out_norm = ((GroupNorm32(out_channels), nn.SiLU()) if use_scale_shift_norm
+                    else (GroupNorm32(out_channels, act="silu"), nn.Identity()))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels, act="silu"), nn.Identity(), nn.Dropout(0.0),
+            *out_norm, nn.Dropout(0.0),
             conv_nd(dims, out_channels, out_channels, ks, padding=pad))
         self.skip_connection = (
             nn.Identity() if out_channels == channels
@@ -201,5 +208,9 @@ class ResBlock(nn.Module):
                 e = e.permute(0, 2, 1)[..., None, None]
             else:
                 e = e.reshape(e.shape + (1,) * (h.dim() - 2))
+            if self.use_scale_shift_norm:
+                scale, shift = e.chunk(2, dim=1)
+                h = self.out_layers[0](h) * (1 + scale) + shift
+                return self.skip_connection(x) + self.out_layers[1:](h)
             h = h + e
         return self.skip_connection(x) + self.out_layers(h)

@@ -16,9 +16,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.models.vae import gaussian_kl, gaussian_mode, gaussian_sample
 
 
+@register("diagonal_gaussian_regularizer")
 @dataclasses.dataclass(frozen=True)
 class DiagonalGaussianRegularizer:
     """regularizers.py:20-34: a sample of the moments (or their mean), and

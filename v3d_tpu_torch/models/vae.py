@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v3d_tpu_torch.core.registry import check_fixed, register
 from v3d_tpu_torch.models.attention_blocks import from_tokens, to_tokens
 from v3d_tpu_torch.models.layers import (
     GroupNorm32,
@@ -130,6 +131,7 @@ def _blocks_and_attention(level: _Level, h, *extra):
     return h
 
 
+@register("vae_encoder")
 class Encoder(nn.Module):
     """model.py:487-604.  (n, 3, H, W) in [-1, 1] -> (n, 2*z, H/8, W/8)
     moments (double_z); attention after each res block of the levels whose
@@ -205,6 +207,7 @@ class AE3DConv(nn.Conv2d):
         return from_video(self.time_mix_conv(x5))
 
 
+@register("vae_decoder")
 class Decoder(nn.Module):
     """model.py:604-748 (the JAX package's ``DecoderBase``, vae.py:192-236):
     (n, z, h, w) -> (n, out_ch, h * 2^(levels-1), ...), attention after each
@@ -259,6 +262,7 @@ class Decoder(nn.Module):
         return self.decode(z)
 
 
+@register("video_decoder")
 class VideoDecoder(Decoder):
     """temporal_ae.py:293-349 (time_mode "conv-only"): every ResnetBlock has a
     temporal stack and conv_out is an AE3DConv; attention stays spatial.
@@ -267,6 +271,13 @@ class VideoDecoder(Decoder):
 
     resblock = VideoResBlockAE
     make_conv_out = AE3DConv
+
+    def __init__(self, *args, **kwargs):
+        """Decoder's arguments, and the JAX VideoDecoder's fields at V3D's
+        values only (``video_kernel_size`` (3, 1, 1), ``alpha`` 0)."""
+        fixed = {k: kwargs.pop(k) for k in ("video_kernel_size", "alpha") if k in kwargs}
+        check_fixed("VideoDecoder", fixed, dict(video_kernel_size=(3, 1, 1), alpha=0.0))
+        super().__init__(*args, **kwargs)
 
     def forward(self, z, num_frames: int):
         return self.decode(z, num_frames)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from v3d_tpu_torch.core.registry import check_fixed, register
 from v3d_tpu_torch.models.layers import (
     AlphaBlender,
     Conv2d,
@@ -92,6 +93,17 @@ def unet_layer_specs(model_channels: int, channel_mult: Sequence[int],
     return input_specs, middle_spec, output_specs
 
 
+# fields of the JAX VideoUNet (video_unet.py:120-143) that the port builds
+# at V3D's values only; a config may pass them (configs/v3d_512.yaml does)
+VIDEO_UNET_FIXED = dict(
+    transformer_depth=1, use_scale_shift_norm=False, video_kernel_size=(3, 1, 1),
+    merge_strategy="learned_with_images", merge_factor=0.5,
+    extra_ff_mix_layer=True, use_spatial_context=True,
+    use_linear_in_transformer=True, disable_temporal_crossattention=False,
+    max_ddpm_temb_period=10000)
+
+
+@register("video_unet")
 class VideoUNet(nn.Module):
     """video_model.py:84-493 with V3D_512.yaml defaults.
 
@@ -101,6 +113,9 @@ class VideoUNet(nn.Module):
       context    ((b t), s_ctx, context_dim)  CLIP crossattn tokens
       y          ((b t), adm_in_channels)     fps / motion / cond-aug vector
     returns ((b t), out_channels, h, w) in float32.
+
+    The JAX module's other fields are taken only at V3D's values
+    (``VIDEO_UNET_FIXED``); any other value raises.
     """
 
     def __init__(self, in_channels: int = 8, model_channels: int = 320,
@@ -110,8 +125,9 @@ class VideoUNet(nn.Module):
                  num_head_channels: int = 64, context_dim: int = 1024,
                  adm_in_channels: Optional[int] = 768,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, **fixed):
         super().__init__()
+        check_fixed("VideoUNet", fixed, VIDEO_UNET_FIXED)
         mc = model_channels
         emb_ch = 4 * mc
         self.model_channels = mc
