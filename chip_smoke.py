@@ -140,9 +140,27 @@ Phases, each printing lines before the last:
     PLY (spiral 54 frames, depth, orbit) and ``apps.metrics_cli`` on the
     orbit renders against the frames; refine with lambda_lpips 1 and
     without on a sphere mesh, and ``apps.refine.do_refine`` with it.
+23. posed scenes through ``apps.recon_scene``: K4 / K5 against the plain
+    compositor on one 1008 x 756 view (63 x 48 tiles, the last row 4
+    pixels tall) and one 800^2 view of the seeded 100k-point init at Kc
+    4096, and a fit step's gradients at both sizes against
+    ``reference_mode()``; then, sphere-traced from phase 11's analytic
+    scene, a blender scene at NeRF-synthetic's size (100 RGBA views at
+    800^2, FoV 40) for 500 of 4000 iterations, a COLMAP workspace at LLFF's
+    (20 views at 1008 x 756, a binary model of 2000 points) through
+    ``apps.imgs2poses.gen_poses`` and 300 iterations, and a DTU scene at
+    neus-dtu's downscale (49 views at 800 x 600, per-frame K, masks,
+    cameras.npz) through NeuS for 300 steps and the mesh at 128^3: ms per
+    step, PSNR, launches (K4 = K5 = iterations);
+24. the other entry points: ``apps.full_eval.run`` on two 18-frame 512^2
+    orbits written as mp4 (300 iterations each, launches exact),
+    ``apps.recon_neus_ortho`` on the six Wonder3D views at 512^2 (fixed
+    poses, normal maps) for 300 of 3000 steps and the coloured mesh at
+    128^3, and ``validate_ckpt --all`` on seeded LPIPS and U2Net .npz files
+    and on an empty directory.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
-19, 20, 21, and 22's fit and renders) is run with the launch counts set to 0 just before it and read
+19, 20, 21, 22's fit and renders, 23's fits and 24's ``full_eval``) is run with the launch counts set to 0 just before it and read
 just after (phase 12: each stage's launches, the counters read before and
 after it).  A kernel of the path launched
 no time, or another number of times than the path needs (counted from the
@@ -1126,20 +1144,24 @@ def flash_bwd_checks(randn) -> dict:
     return res
 
 
-def fit_scene_slabs(dev, n: int = 100_000, res: int = 512, kc: int = 2048):
+def fit_scene_slabs(dev, n: int = 100_000, res: int = 512, kc: int = 2048,
+                    width: int = None, height: int = None, fov: float = 60.0,
+                    radius: float = 2.0):
     """The slab T10/T11 see at the first step of the fit: the trainer's
-    seeded random init of ``n`` points projected from orbit camera 0 at
-    res^2, binned into 8x8-tile coarse cells of Kc = ``kc``."""
+    seeded random init of ``n`` points (in a ball of ``radius``) projected
+    from orbit camera 0 (horizontal FoV ``fov``) at res^2, or at ``width`` x
+    ``height``, binned into 8x8-tile coarse cells of Kc = ``kc``."""
     import numpy as np
 
-    from v3d_tpu_torch.data.cameras import orbit_cameras
+    from v3d_tpu_torch.data.cameras import Camera, get_uniform_poses
     from v3d_tpu_torch.gs.gaussians import from_pcd, random_init_pcd
     from v3d_tpu_torch.gs.render import RasterizeConfig, build_slabs, project_gaussians
 
-    xyz, colors = random_init_pcd(np.random.RandomState(0), n, radius=2.0)
+    width, height = width or res, height or res
+    xyz, colors = random_init_pcd(np.random.RandomState(0), n, radius=radius)
     g = from_pcd(xyz, colors, capacity=3 * n, device=dev)
-    cam = orbit_cameras(18, resolution=res)[0]
-    return build_slabs(project_gaussians(g, cam), res, res,
+    cam = Camera.from_c2w(get_uniform_poses(18, 2.0, 0.0)[0], fov, width, height)
+    return build_slabs(project_gaussians(g, cam), height, width,
                        RasterizeConfig(max_per_coarse=kc))
 
 
@@ -1219,12 +1241,12 @@ def gs_checkpoints_mismatch(saved, plain) -> dict:
             "ts_rel": float(rel.max()) if rel.numel() else 0.0}
 
 
-def k4_forward_check(slabs, phase: str) -> tuple:
+def k4_forward_check(slabs, phase: str, plain_iters: int = 5) -> tuple:
     """K4 (T10) against the plain compositor on ``slabs``: rgb / acc / depth,
     the checkpoints K5 reads, the (pixel, gaussian) pairs of this run's data
-    (``gs_pairs``), kernel / plain times and the bound.  Raises on a
-    disagreement; returns (the check's entry, its inputs, K4's checkpoints,
-    the pairs)."""
+    (``gs_pairs``), kernel / plain times (the plain one the median of
+    ``plain_iters`` samples) and the bound.  Raises on a disagreement;
+    returns (the check's entry, its inputs, K4's checkpoints, the pairs)."""
     import torch
 
     from v3d_tpu_torch.ops import gs_composite as gc
@@ -1250,7 +1272,8 @@ def k4_forward_check(slabs, phase: str) -> tuple:
         raise SmokeFailure(f"K4's checkpoints disagree with the plain ones: {ckpt}")
     pairs = gs_pairs(slabs, saved)
     fwd_ms = cuda_ms(lambda: gc.composite_fwd(*args))
-    plain_ms = cuda_ms(lambda: gc.composite_plain(*args), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: gc.composite_plain(*args), iters=plain_iters,
+                       warmup=int(plain_iters > 2))
     bound = bound_ms(
         pairs["needed"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_FWD,
         n_cells * kc * gc.ATTR * 4 + n_tiles * gc.P * 24
@@ -1280,25 +1303,8 @@ def phase_gs_kernels() -> dict:
     dev = torch.device("cuda")
     slabs = fit_scene_slabs(dev)
     k4, args, saved, pairs = k4_forward_check(slabs, "3 kernels")
-    n_cells, kc, _ = args[0].shape
     n_tiles = args[2].shape[0]
-    n_pix = n_tiles * gc.P
-    tag = k4["shape"]
-
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cot = [torch.randn(shape, device=dev, generator=gen)
-           for shape in ((n_tiles, gc.P, 3), (n_tiles, gc.P), (n_tiles, gc.P))]
-    dslab = gc.composite_bwd(args[0], args[2], args[3], saved, *cot)
-    torch.cuda.synchronize()
-    slab = args[0].clone().requires_grad_(True)
-    plain_out = gc.composite_plain(slab, *args[1:])
-    (want,) = torch.autograd.grad(plain_out, slab, cot, retain_graph=True)
-    rows = []
-    for a in range(gc.ATTR):
-        scale = float(want[..., a].abs().max())
-        rows.append((float((dslab[..., a] - want[..., a]).abs().max()), scale))
-    ok_bwd = bool(torch.isfinite(dslab).all()) and all(
-        e <= GS_GRAD_REL * sc for e, sc in rows)
+    k5, cot = k5_backward_check(args, saved, pairs, k4["shape"], "3 kernels")
 
     prof = torch.zeros(n_tiles, gc.FWD_PROF_SLOTS, dtype=torch.int64, device=dev)
     gc.composite_fwd(*args, prof=prof)
@@ -1317,21 +1323,58 @@ def phase_gs_kernels() -> dict:
     gc.composite_bwd(args[0], args[2], args[3], saved, *cot, prof=prof)
     torch.cuda.synchronize()
     cycles = prof[:, :4].double()
-    admitted, walked = int(prof[:, 4].sum()), int(prof[:, 5].sum())
+    walked = int(prof[:, 5].sum())
     say("3 kernels", f"K5 clock64 cycles per block ({n_tiles} blocks; the longest of "
         f"its groups for the phases), mean / max: "
         + ", ".join(f"{name} {float(cycles[:, i].mean()):,.0f} / {float(cycles[:, i].max()):,.0f}"
                     for i, name in enumerate(("all", "front-to-back sums", "walk", "flush")))
-        + f" | (tile, gaussian) pairs admitted by the cull {admitted:,} (exact 1/255 box "
-        f"{pairs['reach']:,}), gaussians the groups' first warps walked {walked:,}")
+        + f" | (tile, gaussian) pairs admitted by the cull {k5['cull_admitted']:,} (exact "
+        f"1/255 box {pairs['reach']:,}), gaussians the groups' first warps walked {walked:,}")
+    return {"gs_composite_fwd": [dict(k4, cull_admitted=fwd_admitted)],
+            "gs_composite_bwd": [k5]}
+
+
+def k5_backward_check(args, saved, pairs, tag: str, phase: str,
+                      plain_iters: int = 5) -> tuple:
+    """K5 (T11) against the autograd backward of the plain compositor on
+    K4's inputs and checkpoints (``k4_forward_check``'s), for seeded random
+    cotangents: each attribute's max abs <= GS_GRAD_REL x max |plain|; the
+    times of both, the bound.  Raises on a disagreement; returns (the
+    check's entry, the cotangents)."""
+    import torch
+
+    from v3d_tpu_torch.ops import gs_composite as gc
+
+    dev = args[0].device
+    n_cells, kc, _ = args[0].shape
+    n_tiles = args[2].shape[0]
+    n_pix = n_tiles * gc.P
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cot = [torch.randn(shape, device=dev, generator=gen)
+           for shape in ((n_tiles, gc.P, 3), (n_tiles, gc.P), (n_tiles, gc.P))]
+    dslab = gc.composite_bwd(args[0], args[2], args[3], saved, *cot)
+    torch.cuda.synchronize()
+    slab = args[0].clone().requires_grad_(True)
+    plain_out = gc.composite_plain(slab, *args[1:])
+    (want,) = torch.autograd.grad(plain_out, slab, cot, retain_graph=True)
+    rows = []
+    for a in range(gc.ATTR):
+        scale = float(want[..., a].abs().max())
+        rows.append((float((dslab[..., a] - want[..., a]).abs().max()), scale))
+    ok_bwd = bool(torch.isfinite(dslab).all()) and all(
+        e <= GS_GRAD_REL * sc for e, sc in rows)
+    prof = torch.zeros(n_tiles, gc.BWD_PROF_SLOTS, dtype=torch.int64, device=dev)
+    gc.composite_bwd(args[0], args[2], args[3], saved, *cot, prof=prof)
+    admitted = int(prof[:, 4].sum())
     bwd_ms = cuda_ms(lambda: gc.composite_bwd(args[0], args[2], args[3], saved, *cot))
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        plain_out, slab, cot, retain_graph=True), iters=5, warmup=1)
+        plain_out, slab, cot, retain_graph=True), iters=plain_iters,
+        warmup=int(plain_iters > 2))
     bwd_bound = bound_ms(
         pairs["needed_bwd"] * GS_FLOPS_TEST + pairs["composited"] * GS_FLOPS_BWD,
         2 * n_cells * kc * gc.ATTR * 4 + n_pix * 24 + pairs["ts_rows"] * gc.P * 4
         + n_tiles * 12, PEAK_FP32)
-    say("3 kernels", f"K5 gs_composite_bwd (T11) {tag} f32: per attribute "
+    say(phase, f"K5 gs_composite_bwd (T11) {tag} f32: per attribute "
         f"max_abs / max|plain| " + " ".join(f"{e / max(sc, 1e-30):.2e}"
                                             for e, sc in rows)
         + f" (<= {GS_GRAD_REL:g}) | kernel {bwd_ms:.4f} ms plain (autograd "
@@ -1342,13 +1385,13 @@ def phase_gs_kernels() -> dict:
         f"{admitted:,} | {'ok' if ok_bwd else 'FAIL'}")
     if not ok_bwd:
         raise SmokeFailure(f"gs_composite_bwd disagrees: {rows}")
-    return {
-        "gs_composite_fwd": [dict(k4, cull_admitted=fwd_admitted)],
-        "gs_composite_bwd": [{"shape": tag, "dtype": "float32", "library_ms": None,
-                              "pairs": pairs, "cull_admitted": admitted,
-                              "max_abs_err": max(e for e, _ in rows),
-                              "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-                              "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}]}
+    entry = {"shape": tag, "dtype": "float32", "library_ms": None,
+             "pairs": pairs, "cull_admitted": admitted,
+             "max_abs_err": max(e for e, _ in rows),
+             "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+    del plain_out, slab, want, dslab
+    return entry, cot
 
 
 ATTENTION_KERNELS = ("flash_attn_fwd", "flash_attn_fwd_wide")
@@ -1780,11 +1823,14 @@ def gs_fit_launches(iters: int, renders: int) -> dict:
     return out
 
 
-def fit_grad_check(frames, dev, phase: str, lpips_fn=None, **config) -> None:
+def fit_grad_check(frames, dev, phase: str, lpips_fn=None, cams=None,
+                   radius: float = 2.0, **config) -> None:
     """The fit recipe's first step on view 0 (the init made anisotropic and
     rotated), its loss and every gradient with the kernels against
     ``reference_mode()``: loss rel 1e-5, each field's max abs <=
-    GS_GRAD_REL x max |plain|.  ``config`` overrides GSTrainConfig fields."""
+    GS_GRAD_REL x max |plain|.  The views: ``cams`` (3DGS cameras with
+    their images), else the orbit on ``frames``; the init in a ball of
+    ``radius``.  ``config`` overrides GSTrainConfig fields."""
     import torch
 
     from v3d_tpu_torch.data.cameras import orbit_cameras
@@ -1793,10 +1839,11 @@ def fit_grad_check(frames, dev, phase: str, lpips_fn=None, **config) -> None:
 
     cfg = GSTrainConfig(**{**dict(lambda_dssim=1.0, opacity_reset_mode="none",
                                   opacity_decay=0.995), **config})
-    tr = GSTrainer(orbit_cameras(frames.shape[0], resolution=frames.shape[1],
-                                 images=list(frames)),
-                   cfg, num_pts=FIT_POINTS, capacity=FIT_CAPACITY, seed=0,
-                   lpips_fn=lpips_fn, device=dev)
+    if cams is None:
+        cams = orbit_cameras(frames.shape[0], resolution=frames.shape[1],
+                             images=list(frames))
+    tr = GSTrainer(cams, cfg, num_pts=FIT_POINTS, capacity=FIT_CAPACITY, seed=0,
+                   radius=radius, lpips_fn=lpips_fn, device=dev)
     # anisotropic, rotated gaussians: at the isotropic init the rotation
     # gradient is 0 up to rounding, and rounding is not what is compared
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1817,8 +1864,9 @@ def fit_grad_check(frames, dev, phase: str, lpips_fn=None, **config) -> None:
     ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
           and all(bool(torch.isfinite(v).all()) for v in gk.values())
           and all(e <= GS_GRAD_REL * sc and sc > 0 for e, sc in rows.values()))
-    say(phase, f"step-1 gradients (lambda_dssim {cfg.lambda_dssim:g}, lambda_lpips "
-        f"{cfg.lambda_lpips:g}), kernels vs reference_mode(): loss "
+    say(phase, f"step-1 gradients at {cams[0].width}x{cams[0].height} (lambda_dssim "
+        f"{cfg.lambda_dssim:g}, lambda_lpips {cfg.lambda_lpips:g}), kernels vs "
+        f"reference_mode(): loss "
         f"{loss_k:.7f} vs {loss_p:.7f}; max_abs / max|plain| "
         + ", ".join(f"{k} {e / sc:.2e}" for k, (e, sc) in rows.items())
         + f" (<= {GS_GRAD_REL:g}) | {'ok' if ok else 'FAIL'}")
@@ -2320,26 +2368,39 @@ def scene_sdf(p):
     return torch.minimum(sphere, box), (box < sphere).long()
 
 
-def render_scene(poses, res: int, fov: float = 60.0):
+SCENE_COLOURS = ((0.85, 0.35, 0.2), (0.2, 0.45, 0.8))   # sphere, box
+
+
+def render_scene(poses, res: int, fov: float = 60.0, dirs=None, origins=None,
+                 colours=SCENE_COLOURS, with_normals: bool = False, device="cuda"):
     """Sphere-trace the scene on the card through NeuS's own rays (OpenGL
     poses, pixel-centre directions): per-region colours under a fixed
-    light, white background.  -> (images (N, res, res, 3), masks (N, res,
-    res)) float32 numpy."""
+    light, white background.  ``dirs``: camera-space directions (H, W, 3),
+    or (N, H, W, 3) one set a pose (default: res^2 at ``fov``);
+    ``origins`` (H, W, 3): camera-space ray origins of an orthographic
+    camera (default: the pose's centre).  -> (images (N, H, W, 3), masks
+    (N, H, W)[, world normals (N, H, W, 3), 0 off the surface]) float32
+    numpy."""
     import numpy as np
     import torch
 
     from v3d_tpu_torch.data.cameras import fov2focal, get_ray_directions
 
-    dev = torch.device("cuda")
-    dirs = torch.tensor(get_ray_directions(res, res, fov2focal(np.deg2rad(fov), res)),
-                        device=dev).reshape(-1, 3)
-    colours = torch.tensor([[0.85, 0.35, 0.2], [0.2, 0.45, 0.8]], device=dev)
+    dev = torch.device(device)
+    if dirs is None:
+        dirs = get_ray_directions(res, res, fov2focal(np.deg2rad(fov), res))
+    h, w = dirs.shape[-3:-1]
+    dirs = torch.tensor(dirs, device=dev).reshape(-1, h * w, 3)
+    if origins is not None:
+        origins = torch.tensor(origins, device=dev).reshape(-1, 3)
+    colours = torch.tensor(colours, device=dev)
     light = torch.nn.functional.normalize(torch.tensor([0.4, -0.5, 0.75], device=dev), dim=0)
-    images, masks = [], []
-    for c2w in poses:
+    images, masks, normals = [], [], []
+    for i, c2w in enumerate(poses):
         c2w = torch.tensor(np.asarray(c2w, np.float32), device=dev)
-        d = torch.nn.functional.normalize(dirs @ c2w[:3, :3].T, dim=-1)
-        o = c2w[:3, 3].expand_as(d)
+        d = torch.nn.functional.normalize(dirs[i % dirs.shape[0]] @ c2w[:3, :3].T, dim=-1)
+        o = (c2w[:3, 3].expand_as(d) if origins is None
+             else origins @ c2w[:3, :3].T + c2w[:3, 3])
         t = torch.zeros(d.shape[0], device=dev)
         for _ in range(160):
             s, _ = scene_sdf(o + t[:, None] * d)
@@ -2354,10 +2415,14 @@ def render_scene(poses, res: int, fov: float = 60.0):
         n = torch.nn.functional.normalize(n, dim=-1)
         shade = 0.45 + 0.5 * (n @ light).clamp(min=0)
         rgb = torch.where(hit[:, None], colours[region] * shade[:, None], 1.0)
-        images.append(rgb.reshape(res, res, 3))
-        masks.append(hit.reshape(res, res).float())
-    return (torch.stack(images).cpu().numpy().astype(np.float32),
-            torch.stack(masks).cpu().numpy())
+        images.append(rgb.reshape(h, w, 3))
+        masks.append(hit.reshape(h, w).float())
+        normals.append(torch.where(hit[:, None], n, 0.0).reshape(h, w, 3))
+    out = (torch.stack(images).cpu().numpy().astype(np.float32),
+           torch.stack(masks).cpu().numpy())
+    if with_normals:
+        out += (torch.stack(normals).cpu().numpy(),)
+    return out
 
 
 def _holdout_poses(n: int = 18, radius: float = 2.0):
@@ -3998,10 +4063,481 @@ def phase_lpips(rgba, dev, fit_step_ms=None) -> dict:
     return paths
 
 
+# phases 23-24: posed scenes through recon_scene, and the other entry points
+
+SCENE_KC = 4096               # recon_scene's --kc (the JAX CLI's default)
+BLENDER_VIEWS, BLENDER_RES = 100, 800          # NeRF-synthetic's train split
+BLENDER_FOV, BLENDER_RADIUS = 40.0, 4.0        # camera_angle_x, camera distance
+BLENDER_ITERS = 500           # of recon_scene's 4000
+LLFF_W, LLFF_H, LLFF_FOCAL = 1008, 756, 815.0  # LLFF's 4x-downsampled frames
+LLFF_VIEWS, LLFF_POINTS = 20, 2000
+LLFF_ITERS = 300
+DTU_W, DTU_H, DTU_FOCAL = 800, 600, 1446.0     # img_downscale 2 of 1600 x 1200
+DTU_VIEWS, DTU_RADIUS = 49, 3.0
+DTU_STEPS, DTU_MC = 300, 128
+EVAL_ITERS = 300              # full_eval's fit of each of its two orbits, of 4000
+EVAL_RES = 512
+ORTHO_RES, ORTHO_STEPS, ORTHO_MC = 512, 300, 128
+SCENE_COLOURS_B = ((0.3, 0.7, 0.35), (0.75, 0.7, 0.2))  # the second orbit's
+
+
+def _hemisphere_poses(n: int, radius: float, seed: int = 0):
+    """``n`` seeded OpenGL poses on the upper hemisphere (elevation 5-80
+    deg) looking at the origin, NeRF-synthetic's layout."""
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import c2w_from_up_and_look_at
+
+    rs = np.random.RandomState(seed)
+    az, el = rs.uniform(0, 2 * np.pi, n), np.deg2rad(rs.uniform(5, 80, n))
+    pos = radius * np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                             np.sin(el)], -1)
+    return np.stack([c2w_from_up_and_look_at(np.array([0, 0, 1.0]), np.zeros(3), p,
+                                             opengl=True) for p in pos])
+
+
+def _save_png(path: str, arr) -> None:
+    import numpy as np
+    from PIL import Image
+
+    Image.fromarray(np.round(np.clip(arr, 0, 1) * 255).astype(np.uint8)).save(path)
+
+
+def write_blender(root: str, frames, masks, c2ws, fov_deg: float) -> None:
+    """NeRF-synthetic's layout: transforms_train.json (camera_angle_x,
+    OpenGL transform_matrix) and RGBA PNGs, alpha the silhouette."""
+    import json
+    import os
+
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    entries = []
+    for i, (img, m, c2w) in enumerate(zip(frames, masks, c2ws)):
+        _save_png(os.path.join(root, f"r_{i}.png"), np.concatenate([img, m[..., None]], -1))
+        entries.append({"file_path": f"./r_{i}", "transform_matrix": c2w.tolist()})
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": math.radians(fov_deg), "frames": entries}, f)
+
+
+def write_colmap(root: str, frames, c2ws_gl, focal: float, n_points: int) -> None:
+    """A COLMAP workspace: images/NNN.png and a binary sparse/0 model (one
+    PINHOLE camera, OpenCV w2c poses, ``n_points`` seeded points on the
+    scene's sphere)."""
+    import os
+
+    import numpy as np
+
+    from v3d_tpu_torch.data.cam_paths import quat_from_matrix
+    from v3d_tpu_torch.data.colmap import ColmapCamera, ColmapImage, write_model
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    h, w = frames.shape[1:3]
+    images = {}
+    for i, (img, c2w) in enumerate(zip(frames, c2ws_gl)):
+        name = f"{i:03d}.png"
+        _save_png(os.path.join(root, "images", name), img)
+        cv = c2w.astype(np.float64).copy()
+        cv[:, 1:3] *= -1
+        w2c = np.linalg.inv(cv)
+        images[i + 1] = ColmapImage(i + 1, quat_from_matrix(w2c[:3, :3]), w2c[:3, 3], 1, name)
+    cams = {1: ColmapCamera(1, "PINHOLE", w, h, np.array([focal, focal, w / 2, h / 2]))}
+    rs = np.random.RandomState(23)
+    d = rs.randn(n_points, 3)
+    xyz = np.array(SPHERE_C) + SPHERE_R * d / np.linalg.norm(d, axis=1, keepdims=True)
+    rgb = np.tile((np.array(SCENE_COLOURS[0]) * 255).astype(np.uint8), (n_points, 1))
+    write_model(os.path.join(root, "sparse", "0"), cams, images, (xyz, rgb))
+
+
+def write_dtu(root: str, frames, masks, c2ws_gl, Ks) -> None:
+    """DTU's layout: cameras.npz (world_mat_i = K [R | t] in a world that
+    scale_mat_i maps the unit sphere into), image/NNNNNN.png, mask/NNN.png."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "image"), exist_ok=True)
+    os.makedirs(os.path.join(root, "mask"), exist_ok=True)
+    scale, shift = 2.5, np.array([10.0, -4.0, 30.0])
+    S = np.eye(4)
+    S[:3, :3] *= scale
+    S[:3, 3] = shift
+    mats = {}
+    for i, (img, m, c2w, K) in enumerate(zip(frames, masks, c2ws_gl, Ks)):
+        _save_png(os.path.join(root, "image", f"{i:06d}.png"), img)
+        _save_png(os.path.join(root, "mask", f"{i:03d}.png"), m)
+        cv = c2w.astype(np.float64).copy()
+        cv[:, 1:3] *= -1
+        cv[:3, 3] = scale * cv[:3, 3] + shift           # the centre in DTU's world
+        w2c = np.linalg.inv(cv)
+        P = np.eye(4)
+        P[:3] = K @ w2c[:3]
+        mats[f"world_mat_{i}"] = P
+        mats[f"scale_mat_{i}"] = S
+    np.savez(os.path.join(root, "cameras.npz"), **mats)
+
+
+def _scene_run(phase: str, what: str, argv, expect: dict, steps: int, dev="cuda") -> tuple:
+    """``apps.recon_scene.main(argv)`` with the launch counts set to 0 just
+    before and read just after; per-step stamps through its ``log_fn``.
+    Returns (result, launches, ms per step (median after 10), stats, wall s)."""
+    import torch
+
+    from v3d_tpu_torch.apps import recon_scene
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    marks, stats = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = recon_scene.main(argv + ["--log-every", "1", "--device", str(dev)],
+                           log_fn=_step_recorder(marks, stats))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    steps_s = [b - a for a, b in zip(marks, marks[1:])]
+    step_ms = 1e3 * statistics.median(steps_s[9:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = len(stats) == steps and all(math.isfinite(v) for st in stats for v in st.values())
+    ok = counts == expect and finite
+    say(phase, f"{what}: {wall:.2f} s (the load included) | ms per step (median of steps "
+        f"11-{steps}, host clock, synchronised) {step_ms:.3f} | loss {stats[0]['loss']:.5f} "
+        f"-> {stats[-1]['loss']:.5f} | peak {peak:.2f} GiB | launches {_nonzero(counts)} "
+        f"(expect {_nonzero(expect)}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{what}: launches {counts} (expect {expect}), finite {finite}")
+    return out, counts, step_ms, stats, wall
+
+
+def phase_scenes(dev="cuda") -> dict:
+    """Posed scenes through ``apps.recon_scene``: K4 / K5 against the plain
+    compositor on one 1008 x 756 view (63 x 48 tiles, the last row 4 pixels
+    tall) and one 800^2 view (50 x 50 tiles) of the seeded 100k-point init at
+    Kc 4096, and a fit step's gradients there against ``reference_mode()``;
+    then a blender scene at NeRF-synthetic's size (100 views at 800^2) for
+    500 iterations, a COLMAP workspace at LLFF's (20 views at 1008 x 756,
+    2000 points) through ``imgs2poses.gen_poses`` and 300 iterations, and a
+    DTU scene at instant-nsr-pl's neus-dtu downscale (49 views at 800 x 600,
+    per-frame K) through NeuS for 300 steps; every scene sphere-traced from
+    phase 11's analytic scene."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps import imgs2poses
+    from v3d_tpu_torch.apps.recon_scene import scene_cameras
+    from v3d_tpu_torch.data import scene_datasets as sd
+    from v3d_tpu_torch.data.cameras import c2w_from_up_and_look_at, get_ray_directions
+    from v3d_tpu_torch.gs.losses import psnr as gs_psnr
+
+    phase = "23 scenes"
+    t_phase = time.perf_counter()
+    llff_fov = math.degrees(2 * math.atan(LLFF_W / (2 * LLFF_FOCAL)))
+    checks = {"gs_composite_fwd": [], "gs_composite_bwd": []}
+    for w, h, fov in ((LLFF_W, LLFF_H, llff_fov), (BLENDER_RES, BLENDER_RES, BLENDER_FOV)):
+        slabs = fit_scene_slabs(dev, n=FIT_POINTS, kc=SCENE_KC, width=w, height=h,
+                                fov=fov, radius=1.5)
+        say(phase, f"{w}x{h}: {slabs.n_tx} x {slabs.n_ty} tiles, the last column "
+            f"{w - 16 * (slabs.n_tx - 1)} and row {h - 16 * (slabs.n_ty - 1)} pixels; "
+            f"{slabs.slab.shape[0]} coarse cells of Kc {slabs.slab.shape[1]}")
+        # the plain versions take 0.6 s / 3-4 s a call here: two samples each
+        k4, args, saved, pairs = k4_forward_check(slabs, phase, plain_iters=2)
+        k5, _ = k5_backward_check(args, saved, pairs, k4["shape"], phase, plain_iters=2)
+        checks["gs_composite_fwd"].append(k4)
+        checks["gs_composite_bwd"].append(k5)
+        del slabs, args, saved
+        torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="v3d_scenes_")
+    paths = {}
+    try:
+        # NeRF-synthetic's layout at its size
+        poses = _hemisphere_poses(BLENDER_VIEWS, BLENDER_RADIUS)
+        t0 = time.perf_counter()
+        frames, masks = render_scene(poses, BLENDER_RES, fov=BLENDER_FOV, device=dev)
+        root = os.path.join(tmp, "blender")
+        write_blender(root, frames, masks, poses, BLENDER_FOV)
+        say(phase, f"blender: {BLENDER_VIEWS} views at {BLENDER_RES}^2 (FoV "
+            f"{BLENDER_FOV:g}, radius {BLENDER_RADIUS:g}, RGBA) rendered and written in "
+            f"{time.perf_counter() - t0:.2f} s; foreground {masks.mean():.3f}")
+        scene = sd.load_blender_scene(root)
+        fit_grad_check(None, dev, phase, cams=scene_cameras(scene)[:2], radius=1.5,
+                       lambda_dssim=0.2, max_per_coarse=SCENE_KC)
+        del scene
+        trainer, counts, step_ms, stats, _ = _scene_run(
+            phase, f"recon_scene --format blender --method gs, defaults (100k points, "
+            f"radius 1.5, Kc {SCENE_KC}), {BLENDER_ITERS} of 4000 iterations",
+            ["--scene", root, "--output", os.path.join(tmp, "blender_out"),
+             "--format", "blender", "--method", "gs", "--iterations", str(BLENDER_ITERS)],
+            gs_fit_launches(BLENDER_ITERS, 0), BLENDER_ITERS, dev)
+        view0 = float(gs_psnr(trainer.render_view(0).image, trainer.images[0]))
+        say(phase, f"blender fit: view-0 PSNR {view0:.2f} dB, ms per step {step_ms:.3f}")
+        paths["scene_blender"] = {"launches": counts}
+        del trainer, frames, masks
+        torch.cuda.empty_cache()
+
+        # LLFF's size as a COLMAP workspace: forward-facing, 5 x 4 positions
+        pos = [np.array([x, y, -3.0]) for y in np.linspace(-0.3, 0.3, 4)
+               for x in np.linspace(-0.5, 0.5, 5)]
+        poses = np.stack([c2w_from_up_and_look_at(np.array([0, 1.0, 0]), np.zeros(3), p,
+                                                  opengl=True) for p in pos])
+        dirs = get_ray_directions(LLFF_H, LLFF_W, LLFF_FOCAL)
+        t0 = time.perf_counter()
+        frames, _ = render_scene(poses, 0, dirs=dirs, device=dev)
+        root = os.path.join(tmp, "llff")
+        write_colmap(root, frames, poses, LLFF_FOCAL, LLFF_POINTS)
+        summary = imgs2poses.gen_poses(root)
+        ok = summary == {"cameras": 1, "images": LLFF_VIEWS, "points3d": LLFF_POINTS}
+        say(phase, f"colmap: {LLFF_VIEWS} views at {LLFF_W}x{LLFF_H} (focal "
+            f"{LLFF_FOCAL:g}) and a binary model of {LLFF_POINTS} points written in "
+            f"{time.perf_counter() - t0:.2f} s; imgs2poses.gen_poses: {summary} | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"imgs2poses summary {summary}")
+        scene = sd.load_colmap_scene(root)
+        fit_grad_check(None, dev, phase, cams=scene_cameras(scene)[:2], radius=1.5,
+                       lambda_dssim=0.2, max_per_coarse=SCENE_KC)
+        del scene
+        trainer, counts, step_ms, _, _ = _scene_run(
+            phase, f"recon_scene --format colmap --method gs at {LLFF_W}x{LLFF_H}, "
+            f"{LLFF_ITERS} iterations",
+            ["--scene", root, "--output", os.path.join(tmp, "llff_out"),
+             "--format", "colmap", "--method", "gs", "--iterations", str(LLFF_ITERS)],
+            gs_fit_launches(LLFF_ITERS, 0), LLFF_ITERS, dev)
+        img = trainer.render_view(0).image
+        view0 = float(gs_psnr(img, trainer.images[0]))
+        ok = tuple(img.shape) == (LLFF_H, LLFF_W, 3) and math.isfinite(view0)
+        say(phase, f"colmap fit: render {tuple(img.shape)}, view-0 PSNR {view0:.2f} dB | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"colmap fit render {tuple(img.shape)} PSNR {view0}")
+        paths["scene_colmap"] = {"launches": counts}
+        del trainer, frames, img
+        torch.cuda.empty_cache()
+
+        # DTU at neus-dtu's downscale: 7 x 7 views in front, per-frame K
+        az, el = np.meshgrid(np.deg2rad(np.linspace(-60, 60, 7)),
+                             np.deg2rad(np.linspace(5, 50, 7)))
+        pos = DTU_RADIUS * np.stack([np.cos(el) * np.sin(az), -np.cos(el) * np.cos(az),
+                                     np.sin(el)], -1).reshape(-1, 3)
+        poses = np.stack([c2w_from_up_and_look_at(np.array([0, 0, 1.0]), np.zeros(3), p,
+                                                  opengl=True) for p in pos])
+        focal = DTU_FOCAL + 2.0 * (np.arange(DTU_VIEWS) % 5 - 2)
+        Ks = np.stack([np.array([[f, 0, DTU_W / 2 + 3.5], [0, f, DTU_H / 2 - 2.5],
+                                 [0, 0, 1.0]]) for f in focal])
+        dirs = np.stack([get_ray_directions(DTU_H, DTU_W, K[0, 0], (K[0, 2], K[1, 2]))
+                         for K in Ks])
+        t0 = time.perf_counter()
+        frames, masks = render_scene(poses, 0, dirs=dirs, device=dev)
+        root = os.path.join(tmp, "dtu")
+        write_dtu(root, frames, masks, poses, Ks)
+        say(phase, f"dtu: {DTU_VIEWS} views at {DTU_W}x{DTU_H} (per-frame K, focal "
+            f"{DTU_FOCAL:g} +- 4) with masks and cameras.npz written in "
+            f"{time.perf_counter() - t0:.2f} s; foreground {masks.mean():.3f}")
+        (trainer, mesh), counts, step_ms, stats, wall = _scene_run(
+            phase, f"recon_scene --format dtu --method neus, {DTU_STEPS} steps, "
+            f"--mc-resolution {DTU_MC}",
+            ["--scene", root, "--output", os.path.join(tmp, "dtu_out"), "--format", "dtu",
+             "--method", "neus", "--iterations", str(DTU_STEPS),
+             "--mc-resolution", str(DTU_MC)], gs_fit_launches(0, 0), DTU_STEPS, dev)
+        ok = (trainer.directions.ndim == 4 and len(mesh.vertices) > 0
+              and os.path.getsize(os.path.join(tmp, "dtu_out", "mesh.obj")) > 0)
+        say(phase, f"dtu NeuS ({trainer.cfg.coarse_to_fine_samples} coarse + "
+            f"{trainer.cfg.num_samples_per_ray} fine samples, {trainer.cfg.train_num_rays} "
+            f"rays, per-frame directions {tuple(trainer.directions.shape)}): mesh "
+            f"{len(mesh.vertices)} vertices {len(mesh.faces)} faces | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"dtu NeuS: mesh {len(mesh.vertices)}")
+        del trainer, mesh, frames, masks, dirs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(phase, f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return {"checks": checks, "paths": paths}
+
+
+def write_wonder3d(root: str, name: str, res: int, device="cuda") -> None:
+    """Wonder3D's output layout for the six fixed ortho views of phase 11's
+    scene: normals_000_<view>.png (RGBA, normals in the front camera's
+    OpenGL frame), rgb_000_<view>.png and masked_colors/rgb_000_<view>.png
+    (RGBA, alpha the silhouette)."""
+    import os
+
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import get_ortho_ray_directions
+    from v3d_tpu_torch.data.wonder3d import VIEW_TYPES, make_fixed_pose, rt_opengl2opencv
+    from v3d_tpu_torch.nerf.normals import inv_RT
+
+    obj = os.path.join(root, name)
+    os.makedirs(os.path.join(obj, "masked_colors"), exist_ok=True)
+    poses = []
+    for view in VIEW_TYPES:
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3] = inv_RT(rt_opengl2opencv(make_fixed_pose(view)))
+        c2w[:, 1:3] *= -1                       # OpenCV -> OpenGL
+        poses.append(c2w)
+    origins, dirs = get_ortho_ray_directions(res, res)
+    frames, masks, normals = render_scene(poses, res, dirs=dirs, origins=origins,
+                                          with_normals=True, device=device)
+    front = inv_RT(rt_opengl2opencv(make_fixed_pose("front")))[:3, :3]
+    for view, img, m, n in zip(VIEW_TYPES, frames, masks, normals):
+        n_gl = (n @ front) * np.array([1.0, -1.0, -1.0])
+        _save_png(os.path.join(obj, f"normals_000_{view}.png"),
+                  np.concatenate([(n_gl + 1) / 2, m[..., None]], -1))
+        _save_png(os.path.join(obj, f"rgb_000_{view}.png"), img)
+        _save_png(os.path.join(obj, "masked_colors", f"rgb_000_{view}.png"),
+                  np.concatenate([img, m[..., None]], -1))
+
+
+def phase_entry_points(dev="cuda") -> dict:
+    """The remaining entry points: ``apps.full_eval.run`` on two 18-frame
+    512^2 orbits of phase 11's scene written as mp4 by ``write_video`` (300
+    iterations each, launches exact); ``apps.recon_neus_ortho`` on the six
+    Wonder3D views at 512^2 (fixed poses, normal maps) for 300 steps and
+    the mesh at 128^3 with vertex colours; ``validate_ckpt --all`` on a
+    directory of seeded LPIPS and U2Net .npz files, then on an empty one."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch import nn
+
+    import cv2
+
+    from v3d_tpu_torch.apps import full_eval, validate_ckpt
+    from v3d_tpu_torch.apps.recon_neus_ortho import reconstruct_ortho
+    from v3d_tpu_torch.data.cameras import get_uniform_poses
+    from v3d_tpu_torch.data.video_io import read_video, write_video
+    from v3d_tpu_torch.models.u2net import U2Net
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    phase = "24 entry points"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="v3d_entry_")
+    paths = {}
+    try:
+        # full_eval on two mp4 orbits
+        poses = get_uniform_poses(18, 2.0, 0.0, opengl=True)
+        videos = []
+        for name, colours in (("orbit_a", SCENE_COLOURS), ("orbit_b", SCENE_COLOURS_B)):
+            frames, _ = render_scene(poses, EVAL_RES, colours=colours, device=dev)
+            videos.append(os.path.join(tmp, f"{name}.mp4"))
+            write_video(videos[-1], frames, fps=3)
+        back = read_video(videos[0])
+        say(phase, f"cv2 {cv2.__version__}: two orbits of 18 frames at 512^2 written as "
+            f"mp4v ({os.path.getsize(videos[0]) / 2**10:.0f} KiB), read back "
+            f"{back.shape} {back.dtype}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = full_eval.run(videos, os.path.join(tmp, "eval"), EVAL_ITERS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        # per video: the fit, view 0 at its last log, the orbit.npy renders,
+        # then the scored renders
+        expect = gs_fit_launches(2 * EVAL_ITERS, 2 * (1 + 18 + 18))
+        with open(os.path.join(tmp, "eval", "results.json")) as f:
+            saved = json.load(f)
+        ok = (counts == expect and saved == results and sorted(saved) == ["orbit_a", "orbit_b"]
+              and all(math.isfinite(v[k]) for v in saved.values() for k in ("psnr", "ssim"))
+              and os.path.getsize(os.path.join(tmp, "eval", "orbit_a", "spiral.mp4")) > 0)
+        say(phase, f"full_eval.run: 2 videos x {EVAL_ITERS} iterations (of 4000) at 512^2: "
+            f"{wall:.2f} s | results.json {json.dumps(saved)} | launches {_nonzero(counts)} "
+            f"(expect {_nonzero(expect)}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"full_eval: {counts} (expect {expect}), {saved}")
+        paths["full_eval"] = {"launches": counts}
+
+        # Wonder3D ortho NeuS
+        t0 = time.perf_counter()
+        write_wonder3d(os.path.join(tmp, "w3d"), "scene", ORTHO_RES, dev)
+        say(phase, f"Wonder3D layout: 6 ortho views at {ORTHO_RES}^2 with normal maps "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        marks, stats = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, mesh = reconstruct_ortho(
+            os.path.join(tmp, "w3d"), "scene", os.path.join(tmp, "ortho"),
+            im_size=ORTHO_RES, mc_resolution=ORTHO_MC, train_steps=ORTHO_STEPS,
+            log_every=1, log_fn=_step_recorder(marks, stats), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        step_ms = 1e3 * statistics.median([b - a for a, b in zip(marks, marks[1:])][9:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        colours = mesh.vertex_colors
+        ok = (len(stats) == ORTHO_STEPS and len(mesh.vertices) > 0
+              and all(math.isfinite(v) for st in stats for v in st.values())
+              and colours is not None and colours.shape == mesh.vertices.shape
+              and bool(np.isfinite(colours).all()))
+        say(phase, f"recon_neus_ortho (card recipe: frequency + exact gradient, 128x4 MLP, "
+            f"{trainer.cfg.num_samples_per_ray} samples), {ORTHO_STEPS} of 3000 steps at "
+            f"{ORTHO_RES}^2: {wall:.2f} s with the export | ms per step (median of steps "
+            f"11-{ORTHO_STEPS}) {step_ms:.3f} | loss {stats[0]['loss']:.5f} -> "
+            f"{stats[-1]['loss']:.5f} (normal {stats[-1].get('normal', float('nan')):.5f}) | "
+            f"mesh {len(mesh.vertices)} vertices {len(mesh.faces)} faces with colours | peak "
+            f"{peak:.2f} GiB | launches {counts or 'none'} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"recon_neus_ortho: mesh {len(mesh.vertices)}")
+        del trainer, mesh
+        torch.cuda.empty_cache()
+
+        # validate_ckpt --all
+        weights = os.path.join(tmp, "weights")
+        os.makedirs(weights)
+        write_seeded_lpips(os.path.join(weights, "lpips_vgg.npz"), seed=24)
+        torch.manual_seed(24)
+        u2 = U2Net(small=False)
+        with torch.no_grad():
+            for m in u2.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.weight.copy_(1 + 0.1 * torch.randn(m.num_features))
+        np.savez(os.path.join(weights, "u2net.npz"),
+                 **{k: v.numpy() for k, v in u2.state_dict().items()})
+        codes = {}
+        for name, d in (("weights", weights), ("empty", os.path.join(tmp, "none"))):
+            os.makedirs(d, exist_ok=True)
+            report_path = os.path.join(tmp, f"{name}.json")
+            try:
+                validate_ckpt.main(["--all", d, "--report", report_path, "--device", dev])
+            except SystemExit as e:
+                codes[name] = e.code
+            with open(report_path) as f:
+                codes[name + "_report"] = json.load(f)
+        rep, empty = codes["weights_report"], codes["empty_report"]
+        ok = (codes["weights"] == 0 and rep["ok"]
+              and sorted(rep["stages"]) == ["lpips_ingest", "u2net_ingest"]
+              and len(rep["plan"]) == 3 and codes["empty"] == 0 and empty["ok"]
+              and not empty["stages"] and len(empty["plan"]) == 5)
+        say(phase, "validate_ckpt --all: " + ", ".join(
+            f"{k} {v['ok']} ({v.get('detail', v.get('error'))}, {v['s']} s)"
+            for k, v in rep["stages"].items())
+            + f", plan {len(rep['plan'])}, exit {codes['weights']} | empty directory: "
+            f"plan {len(empty['plan'])}, exit {codes['empty']} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"validate_ckpt --all: {codes}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(phase, f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22",
+                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -4075,6 +4611,13 @@ def main(argv=None) -> int:
         phase_dpt(neus)
     paths["entry"] = entry
     paths["iterative"] = phase_iterative(iter_expect) if 17 in phases else {}
+    if 23 in phases:
+        scenes = phase_scenes()
+        for name, entries in scenes["checks"].items():
+            kernel_checks.setdefault(name, []).extend(entries)
+        paths.update(scenes["paths"])
+    if 24 in phases:
+        paths.update(phase_entry_points())
 
     report = []
     for name, meta in KERNELS.items():

@@ -10,7 +10,9 @@ or a tiny autoencoder trainer step, a tiny PixelNeRF render with its loss and
 a tiny fine-tune step on PNG orbits with prefetch and a log directory,
 or a tiny ``engine_from_config``, a tiny image diffusion engine, a 3DGS fit
 with LPIPS, ``render_cli``, ``metrics_cli`` and ``validate_ckpt --lpips``,
-loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+or a posed blender / COLMAP scene through ``recon_scene`` and
+``imgs2poses``, ``full_eval`` on an mp4, ``recon_neus_ortho`` and
+``validate_ckpt --all``, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -335,6 +337,61 @@ print("FOREIGN", bad)
 """
 
 
+_SCENES_PROBE = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+import chip_smoke
+from v3d_tpu_torch.apps import (full_eval, imgs2poses, recon_neus_ortho, recon_scene,
+                                validate_ckpt)
+from v3d_tpu_torch.data import fisheye, video_io
+from v3d_tpu_torch.data.cameras import get_ray_directions, get_uniform_poses
+from v3d_tpu_torch.data.scene_datasets import decompose_projection, load_colmap_scene
+from v3d_tpu_torch.native.imgdec import decode_image
+
+with tempfile.TemporaryDirectory() as out:
+    poses = get_uniform_poses(3, 2.0, 0.0, opengl=True)
+    frames, masks = chip_smoke.render_scene(poses, 0, dirs=get_ray_directions(20, 36, 30.0),
+                                            device="cpu")
+    assert frames.shape == (3, 20, 36, 3)
+    chip_smoke.write_blender(os.path.join(out, "b"), frames, masks, poses, 60.0)
+    tr = recon_scene.main(["--scene", os.path.join(out, "b"), "--output", os.path.join(out, "g"),
+                           "--iterations", "2", "--num-pts", "50", "--kc", "64",
+                           "--device", "cpu"])
+    assert tr.step_count == 2
+    chip_smoke.write_colmap(os.path.join(out, "c"), frames, poses, 20.0, 30)
+    assert imgs2poses.gen_poses(os.path.join(out, "c")) == {
+        "cameras": 1, "images": 3, "points3d": 30}
+    assert load_colmap_scene(os.path.join(out, "c")).num_frames == 3
+    assert decode_image(os.path.join(out, "c", "images", "000.png")).shape[-1] == 4
+    video_io.write_video(os.path.join(out, "v.mp4"),
+                         chip_smoke.render_scene(poses, 24, device="cpu")[0])
+    res = full_eval.run([os.path.join(out, "v.mp4")], os.path.join(out, "e"), iterations=2,
+                        device="cpu", num_pts=40, capacity=64)
+    assert set(res["v"]) == {"psnr", "ssim"}
+    chip_smoke.write_wonder3d(os.path.join(out, "w"), "obj", 16, device="cpu")
+    trainer, mesh = recon_neus_ortho.reconstruct_ortho(
+        os.path.join(out, "w"), "obj", os.path.join(out, "o"), max_steps=2, im_size=16,
+        num_samples=16, train_num_rays=16, mc_resolution=12, device="cpu",
+        config_overrides=dict(n_levels=2))
+    assert trainer.global_step == 2
+    os.makedirs(os.path.join(out, "none"))
+    try:
+        validate_ckpt.main(["--all", os.path.join(out, "none"), "--report",
+                            os.path.join(out, "r.json"), "--device", "cpu"])
+    except SystemExit as e:
+        assert e.code == 0
+    assert len(json.load(open(os.path.join(out, "r.json")))["plan"]) == 5
+K, R, c = decompose_projection(np.c_[np.eye(3), np.ones(3)])
+assert np.allclose(K, np.eye(3)) and np.allclose(c[:3] / c[3], -1)
+uv = fisheye.fisheye624_project(torch.tensor([[[0.1, 0.2, 1.0]]]), torch.ones(1, 16))
+assert torch.isfinite(uv).all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -426,6 +483,18 @@ def test_configs_image_diffusion_and_scene_clis_run_without_jax():
     ``metrics_cli`` and ``validate_ckpt --lpips``, in a fresh interpreter
     with no jax."""
     out = subprocess.run([sys.executable, "-c", _CONFIG_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_scene_readers_and_remaining_apps_run_without_jax():
+    """The posed-scene path (a blender scene through ``recon_scene``, a
+    COLMAP workspace through ``imgs2poses`` and its loader, the native
+    decoder), ``full_eval`` on an mp4, ``recon_neus_ortho`` on Wonder3D
+    views, ``validate_ckpt --all`` on an empty directory, DTU's
+    decomposition and fisheye, in a fresh interpreter with no jax."""
+    out = subprocess.run([sys.executable, "-c", _SCENES_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

@@ -120,15 +120,20 @@ def close(got, want, rel=1e-4, what=""):
     assert err <= rel * scale + 1e-9, (what, err, scale)
 
 
-def check_train_steps(recipe):
+def check_train_steps(recipe, trainers=None, rel_of=None, chained_steps=3):
     """Three steps of both trainers from one state.  ``chained`` takes the
     steps on its own state: losses, ray and live-sample counts, occupancy.
     ``stepwise`` starts each step from the JAX trainer's state before it:
     gradients, Adam moments and parameters after AdamW (a chained state
     drifts by float32 rounding, ~1e-7, and the hash table's gradient, a
     difference of the +eps and -eps points' contributions, moves ~1e-3 of
-    its size under such a drift)."""
-    jt, chained, stepwise = pair(recipe, 2)
+    its size under such a drift).  ``trainers``: (JAX trainer, chained,
+    stepwise) in one state, in place of ``pair(recipe, 2)``'s; ``rel_of``
+    {(group, name): rel} replaces the tolerance of those parameters; below
+    three ``chained_steps``, the chained trainer's losses are held only on
+    its first steps, and the stepwise trainer's (from the JAX state) on
+    every step."""
+    jt, chained, stepwise = trainers or pair(recipe, 2)
     for step in range(3):
         num_rays = jt._quantized_rays()
         assert chained._quantized_rays() == num_rays
@@ -137,11 +142,15 @@ def check_train_steps(recipe):
         stepwise.restore(before)
         jstats = jt.train_iter()
         pstats = chained.train_iter(draws=draws, occ_offsets=occ)
-        stepwise.train_iter(draws=draws, occ_offsets=occ)
+        sstats = stepwise.train_iter(draws=draws, occ_offsets=occ)
         assert set(pstats) == set(jstats), (sorted(pstats), sorted(jstats))
         for k in jstats:
-            np.testing.assert_allclose(float(pstats[k]), float(jstats[k]), rtol=1e-4,
-                                       atol=1e-8, err_msg=f"step {step} {k}")
+            if step < chained_steps:
+                np.testing.assert_allclose(float(pstats[k]), float(jstats[k]), rtol=1e-4,
+                                           atol=1e-8, err_msg=f"step {step} {k}")
+            if chained_steps < 3:
+                np.testing.assert_allclose(float(sstats[k]), float(jstats[k]), rtol=1e-4,
+                                           atol=1e-8, err_msg=f"step {step} {k}")
         assert chained.train_num_rays == jt.train_num_rays
         np.testing.assert_array_equal(chained.occ.binary.numpy(), np.asarray(jt.occ.binary))
         np.testing.assert_allclose(chained.occ.occs.numpy(), np.asarray(jt.occ.occs),
@@ -155,7 +164,9 @@ def check_train_steps(recipe):
                 what = f"step {step} {group}.{name}"
                 ja, pa = after["adam"][group][name], pstate["adam"][group][name]
                 assert pa["step"] == ja["step"] == step + 1
-                if name == "encoding.table":
+                if (group, name) in (rel_of or {}):
+                    rel = rel_of[group, name]
+                elif name == "encoding.table":
                     rel = 1e-2
                 elif group == "geometry" and jt.cfg.grad_type == "finite_difference":
                     rel = 1e-3

@@ -7,8 +7,9 @@ VAE decode -> 18 orbit frames.
 
 ``--checkpoint`` loads a V3D / SVD checkpoint (.ckpt, .pt or .safetensors,
 sgm key names) into the engine.  Without it the engine runs on seeded random
-weights (the output is noise; the path is real).  Frames are written as PNG
-files.
+weights (the output is noise; the path is real).  Each run writes its
+frames to ``<output-folder>/<n:06d>.mp4`` (mp4v, 3 fps, as the JAX CLI
+does; cv2 needed) and as PNG files under ``<output-folder>/<n:06d>/``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from v3d_tpu_torch.core.checkpoint import load_v3d_params
 from v3d_tpu_torch.data.preprocess import preprocess_image
+from v3d_tpu_torch.data.video_io import write_video
 from v3d_tpu_torch.engines.builder import build_tiny_engine, build_v3d_engine
 
 
@@ -128,14 +130,16 @@ def main(argv=None):
         ignore_alpha=args.ignore_alpha, device=args.device,
         resolution=args.resolution, checkpoint=args.checkpoint)
     os.makedirs(args.output_folder, exist_ok=True)
-    base = len(os.listdir(args.output_folder))
+    base = sum(os.path.isdir(os.path.join(args.output_folder, n))
+               for n in os.listdir(args.output_folder))
     out_dir = os.path.join(args.output_folder, f"{base:06d}")
     os.makedirs(out_dir)
     for i, frame in enumerate(frames):
         Image.fromarray(frame).save(os.path.join(out_dir, f"{i:02d}.png"))
+    write_video(out_dir + ".mp4", frames, fps=3)
     print(f"generated {len(frames)} frames (cond {timings['cond_s']:.2f} s, "
           f"sample {timings['sample_s']:.2f} s, decode {timings['decode_s']:.2f}"
-          f" s) -> {out_dir}")
+          f" s) -> {out_dir}.mp4 and {out_dir}/")
 
 
 if __name__ == "__main__":

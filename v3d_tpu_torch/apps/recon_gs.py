@@ -5,10 +5,12 @@ reference-compatible ply and the re-rendered orbit.
 
     python -m v3d_tpu_torch.apps.recon_gs --frames FRAMES --output DIR
 
-``FRAMES`` is the folder of PNG frames that ``v3d_tpu_torch.apps.generate``
-writes (sorted by name), or an ``.npy`` file of (T, H, W, 3) frames, uint8 or
-float in [0, 1].  Outputs: ``DIR/point_cloud.ply`` and ``DIR/orbit.npy``
-(the T re-rendered views, uint8).
+``FRAMES`` is the ``.mp4`` or the folder of PNG frames (sorted by name)
+that ``v3d_tpu_torch.apps.generate`` writes, or an ``.npy`` file of
+(T, H, W, 3) frames, uint8 or float in [0, 1].  Outputs:
+``DIR/point_cloud.ply`` and ``DIR/orbit.npy`` (the T re-rendered views,
+uint8); from an ``.mp4`` also ``DIR/spiral.mp4`` (those views, 3 fps), as
+the JAX CLI's ``train_from_video`` writes it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from v3d_tpu_torch.data.cameras import orbit_cameras
+from v3d_tpu_torch.data.video_io import read_video, write_video
 from v3d_tpu_torch.gs.losses import psnr
 from v3d_tpu_torch.gs.ply import save_ply
 from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
@@ -88,10 +91,24 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
     return trainer
 
 
+def train_from_video(video_path: str, output: str, iterations: int = 4000,
+                     **kwargs) -> GSTrainer:
+    """``train_from_frames`` on the frames of an mp4 (the JAX CLI's entry
+    point, recon_gs.py:18-87), then the re-rendered orbit written as
+    ``output/spiral.mp4`` (3 fps) beside ``orbit.npy``."""
+    trainer = train_from_frames(read_video(video_path), output, iterations, **kwargs)
+    write_video(os.path.join(output, "spiral.mp4"),
+                np.load(os.path.join(output, "orbit.npy")), fps=3)
+    return trainer
+
+
 def read_frames(path: str) -> np.ndarray:
-    """A folder of PNG frames (sorted by name) or an .npy file -> (T, H, W, 3)."""
+    """An .mp4, a folder of PNG frames (sorted by name) or an .npy file ->
+    (T, H, W, 3)."""
     if path.endswith(".npy"):
         return np.load(path)
+    if path.lower().endswith(".mp4"):
+        return read_video(path)
     from PIL import Image
 
     names = sorted(n for n in os.listdir(path) if n.lower().endswith(".png"))
@@ -103,8 +120,8 @@ def read_frames(path: str) -> np.ndarray:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--frames", required=True,
-                   help="folder of PNG frames, or an .npy of (T, H, W, 3)")
+    p.add_argument("--frames", "--video", required=True,
+                   help="an .mp4, a folder of PNG frames, or an .npy of (T, H, W, 3)")
     p.add_argument("--output", required=True)
     p.add_argument("--iterations", type=int, default=4000)
     p.add_argument("--num-pts", type=int, default=100_000)
@@ -127,13 +144,17 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu only when asked for)")
     args = p.parse_args(argv)
-    train_from_frames(read_frames(args.frames), args.output, args.iterations,
-                      args.num_pts, args.lambda_dssim, args.lambda_lpips, args.radius,
-                      args.elevation, args.fov, test_every=args.test_every,
-                      seed=args.seed,
-                      opacity_reset_mode=args.opacity_reset_mode,
-                      opacity_decay=args.opacity_decay,
-                      capacity=args.capacity, device=args.device)
+    kwargs = dict(num_pts=args.num_pts, lambda_dssim=args.lambda_dssim,
+                  lambda_lpips=args.lambda_lpips, radius=args.radius,
+                  elevation=args.elevation, fov=args.fov, test_every=args.test_every,
+                  seed=args.seed, opacity_reset_mode=args.opacity_reset_mode,
+                  opacity_decay=args.opacity_decay, capacity=args.capacity,
+                  device=args.device)
+    if args.frames.lower().endswith(".mp4"):
+        train_from_video(args.frames, args.output, args.iterations, **kwargs)
+    else:
+        train_from_frames(read_frames(args.frames), args.output, args.iterations,
+                          **kwargs)
     print(f"saved {os.path.join(args.output, 'point_cloud.ply')} and "
           f"{os.path.join(args.output, 'orbit.npy')}")
 

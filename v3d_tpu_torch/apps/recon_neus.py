@@ -6,8 +6,8 @@ mesh and colours its vertices from the radiance field.
 
     python -m v3d_tpu_torch.apps.recon_neus --frames FRAMES --output DIR
 
-``FRAMES`` is a folder of PNG frames (sorted by name) or an ``.npy`` of
-(T, H, W, 3) frames.  Outputs: ``DIR/mesh.obj``, ``DIR/mesh.glb`` and
+``FRAMES`` is an ``.mp4`` (as ``apps.generate`` writes it), a folder of
+PNG frames (sorted by name) or an ``.npy`` of (T, H, W, 3) frames.  Outputs: ``DIR/mesh.obj``, ``DIR/mesh.glb`` and
 ``DIR/config.json``; an empty isosurface (a degenerate fit) writes no mesh.
 
 Normal supervision, first found: ``--normals`` (world normals), the DPT
@@ -165,8 +165,8 @@ def reconstruct(frames: np.ndarray, output: str, max_steps: int = 3000,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--frames", required=True,
-                   help="folder of PNG frames, or an .npy of (T, H, W, 3)")
+    p.add_argument("--frames", "--video", required=True,
+                   help="an .mp4, a folder of PNG frames, or an .npy of (T, H, W, 3)")
     p.add_argument("--output", required=True)
     p.add_argument("--max-steps", type=int, default=3000)
     p.add_argument("--mc-resolution", type=int, default=384)

@@ -5,11 +5,11 @@ orbit frames, then writes the refined mesh and its orbit re-render.
     python -m v3d_tpu_torch.apps.refine --mesh mesh.obj --video FRAMES \\
         --output refined/
 
-``FRAMES`` is a folder of PNG frames (sorted by name) or an ``.npy`` of
-(T, H, W, 3) frames, as ``apps.generate`` writes them; mp4 files are not
-read or written (that needs cv2, which the port does not use).  Outputs:
-``refined.obj``, ``refined.glb`` and ``refined_spiral.npy`` (the T
-re-rendered views, uint8) in place of the JAX CLI's refined_spiral.mp4.
+``FRAMES`` is the ``.mp4`` that ``apps.generate`` writes, its folder of PNG
+frames (sorted by name) or an ``.npy`` of (T, H, W, 3) frames.  Outputs:
+``refined.obj``, ``refined.glb``, and the T re-rendered views as
+``refined_spiral.mp4`` (mp4v, 3 fps, as the JAX CLI writes it) and
+``refined_spiral.npy`` (uint8).
 ``--lambda-lpips`` adds LPIPS (``metrics/lpips.py``) with the weights of
 ``$V3D_TPU_LPIPS_WEIGHTS``; without the file the term is left out, as the
 JAX CLI leaves it.
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from v3d_tpu_torch.apps.recon_gs import read_frames
+from v3d_tpu_torch.data.video_io import write_video
 from v3d_tpu_torch.meshops.mesh import Mesh
 from v3d_tpu_torch.meshops.refine import RefineConfig, TextureRefiner
 from v3d_tpu_torch.metrics.lpips import load_lpips
@@ -56,8 +57,9 @@ def do_refine(mesh_path: str, video_path: str, output: str,
     with torch.no_grad():
         renders = torch.stack([refiner.render(refiner.logits, i)[0]
                                for i in range(len(frames))])
-    np.save(os.path.join(output, "refined_spiral.npy"),
-            (renders * 255).to(torch.uint8).cpu().numpy())
+    spiral = (renders * 255).to(torch.uint8).cpu().numpy()
+    np.save(os.path.join(output, "refined_spiral.npy"), spiral)
+    write_video(os.path.join(output, "refined_spiral.mp4"), spiral, fps=3)
     print(f"saved refined mesh + spiral to {output}")
     return out
 
@@ -66,8 +68,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--mesh", required=True)
     p.add_argument("--video", required=True,
-                   help="folder of PNG frames, or an .npy of (T, H, W, 3) "
-                        "(mp4 is not read)")
+                   help="an .mp4, a folder of PNG frames, or an .npy of "
+                        "(T, H, W, 3)")
     p.add_argument("--output", required=True)
     p.add_argument("--iters", type=int, default=2000)
     p.add_argument("--num-opt-views", type=int, default=16)

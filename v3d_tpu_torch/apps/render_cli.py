@@ -9,11 +9,11 @@ spiral through the orbit's 18 views.
 Modes: "spiral" interpolates ``num_frames // 18`` poses between each pair of
 the 18 orbit views (60 -> 54 frames, as the JAX CLI); "orbit" and "depth"
 take ``num_frames`` orbit views; "points" is the orbit with the gaussians
-shrunk to dots (scaling modifier 0.1).  The JAX CLI writes mp4 videos; the
-port has no video IO (it needs cv2), so it writes the frames as PNG under
-``output/<mode>/`` (in "depth" mode the turbo-coloured depth, which the
-JAX CLI's depth.mp4 holds).  ``export_blender_cameras`` writes the orbit's
-transforms.json.
+shrunk to dots (scaling modifier 0.1).  The frames go to ``output/<mode>.mp4``
+(mp4v at 10 fps, as the JAX CLI writes them; cv2 needed) and as PNG files
+under ``output/<mode>/`` (in "depth" mode the turbo-coloured depth, which
+the JAX CLI's depth.mp4 holds).  ``export_blender_cameras`` writes the
+orbit's transforms.json.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ def render_scene(ply_path: str, output: str, mode: str = "spiral",
     3) and depth (N, H, W) renders."""
     from v3d_tpu_torch.data.cam_paths import get_interpolated_path
     from v3d_tpu_torch.data.cameras import Camera, get_uniform_poses
+    from v3d_tpu_torch.data.video_io import write_video
     from v3d_tpu_torch.gs.gaussians import Gaussians
     from v3d_tpu_torch.gs.ply import load_ply
     from v3d_tpu_torch.gs.render import render
@@ -75,8 +76,11 @@ def render_scene(ply_path: str, output: str, mode: str = "spiral",
         frames = np.stack([apply_depth_colormap(d) for d in depths])
     else:
         frames = np.clip(rgbs, 0, 1)
-    _write_pngs(os.path.join(output, mode), (frames * 255).astype(np.uint8))
-    print(f"rendered {len(poses)} views to {os.path.join(output, mode)}")
+    frames = (frames * 255).astype(np.uint8)
+    _write_pngs(os.path.join(output, mode), frames)
+    write_video(os.path.join(output, f"{mode}.mp4"), frames, fps=10)
+    print(f"rendered {len(poses)} views to {os.path.join(output, mode)} and "
+          f"{mode}.mp4")
     return rgbs, depths
 
 

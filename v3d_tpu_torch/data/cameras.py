@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``data/cameras.py`` (:18-166): orbit pose
 generation (z-up look-at, OpenCV convention with optional OpenGL flip),
-world2view / perspective projection as in the 3DGS code, and the per-pixel
-ray directions and world rays of NeuS.  Matrices are stored transposed (row-vector
+world2view / perspective projection as in the 3DGS code, the per-pixel
+ray directions and world rays of NeuS, and the orthographic rays of the
+Wonder3D views (:169-189).  Matrices are stored transposed (row-vector
 convention) and handed to the renderer as they are.
 """
 
@@ -165,3 +166,26 @@ def get_rays(directions: np.ndarray, c2w: np.ndarray):
     rays_d = rays_d / (np.linalg.norm(rays_d, axis=-1, keepdims=True) + 1e-12)
     rays_o = np.broadcast_to(c2w[:3, 3], rays_d.shape)
     return np.ascontiguousarray(rays_o, dtype=np.float32), rays_d.astype(np.float32)
+
+
+def get_ortho_ray_directions(height: int, width: int, scale: float = 1.0):
+    """Orthographic rays (mesh_recon/models/ray_utils.py ortho path, used by
+    the Wonder3D-style 6-view systems; the JAX package's cameras.py:169-180):
+    per-pixel origins on the image plane, all directions -z (OpenGL)."""
+    i, j = np.meshgrid(np.arange(width) + 0.5, np.arange(height) + 0.5,
+                       indexing="xy")
+    origins = np.stack([(i / width - 0.5) * 2 * scale,
+                        -(j / height - 0.5) * 2 * scale,
+                        np.zeros_like(i)], axis=-1).astype(np.float32)
+    dirs = np.zeros_like(origins)
+    dirs[..., 2] = -1.0
+    return origins, dirs
+
+
+def get_ortho_rays(origins: np.ndarray, directions: np.ndarray,
+                   c2w: np.ndarray):
+    """Orthographic rays to world space (cameras.py:183-189)."""
+    o = origins @ c2w[:3, :3].T + c2w[:3, 3]
+    d = directions @ c2w[:3, :3].T
+    d = d / (np.linalg.norm(d, axis=-1, keepdims=True) + 1e-12)
+    return o.astype(np.float32), d.astype(np.float32)

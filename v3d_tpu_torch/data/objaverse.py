@@ -100,11 +100,19 @@ def video_collate(items: Sequence[Dict]) -> Dict:
 
 
 def _decode_orbit(pngs: Sequence[str]) -> np.ndarray:
-    """An orbit's frames -> (t, h, w, 3) float32 in [0, 255], by PIL (the JAX
-    package's path where its native decoder is absent, objaverse.py:106-120):
-    RGB, the alpha of RGBA renders dropped, not composited."""
+    """An orbit's frames -> (t, h, w, 3) float32 in [0, 255] (objaverse.py
+    :106-120): the native threaded decoder (``native.imgdec``) first, PIL
+    where it is unavailable or an item fails; RGB, the alpha of RGBA renders
+    dropped, not composited."""
     from PIL import Image
 
+    from v3d_tpu_torch.native.imgdec import decode_batch, decode_image
+
+    first = decode_image(pngs[0])
+    if first is not None:
+        out = decode_batch(pngs, first.shape[:2])
+        if out is not None and out[1].all():
+            return out[0][..., :3].astype(np.float32)
     return np.stack([np.asarray(Image.open(p).convert("RGB"), np.float32)
                      for p in pngs])
 

@@ -193,7 +193,8 @@ def load_u2net(path: Optional[str] = None, small: Optional[bool] = None,
     ``device`` (the card unless the caller asks for the CPU), or None when
     no weights are found.  Search order: ``path``, $V3D_U2NET_CKPT, then
     ``ckpts/u2net{,p}{.orbax,.pth}``.  A ``u2net.pth`` / ``u2netp.pth``
-    state dict loads strictly; an orbax tree (the JAX package's converted
+    state dict, or the same state dict saved as an ``.npz`` (one array per
+    key), loads strictly; an orbax tree (the JAX package's converted
     format) is refused.  ``small`` (u2netp) is read from
     ``stage2.rebnconvin``'s output channels (64, against 128) unless
     given."""
@@ -208,7 +209,11 @@ def load_u2net(path: Optional[str] = None, small: Optional[bool] = None,
         raise ValueError(
             f"{found} is an orbax tree of the JAX package's converted U2Net; "
             "this package reads the U-2-Net state dict (u2net.pth / u2netp.pth)")
-    sd = torch.load(found, map_location="cpu")
+    if found.endswith(".npz"):
+        with np.load(found) as z:
+            sd = {k: torch.from_numpy(z[k]) for k in z.files}
+    else:
+        sd = torch.load(found, map_location="cpu")
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     if small is None:

@@ -2,7 +2,9 @@
 
 ``marching_tets.cc`` (a copy of the JAX package's) is built with g++ into
 ``build/native/libmtets-<hash of the source>.so`` at first use; a failed
-build raises with g++'s output.  Nothing here runs at import time.
+build raises with g++'s output.  ``imgdec.cc`` (the threaded PNG / JPEG
+decoder, also a copy) is built the same way by ``native.imgdec``.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -22,29 +24,33 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _lib = None
 
 
-def lib_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libmtets-{digest}.so"
+def lib_path(src: Optional[Path] = None, stem: str = "mtets") -> Path:
+    src = src or SRC
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library unless this source's build is there (written to a
-    temporary name and renamed, so concurrent builds do not collide)."""
-    path = lib_path()
+def build(src: Optional[Path] = None, stem: str = "mtets", libs=()) -> Path:
+    """Compile ``src`` (default: marching_tets.cc), linked with ``libs``,
+    unless this source's build is there (written to a temporary name and
+    renamed, so concurrent builds do not collide); raises with g++'s output
+    when it fails."""
+    src = src or SRC
+    path = lib_path(src, stem)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(SRC), "-o", tmp]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o", tmp, *libs]
     try:
         out = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
         os.unlink(tmp)
-        raise RuntimeError(f"marching tets: g++ not found ({e})") from e
+        raise RuntimeError(f"{src.name}: g++ not found ({e})") from e
     if out.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"marching tets: {' '.join(cmd)} failed:\n"
+        raise RuntimeError(f"{src.name}: {' '.join(cmd)} failed:\n"
                            f"{out.stdout}{out.stderr}")
     os.replace(tmp, path)
     return path
