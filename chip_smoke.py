@@ -157,10 +157,22 @@ Phases, each printing lines before the last:
     ``apps.recon_neus_ortho`` on the six Wonder3D views at 512^2 (fixed
     poses, normal maps) for 300 of 3000 steps and the coloured mesh at
     128^3, and ``validate_ckpt --all`` on seeded LPIPS and U2Net .npz files
-    and on an empty directory.
+    and on an empty directory;
+25. the trainers' step chunks (a chunk on the card replays a CUDA graph of
+    one step): phase 6's fit (``GSTrainer.train``, 200 iterations,
+    densify events at 100 and 200) at ``chunk_size`` 1, 50 and 1 again,
+    then ``NeusTrainer.train`` with recon_scene's recipe on phase 23's DTU
+    scene for 100 steps at ``chunk`` 1, 50 and 1, nothing synchronised per
+    step: ms per step of each run (the fit over its steps, one sync at the
+    end), peak memory, launches (exact: a replay adds its step's counts);
+    a replay and an eager step from one state (loss bit for bit,
+    gradients within 1e-5 of the largest); the fits' losses and
+    parameters, chunked against per-step, beside the per-step path's own
+    run-to-run spread.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
-19, 20, 21, 22's fit and renders, 23's fits and 24's ``full_eval``) is run with the launch counts set to 0 just before it and read
+19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval`` and each
+run of 25) is run with the launch counts set to 0 just before it and read
 just after (phase 12: each stage's launches, the counters read before and
 after it).  A kernel of the path launched
 no time, or another number of times than the path needs (counted from the
@@ -4210,6 +4222,29 @@ def _scene_run(phase: str, what: str, argv, expect: dict, steps: int, dev="cuda"
     return out, counts, step_ms, stats, wall
 
 
+def dtu_views(dev="cuda") -> tuple:
+    """The DTU scene at neus-dtu's downscale: 7 x 7 views in front of phase
+    11's analytic scene, per-frame K, sphere-traced.  Returns (frames,
+    masks, OpenGL c2ws, Ks, per-frame directions)."""
+    import numpy as np
+
+    from v3d_tpu_torch.data.cameras import c2w_from_up_and_look_at, get_ray_directions
+
+    az, el = np.meshgrid(np.deg2rad(np.linspace(-60, 60, 7)),
+                         np.deg2rad(np.linspace(5, 50, 7)))
+    pos = DTU_RADIUS * np.stack([np.cos(el) * np.sin(az), -np.cos(el) * np.cos(az),
+                                 np.sin(el)], -1).reshape(-1, 3)
+    poses = np.stack([c2w_from_up_and_look_at(np.array([0, 0, 1.0]), np.zeros(3), p,
+                                              opengl=True) for p in pos])
+    focal = DTU_FOCAL + 2.0 * (np.arange(DTU_VIEWS) % 5 - 2)
+    Ks = np.stack([np.array([[f, 0, DTU_W / 2 + 3.5], [0, f, DTU_H / 2 - 2.5],
+                             [0, 0, 1.0]]) for f in focal])
+    dirs = np.stack([get_ray_directions(DTU_H, DTU_W, K[0, 0], (K[0, 2], K[1, 2]))
+                     for K in Ks])
+    frames, masks = render_scene(poses, 0, dirs=dirs, device=dev)
+    return frames, masks, poses, Ks, dirs
+
+
 def phase_scenes(dev="cuda") -> dict:
     """Posed scenes through ``apps.recon_scene``: K4 / K5 against the plain
     compositor on one 1008 x 756 view (63 x 48 tiles, the last row 4 pixels
@@ -4319,20 +4354,8 @@ def phase_scenes(dev="cuda") -> dict:
         del trainer, frames, img
         torch.cuda.empty_cache()
 
-        # DTU at neus-dtu's downscale: 7 x 7 views in front, per-frame K
-        az, el = np.meshgrid(np.deg2rad(np.linspace(-60, 60, 7)),
-                             np.deg2rad(np.linspace(5, 50, 7)))
-        pos = DTU_RADIUS * np.stack([np.cos(el) * np.sin(az), -np.cos(el) * np.cos(az),
-                                     np.sin(el)], -1).reshape(-1, 3)
-        poses = np.stack([c2w_from_up_and_look_at(np.array([0, 0, 1.0]), np.zeros(3), p,
-                                                  opengl=True) for p in pos])
-        focal = DTU_FOCAL + 2.0 * (np.arange(DTU_VIEWS) % 5 - 2)
-        Ks = np.stack([np.array([[f, 0, DTU_W / 2 + 3.5], [0, f, DTU_H / 2 - 2.5],
-                                 [0, 0, 1.0]]) for f in focal])
-        dirs = np.stack([get_ray_directions(DTU_H, DTU_W, K[0, 0], (K[0, 2], K[1, 2]))
-                         for K in Ks])
         t0 = time.perf_counter()
-        frames, masks = render_scene(poses, 0, dirs=dirs, device=dev)
+        frames, masks, poses, Ks, dirs = dtu_views(dev)
         root = os.path.join(tmp, "dtu")
         write_dtu(root, frames, masks, poses, Ks)
         say(phase, f"dtu: {DTU_VIEWS} views at {DTU_W}x{DTU_H} (per-frame K, focal "
@@ -4534,10 +4557,323 @@ def phase_entry_points(dev="cuda") -> dict:
     return paths
 
 
+# phase 25: the trainers' step chunks (CUDA-graph replays) against their
+# per-step paths, from one seed
+CHUNK_GS_ITERS = 200        # phase 6's fit, densify events at 100 and 200
+CHUNK_GS_DENSIFY_FROM = 50
+CHUNK_NEUS_STEPS = 100      # on phase 23's DTU scene, recon_scene's recipe
+CHUNK_STEPS = 50            # steps a chunk (GSTrainConfig.chunk_size's default)
+CHUNK_GRAD_REL = 1e-5       # lockstep: a replay's gradients against an eager
+#                             step's from the same state, max abs / max abs
+CHUNK_STATE_REL = 1e-5      # lockstep: the state after each side (parameters,
+#                             Adam moments, 3DGS statistics), max abs / max abs
+CHUNK_UPDATE_REL = 1e-2     # lockstep: each parameter's update, max abs / max
+#                             abs (a stale learning rate moves it by ~1)
+CHUNK_ALIVE_REL = 1e-2      # 3DGS fits: the alive count's least bound, of the
+#                             per-step fit's (one pair's spread is no estimate)
+CHUNK_LOSS_REL = 1e-6       # fits: each compared loss, chunked vs per step
+CHUNK_PARAM_REL = 1e-5      # fits: each tensor's max abs difference / its max abs
+CHUNK_GS_EARLY = 10         # 3DGS fits: steps whose losses are held ...
+CHUNK_GS_EARLY_REL = 1e-4   # ... at test_torch_gs_trainer.py's step tolerance
+
+
+def _loss_recorder(trainer) -> list:
+    """Wrap the trainer's ``train_iter`` / ``train_chunk`` so that each
+    step's (GS) or each call's last (NeuS) loss tensor is kept without a
+    sync; returns the list they fill."""
+    kept = []
+    for name in ("train_iter", "train_chunk"):
+        fn = getattr(trainer, name)
+
+        def wrapped(*a, _fn=fn, **k):
+            stats = _fn(*a, **k)
+            kept.append(stats.get("losses", stats["loss"]).reshape(-1))
+            return stats
+
+        setattr(trainer, name, wrapped)
+    return kept
+
+
+CHUNK_RUNS = (("per step", False), ("chunked (CUDA graph)", True), ("per step again", False))
+
+
+def _chunk_runs(phase: str, what: str, make, run, iters: int) -> list:
+    """For each of CHUNK_RUNS: ``make(chunked)`` a trainer and ``run(trainer,
+    chunked)`` it, with the launch counts set to 0 just before and one sync
+    at the end.  Returns per run (trainer, losses (numpy), launches, ms per
+    step, peak GiB above the memory held before the trainer was made)."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    runs = []
+    for label, chunked in CHUNK_RUNS:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make(chunked)
+        kept = _loss_recorder(trainer)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run(trainer, chunked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        losses = torch.cat(kept).cpu().numpy()
+        capture = ""
+        if trainer._graph is not None:
+            cap = trainer._graph.capture_s
+            capture = (f" | the capture {1e3 * cap:.1f} ms (host, instantiation included), "
+                       f"{1e3 * (wall - cap) / iters:.3f} ms per step without it")
+        say(phase, f"{what}, {label}: {wall:.3f} s, {1e3 * wall / iters:.3f} ms per step "
+            f"(the whole fit over {iters} steps, one sync at the end){capture} | peak "
+            f"{peak:.2f} GiB | launches {_nonzero(counts)}")
+        runs.append((trainer, losses, counts, 1e3 * wall / iters, peak))
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _max_rel(named_a: dict, named_b: dict) -> tuple:
+    """Largest |a - b| / max |a| over the tensors, and the worst tensor."""
+    worst, where = 0.0, None
+    for k, a in named_a.items():
+        a, b = a.float(), named_b[k]
+        if not a.numel():
+            continue
+        scale = float(a.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        if rel >= worst:
+            worst, where = rel, k
+    return worst, where
+
+
+def _loss_windows(a, b, ends) -> str:
+    """Max relative loss difference over the first n of each ``ends``."""
+    import numpy as np
+
+    rel = np.abs(b - a) / np.abs(a)
+    return ", ".join(f"1-{n} {rel[:n].max():.2e}" for n in ends)
+
+
+def _lockstep(params: dict, opt, extra: dict, replay, eager) -> dict:
+    """From one state, one replay of the step's CUDA graph and one eager
+    step, the state put back in place (the graph reads these tensors)
+    between the two.  ``params`` {name: parameter}, ``extra`` {name: tensor}
+    more state the step changes in place.  Returns the loss bit for bit
+    ("loss"), then (max |diff| / max |a|, worst tensor) of the gradients
+    ("grads"), of the state after the step (parameters, optimizer moments,
+    ``extra``: "state") and of each parameter's update ("updates"), and
+    whether the optimizer step counts are equal ("steps")."""
+    import torch
+
+    state = {k: p.detach() for k, p in params.items()}
+    for k, p in params.items():
+        state.update({f"{k}.{m}": v for m, v in opt.state[p].items()})
+    state.update(extra)
+    before = {k: v.clone() for k, v in state.items()}
+
+    def side(run):
+        loss = run().clone()
+        grads = {k: p.grad.clone() for k, p in params.items() if p.grad is not None}
+        return loss, grads, {k: v.clone() for k, v in state.items()}
+
+    loss_r, grads_r, after_r = side(replay)
+    with torch.no_grad():
+        for k, v in state.items():
+            v.copy_(before[k])
+    loss_e, grads_e, after_e = side(eager)
+    steps = [k for k in state if k.endswith(".step")]
+    return {"loss": bool(torch.equal(loss_r, loss_e)),
+            "grads": _max_rel(grads_e, grads_r),
+            "state": _max_rel({k: v for k, v in after_e.items() if k not in steps}, after_r),
+            "updates": _max_rel({k: after_e[k] - before[k] for k in params},
+                                {k: after_r[k] - before[k] for k in params}),
+            "steps": all(torch.equal(after_r[k], after_e[k]) for k in steps)}
+
+
+def _lockstep_ok(lock: dict) -> bool:
+    return (lock["loss"] and lock["steps"] and lock["grads"][0] <= CHUNK_GRAD_REL
+            and lock["state"][0] <= CHUNK_STATE_REL
+            and lock["updates"][0] <= CHUNK_UPDATE_REL)
+
+
+def _lockstep_line(lock: dict) -> str:
+    return (f"loss {'equal' if lock['loss'] else 'DIFFERS'}, optimizer steps "
+            f"{'equal' if lock['steps'] else 'DIFFER'}; max |diff| / max |tensor|: gradients "
+            f"{lock['grads'][0]:.3e} ({lock['grads'][1]}; <= {CHUNK_GRAD_REL:g}), state after "
+            f"{lock['state'][0]:.3e} ({lock['state'][1]}; <= {CHUNK_STATE_REL:g}), updates "
+            f"{lock['updates'][0]:.3e} ({lock['updates'][1]}; <= {CHUNK_UPDATE_REL:g})")
+
+
+def phase_chunks(frames, dev="cuda") -> dict:
+    """The trainers' step chunks against their per-step paths, from one
+    seed, ``log_every`` 0 (nothing syncs per step): phase 6's fit
+    (``GSTrainer.train``) at ``chunk_size`` 1, 50 and 1 again for 200
+    iterations across densify events at 100 and 200; then
+    ``NeusTrainer.train`` on phase 23's DTU scene with recon_scene's recipe
+    at ``chunk`` 1, 50 and 1 for 100 steps.  Each run: ms per step (the
+    whole fit over its steps, one sync at the end), peak memory, launches
+    (exact).  Held: the chunked run replayed a graph; a lockstep step (one
+    replay and one eager step from the same state, at learning rates far
+    from the captured step's) with the same loss bit for bit, gradients
+    within CHUNK_GRAD_REL, the state after the step (parameters, Adam
+    moments, 3DGS statistics) within CHUNK_STATE_REL, each parameter's
+    update within CHUNK_UPDATE_REL and equal Adam step counts; the first
+    step's loss bit
+    for bit in the three runs; NeuS (deterministic on the card): the fits'
+    losses within CHUNK_LOSS_REL and parameters within CHUNK_PARAM_REL of
+    the per-step run's.  3DGS: K5 adds each tile's gradients into the slab
+    with float atomics, so two per-step fits part by rounding from step 2
+    on and the densify events amplify it; the first CHUNK_GS_EARLY steps'
+    losses are held within CHUNK_GS_EARLY_REL, the alive count within the
+    per-step runs' spread or CHUNK_ALIVE_REL, whichever is larger, the rest
+    of the fits' numbers printed beside the second per-step run's own
+    spread, and the lockstep step holds the graph to the eager step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from v3d_tpu_torch.apps.recon_scene import neus_scene_config
+    from v3d_tpu_torch.data.cameras import orbit_cameras
+    from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
+    from v3d_tpu_torch.nerf.system import NeusTrainer
+
+    phase = "25 chunks"
+    t_phase = time.perf_counter()
+    paths = {}
+    cams = orbit_cameras(frames.shape[0], resolution=frames.shape[1], images=list(frames))
+    # train_from_frames's recipe (lambda_dssim 1, no resets, decay 0.995)
+    base = GSTrainConfig(lambda_dssim=1.0, opacity_reset_mode="none", opacity_decay=0.995,
+                         densify_from_iter=CHUNK_GS_DENSIFY_FROM)
+
+    def make_gs(chunked):
+        cfg = dataclasses.replace(base, chunk_size=CHUNK_STEPS if chunked else 1)
+        return GSTrainer(cams, cfg, num_pts=FIT_POINTS, capacity=FIT_CAPACITY, seed=0,
+                         radius=2.0, device=dev)
+
+    runs = _chunk_runs(
+        phase, f"3DGS {CHUNK_GS_ITERS} iterations at {frames.shape[1]}^2, {FIT_POINTS} "
+        f"points in {FIT_CAPACITY} slots", make_gs, lambda t, _: t.train(CHUNK_GS_ITERS),
+        CHUNK_GS_ITERS)
+    (ta, la, ca, ms_a, pk_a), (tb, lb, cb, ms_b, pk_b), (tc, lc, cc, ms_c, pk_c) = runs
+    expect = gs_fit_launches(CHUNK_GS_ITERS, 0)
+
+    # the lockstep step: view 1 at the end of the xyz schedule, whose lr is
+    # 1/100 of the captured step's
+    lock_step = base.position_lr_max_steps
+
+    def gs_replay():
+        tb._set_inputs(lock_step, 1, None)
+        tb._graph.graph.replay()
+        return tb._graph.out
+
+    fields = [{k: p.detach() for k, p in t.params.items()} for t in (ta, tb, tc)]
+    loss_rel = float(np.max(np.abs(lb - la) / np.abs(la)))
+    spread_rel = float(np.max(np.abs(lc - la) / np.abs(la)))
+    prel, pwhere = _max_rel(fields[0], fields[1])
+    srel, swhere = _max_rel(fields[0], fields[2])
+    alive = [int(t.alive.sum()) for t in (ta, tb, tc)]
+    early = slice(0, CHUNK_GS_EARLY)
+    early_rel = float(np.max(np.abs(lb[early] - la[early]) / np.abs(la[early])))
+    # the graph's gradients are the parameters' .grad: no eager step ran
+    # after the capture (four chunks of 50 make the fit)
+    lock = _lockstep(tb.params, tb.opt, {**tb.stats, "alive": tb.alive}, gs_replay, tb._step)
+    alive_bound = max(abs(alive[2] - alive[0]), CHUNK_ALIVE_REL * alive[0])
+    ends = sorted({min(n, CHUNK_GS_ITERS) for n in (1, 10, 50, 100, CHUNK_GS_ITERS)})
+    ok = (ca == cb == cc == expect and la.shape == lb.shape == (CHUNK_GS_ITERS,)
+          and np.all(np.isfinite(lb)) and tb._graph.graph is not None and ta._graph is None
+          and la[0] == lb[0] == lc[0] and _lockstep_ok(lock)
+          and early_rel <= CHUNK_GS_EARLY_REL and abs(alive[1] - alive[0]) <= alive_bound)
+    say(phase, f"3DGS lockstep (a replay and an eager step from one state, view 1, xyz lr at "
+        f"step {lock_step}): {_lockstep_line(lock)}")
+    say(phase, f"3DGS fits, chunked vs per step (per step again vs per step): losses max rel "
+        f"over steps {_loss_windows(la, lb, ends)} ({_loss_windows(la, lc, ends)}); "
+        f"parameters max |diff| / max |field| {prel:.3e} {pwhere} ({srel:.3e} {swhere}); "
+        f"alive {alive[1]} vs {alive[0]} ({alive[2]}; held within {alive_bound:g}); bit for bit "
+        f"{'yes' if loss_rel == 0 and prel == 0 else 'no'} ("
+        f"{'yes' if spread_rel == 0 and srel == 0 else 'no'}); held: step 1 bit for bit, "
+        f"steps 1-{CHUNK_GS_EARLY} <= {CHUNK_GS_EARLY_REL:g} | ms per step {ms_a:.3f} -> "
+        f"{ms_b:.3f} ({ms_c:.3f}), peak {pk_a:.2f} -> {pk_b:.2f} GiB | launches "
+        f"{_nonzero(cb)} (expect {_nonzero(expect)}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"3DGS chunks: launches {ca} {cb} {cc}, first losses {la[:1]} "
+                           f"{lb[:1]} {lc[:1]}, steps 1-{CHUNK_GS_EARLY} {early_rel}, "
+                           f"alive {alive}, lockstep {lock}")
+    paths["chunks_gs"] = {"launches": _summed(ca, cb, cc)}
+    del ta, tb, tc, runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dframes, masks, poses, _, dirs = dtu_views(dev)
+    say(phase, f"DTU scene ({DTU_VIEWS} views at {DTU_W}x{DTU_H}, per-frame K) rendered "
+        f"in {time.perf_counter() - t0:.2f} s")
+    cfg = neus_scene_config(dev, CHUNK_NEUS_STEPS, 256, masked=True)
+
+    def run_neus(trainer, chunked):
+        trainer.train(CHUNK_NEUS_STEPS, chunk=CHUNK_STEPS if chunked else 1)
+
+    runs = _chunk_runs(
+        phase, f"NeuS {CHUNK_NEUS_STEPS} steps ({cfg.train_num_rays} rays, "
+        f"{cfg.coarse_to_fine_samples} + {cfg.num_samples_per_ray} samples)",
+        lambda _: NeusTrainer(dframes, masks, dirs, poses, config=cfg, seed=0, device=dev),
+        run_neus, CHUNK_NEUS_STEPS)
+    (na, nla, nca, nms_a, npk_a), (nb, nlb, ncb, nms_b, npk_b), (nc, nlc, ncc, nms_c, _) = runs
+
+    named = {f"{g}.{k}": p for g, m in nb.modules.items() for k, p in m.named_parameters()}
+
+    # the lockstep step: new draws at step 10 x max_steps, whose learning
+    # rates are far below the captured step's
+    inp, nlock_step = nb._inputs, 10 * cfg.max_steps
+
+    def neus_replay():
+        inp.load(nb.make_draws(cfg.train_num_rays),
+                 nb._schedule_table([nlock_step])[0], nb.occ.binary)
+        nb._set_lr(nlock_step)
+        nb._graph.graph.replay()
+        return nb._graph.out[0]
+
+    # the per-step runs kept every step's loss, the chunked run each chunk's last
+    ends = np.arange(CHUNK_STEPS, CHUNK_NEUS_STEPS + 1, CHUNK_STEPS) - 1
+    nloss_rel = float(np.max(np.abs(nlb - nla[ends]) / np.abs(nla[ends])))
+    nspread = float(np.max(np.abs(nlc - nla) / np.abs(nla)))
+    params = [{f"{g}.{k}": p.detach() for g, m in t.modules.items()
+               for k, p in m.named_parameters()} for t in (na, nb, nc)]
+    nprel, nwhere = _max_rel(params[0], params[1])
+    nsrel, nswhere = _max_rel(params[0], params[2])
+    nlock = _lockstep(named, nb.opt, {}, neus_replay,
+                      lambda: nb._step(inp.draws, inp.sched, inp.binary)[0])
+    nok = (not _nonzero(nca) and not _nonzero(ncb) and not _nonzero(ncc)
+           and nlb.shape == ends.shape and np.all(np.isfinite(nlb))
+           and na.global_step == nb.global_step == nc.global_step == CHUNK_NEUS_STEPS
+           and nb._graph.graph is not None
+           and na._graph is None and _lockstep_ok(nlock)
+           and nloss_rel <= CHUNK_LOSS_REL and nprel <= CHUNK_PARAM_REL)
+    say(phase, f"NeuS lockstep (learning rates and schedules at step {nlock_step}): "
+        f"{_lockstep_line(nlock)}")
+    say(phase, f"NeuS fits, chunked vs per step (per step again vs per step): losses at steps "
+        f"{[int(e) + 1 for e in ends]} max rel {nloss_rel:.3e} (every step {nspread:.3e}); "
+        f"parameters max |diff| / max |tensor| {nprel:.3e} {nwhere} ({nsrel:.3e} {nswhere}); "
+        f"bit for bit {'yes' if nloss_rel == 0 and nprel == 0 else 'no'} ("
+        f"{'yes' if nspread == 0 and nsrel == 0 else 'no'}) | ms per step {nms_a:.3f} -> "
+        f"{nms_b:.3f} ({nms_c:.3f}), peak {npk_a:.2f} -> {npk_b:.2f} GiB | launches "
+        f"{_nonzero(ncb)} (expect none) | {'ok' if nok else 'FAIL'}")
+    if not nok:
+        raise SmokeFailure(f"NeuS chunks: launches {nca} {ncb} {ncc}, lockstep {nlock}, "
+                           f"fits: losses {nloss_rel} "
+                           f"parameters {nprel} ({nwhere})")
+    say(phase, f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24",
+                   default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,"
+                           "25",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -4571,7 +4907,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     image = phase_image(dev) if 21 in phases else {}
     fit, rgba = {}, None
-    if phases & {6, 7, 18, 19, 20, 22}:
+    if phases & {6, 7, 18, 19, 20, 22, 25}:
         t0 = time.perf_counter()
         rgba = scene_frames(dev)
         say("6 fit", f"target frames {rgba.shape} (rgb + silhouette) rendered in "
@@ -4585,6 +4921,8 @@ def main(argv=None) -> int:
              "image": image}
     if 22 in phases:
         paths.update(phase_lpips(rgba, dev, fit.get("step_ms")))
+    if 25 in phases:
+        paths.update(phase_chunks(rgba[..., :3], dev))
     g_np = fit["trainer"].gaussians_np() if fit and 14 in phases else None
     del fit
     torch.cuda.empty_cache()

@@ -12,7 +12,9 @@ or a tiny ``engine_from_config``, a tiny image diffusion engine, a 3DGS fit
 with LPIPS, ``render_cli``, ``metrics_cli`` and ``validate_ckpt --lpips``,
 or a posed blender / COLMAP scene through ``recon_scene`` and
 ``imgs2poses``, ``full_eval`` on an mp4, ``recon_neus_ortho`` and
-``validate_ckpt --all``, loads neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+``validate_ckpt --all``, or the trainers' step chunks, their save / load, the
+host densify, the packed PLY, ``snapshot_run`` and ``log_images``, loads
+neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -392,6 +394,52 @@ print("FOREIGN", bad)
 """
 
 
+_CHUNKS_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+from v3d_tpu_torch.data.cameras import get_ray_directions, get_uniform_poses, orbit_cameras
+from v3d_tpu_torch.gs.ply import save_packed_ply
+from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
+from v3d_tpu_torch.nerf.system import NeusConfig, NeusTrainer
+from v3d_tpu_torch.utils.logging import ExperimentLogger
+from v3d_tpu_torch.utils.snapshot import snapshot_run
+
+frames = [np.random.RandomState(i).rand(32, 32, 3).astype(np.float32) for i in range(3)]
+with tempfile.TemporaryDirectory() as out:
+    for host in (False, True):
+        cfg = GSTrainConfig(densify_from_iter=1, densification_interval=4, chunk_size=2,
+                            densify_grad_threshold=1e-6, host_densify=host,
+                            max_per_coarse=64, coarse_factor=2, random_background=True)
+        tr = GSTrainer(orbit_cameras(3, resolution=32, images=frames), cfg, num_pts=30,
+                       capacity=64, device="cpu")
+        tr.train(7)
+        assert tr.step_count == 7 and int(tr.alive.sum()) > 30
+    tr.save(os.path.join(out, "gs.npz"))
+    tr.load(os.path.join(out, "gs.npz"))
+    save_packed_ply(os.path.join(out, "p.ply"), tr.gaussians_np())
+    poses = get_uniform_poses(3, 2.0, 0.0, opengl=True)
+    nt = NeusTrainer(np.stack(frames), np.ones((3, 32, 32), np.float32),
+                     get_ray_directions(32, 32, 30.0), poses, device="cpu",
+                     config=NeusConfig(geometry_encoding="frequency", grad_type="analytic",
+                                       n_frequencies=4, geo_neurons=16,
+                                       dynamic_ray_sampling=False, use_occ_lookup=False,
+                                       num_samples_per_ray=16, train_num_rays=32,
+                                       max_train_num_rays=32))
+    nt.train(5, chunk=2)
+    assert nt.global_step == 5
+    nt.save(os.path.join(out, "neus.npz"))
+    nt.load(os.path.join(out, "neus.npz"))
+    snapshot_run(os.path.join(out, "run"), config=cfg)
+    assert os.path.exists(os.path.join(out, "run", "snapshot", "config.json"))
+    ExperimentLogger(os.path.join(out, "log")).log_images("x", np.stack(frames), 3)
+    assert os.path.exists(os.path.join(out, "log", "x_00000003.png"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -495,6 +543,17 @@ def test_scene_readers_and_remaining_apps_run_without_jax():
     views, ``validate_ckpt --all`` on an empty directory, DTU's
     decomposition and fisheye, in a fresh interpreter with no jax."""
     out = subprocess.run([sys.executable, "-c", _SCENES_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_chunks_save_load_and_snapshot_run_without_jax():
+    """The 3DGS fit in chunks across densify events (device and host
+    densify), its save / load and packed PLY, a NeuS fit in chunks with its
+    save / load, ``snapshot_run`` and ``log_images``, in a fresh
+    interpreter with no jax."""
+    out = subprocess.run([sys.executable, "-c", _CHUNKS_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

@@ -54,11 +54,12 @@ def test_empty_isosurface_writes_timings_and_no_mesh(tmp_path, monkeypatch):
         train_num_rays=16, mc_resolution=8, device="cpu",
         config_overrides=dict(n_levels=2, grid_prune=False))
     assert len(mesh.vertices) == 0 and {"train_s", "export_s"} <= set(timings)
-    assert sorted(p.name for p in (tmp_path / "neus").iterdir()) == ["config.json"]
+    assert sorted(p.name for p in (tmp_path / "neus").iterdir()) == ["config.json",
+                                                                     "snapshot"]
 
     monkeypatch.setattr(full_asset, "sample_one",
                         lambda *a, **k: (np.zeros((2, 8, 8, 3), np.uint8), None, {}))
-    monkeypatch.setattr(full_asset, "train_from_frames", lambda *a, **k: None)
+    monkeypatch.setattr(full_asset, "train_from_video", lambda *a, **k: None)
     monkeypatch.setattr(full_asset, "reconstruct",
                         lambda *a, **k: (None, recon_neus.Mesh(*empty), {}))
     report = full_asset.run(np.zeros((8, 8, 4), np.uint8), str(tmp_path / "asset"),

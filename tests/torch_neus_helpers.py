@@ -70,8 +70,24 @@ def _jitter(key, R, S, chunk):
 def jax_draws(jt: JTrainer, num_rays: int):
     """What ``jt.train_iter()`` will draw next, as the port's NeusDraws and
     the occupancy update's cell offsets."""
-    cfg, R = jt.cfg, num_rays
     _, rng_step, rng_occ = jax.random.split(jt.rng, 3)
+    draws = step_draws(jt, rng_step, num_rays)
+    occ = None
+    if jt.global_step >= jt.occ.warmup_steps:
+        occ = torch.tensor(np.asarray(jax.random.uniform(rng_occ, (jt.occ.resolution ** 3, 3))))
+    return draws, occ
+
+
+def chunk_draws(jt: JTrainer, n: int, num_rays: int):
+    """What ``jt.train_chunk(n)`` will draw, step by step (its chunk key's
+    n split keys, each a step's key), as the port's NeusDraws."""
+    _, rng_chunk = jax.random.split(jt.rng)
+    return [step_draws(jt, r, num_rays) for r in jax.random.split(rng_chunk, n)]
+
+
+def step_draws(jt: JTrainer, rng_step, num_rays: int) -> NeusDraws:
+    """The draws of the JAX ``_train_step`` on the key ``rng_step``."""
+    cfg, R = jt.cfg, num_rays
     rng_batch, rng_render, rng_sparse, rng_perturb = jax.random.split(rng_step, 4)
     r1, r2, r3 = jax.random.split(rng_batch, 3)
     rng_fg, rng_bg = jax.random.split(rng_render)
@@ -79,7 +95,7 @@ def jax_draws(jt: JTrainer, num_rays: int):
     def tt(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype)
 
-    draws = NeusDraws(
+    return NeusDraws(
         idx=tt(jax.random.randint(r1, (R,), 0, jt.n_images), torch.int64),
         x=tt(jax.random.randint(r2, (R,), 0, jt.w), torch.int64),
         y=tt(jax.random.randint(r3, (R,), 0, jt.h), torch.int64),
@@ -89,10 +105,6 @@ def jax_draws(jt: JTrainer, num_rays: int):
         perturb=tt(jax.random.normal(rng_perturb, (R, 3))),
         bg_jitter=(tt(jax.random.uniform(rng_bg, (R, 1)))
                    if cfg.learned_background else None))
-    occ = None
-    if jt.global_step >= jt.occ.warmup_steps:
-        occ = tt(jax.random.uniform(rng_occ, (jt.occ.resolution ** 3, 3)))
-    return draws, occ
 
 
 def pair(recipe, n_port=1):

@@ -7,8 +7,10 @@ paper's ~3 minutes per asset on one GPU).
     python -m v3d_tpu_torch.apps.full_asset --input img.png --output assets/ \\
         --mesh --assets 2
 
-The frames go from the generation to both fits in memory (and are kept as
-``frames.npy``).  ``--assets N`` runs the pipeline N times on one engine:
+Each generation is written as ``<asset dir>/000000.mp4`` (3 fps), as the
+JAX pipeline's ``sample_one(save=True)`` writes it, and both fits read that
+file, so they see the video's pixels: the 3DGS fit through
+``recon_gs.train_from_video``, NeuS from ``read_video`` of it.  ``--assets N`` runs the pipeline N times on one engine:
 asset 2 onward is the amortised per-asset cost.  Without ``--checkpoint``
 the generation runs on seeded random weights (the real compute; the fits
 then fit noise).  The report, with every stage's seconds, the kernels each
@@ -28,8 +30,9 @@ import numpy as np
 import torch
 
 from v3d_tpu_torch.apps.generate import sample_one
-from v3d_tpu_torch.apps.recon_gs import train_from_frames
+from v3d_tpu_torch.apps.recon_gs import train_from_video
 from v3d_tpu_torch.apps.recon_neus import reconstruct
+from v3d_tpu_torch.data.video_io import read_video, write_video
 from v3d_tpu_torch.ops import LAUNCHES
 
 
@@ -46,7 +49,7 @@ def run(image: Union[str, np.ndarray], output: str,
         neus_kwargs: Optional[Dict] = None) -> Dict:
     """``image``: a path or an (H, W, 3|4) uint8 array.  ``engine`` replaces
     the V3D-512 engine that the first generation builds; ``gs_kwargs`` /
-    ``neus_kwargs`` go to ``train_from_frames`` / ``reconstruct`` (small
+    ``neus_kwargs`` go to ``train_from_video`` / ``reconstruct`` (small
     runs).  Returns the report that it writes to ``output/full_asset.json``."""
     if isinstance(image, str):
         from PIL import Image
@@ -72,13 +75,14 @@ def run(image: Union[str, np.ndarray], output: str,
                                        checkpoint=checkpoint)
         stages["generate_18view_512"] = time.perf_counter() - t0
         stages["launches"]["generate"] = _launched(before)
-        np.save(os.path.join(a_out, "frames.npy"), frames)
-        print(f"[full_asset] a{i} generate: {stages['generate_18view_512']:.1f} s",
-              flush=True)
+        video_path = os.path.join(a_out, "000000.mp4")
+        write_video(video_path, frames, fps=3)
+        print(f"[full_asset] a{i} generate: {stages['generate_18view_512']:.1f} s "
+              f"-> {video_path}", flush=True)
 
         before, t0 = dict(LAUNCHES), time.perf_counter()
-        train_from_frames(frames, os.path.join(a_out, "gs"), iterations=gs_iters,
-                          seed=i, device=device, **(gs_kwargs or {}))
+        train_from_video(video_path, os.path.join(a_out, "gs"), iterations=gs_iters,
+                         seed=i, device=device, **(gs_kwargs or {}))
         stages[f"gs_fit_{gs_iters}"] = time.perf_counter() - t0
         stages["launches"]["gs_fit"] = _launched(before)
         print(f"[full_asset] a{i} 3DGS fit: {stages[f'gs_fit_{gs_iters}']:.1f} s",
@@ -86,7 +90,7 @@ def run(image: Union[str, np.ndarray], output: str,
 
         if mesh:
             before, t0 = dict(LAUNCHES), time.perf_counter()
-            _, m, _ = reconstruct(frames, os.path.join(a_out, "mesh"),
+            _, m, _ = reconstruct(read_video(video_path), os.path.join(a_out, "mesh"),
                                   max_steps=neus_steps,
                                   mc_resolution=mc_resolution, seed=i,
                                   device=device, **(neus_kwargs or {}))

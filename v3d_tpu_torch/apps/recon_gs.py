@@ -9,8 +9,9 @@ reference-compatible ply and the re-rendered orbit.
 that ``v3d_tpu_torch.apps.generate`` writes, or an ``.npy`` file of
 (T, H, W, 3) frames, uint8 or float in [0, 1].  Outputs:
 ``DIR/point_cloud.ply`` and ``DIR/orbit.npy`` (the T re-rendered views,
-uint8); from an ``.mp4`` also ``DIR/spiral.mp4`` (those views, 3 fps), as
-the JAX CLI's ``train_from_video`` writes it.
+uint8); from an ``.mp4`` also ``DIR/spiral.mp4`` (those views, 3 fps) and
+``DIR/snapshot/`` (config, git state, sources), as the JAX CLI's
+``train_from_video`` writes them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from v3d_tpu_torch.gs.losses import psnr
 from v3d_tpu_torch.gs.ply import save_ply
 from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
 from v3d_tpu_torch.metrics.lpips import load_lpips
+from v3d_tpu_torch.utils.snapshot import snapshot_run
 
 
 def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
@@ -39,8 +41,8 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
                       opacity_reset_mode: str = "none",
                       opacity_decay: float = 0.995, capacity: int = 300_000,
                       device="cuda", config_overrides: Optional[Dict] = None,
-                      log_fn: Optional[Callable[[Dict], None]] = None
-                      ) -> GSTrainer:
+                      log_fn: Optional[Callable[[Dict], None]] = None,
+                      snapshot: bool = False) -> GSTrainer:
     """Fit ``frames`` (T, H, W, 3) on the orbit and write the ply and the
     re-rendered orbit under ``output``.  The defaults are the shipped
     transient-free recipe at the reference operating point: 100k random
@@ -50,7 +52,9 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
     out with a note, as the JAX CLI does: V3D's readme step 4 uses 2.0).
     ``config_overrides`` replaces fields of the GSTrainConfig;
     ``log_fn(stats)`` runs every ``test_every`` iterations (default: print
-    the loss, view 0's PSNR and, at densify events, the alive count)."""
+    the loss, view 0's PSNR and, at densify events, the alive count); the
+    steps between run as chunks of ``chunk_size`` (``GSTrainer.train``).
+    ``snapshot`` writes ``output/snapshot/`` (``utils.snapshot``) first."""
     frames = np.asarray(frames)
     if frames.dtype == np.uint8:
         frames = frames.astype(np.float32) / 255.0
@@ -75,6 +79,8 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
     trainer = GSTrainer(cams, cfg, num_pts=num_pts, capacity=capacity,
                         seed=seed, radius=radius, lpips_fn=lpips_fn, device=device)
     os.makedirs(output, exist_ok=True)
+    if snapshot:
+        snapshot_run(output, config=cfg)
 
     def print_stats(stats):
         p = float(psnr(trainer.render_view(0).image, trainer.images[0]))
@@ -94,9 +100,10 @@ def train_from_frames(frames: np.ndarray, output: str, iterations: int = 4000,
 def train_from_video(video_path: str, output: str, iterations: int = 4000,
                      **kwargs) -> GSTrainer:
     """``train_from_frames`` on the frames of an mp4 (the JAX CLI's entry
-    point, recon_gs.py:18-87), then the re-rendered orbit written as
-    ``output/spiral.mp4`` (3 fps) beside ``orbit.npy``."""
-    trainer = train_from_frames(read_video(video_path), output, iterations, **kwargs)
+    point, recon_gs.py:18-87) with the run's snapshot, then the re-rendered
+    orbit written as ``output/spiral.mp4`` (3 fps) beside ``orbit.npy``."""
+    trainer = train_from_frames(read_video(video_path), output, iterations,
+                                snapshot=True, **kwargs)
     write_video(os.path.join(output, "spiral.mp4"),
                 np.load(os.path.join(output, "orbit.npy")), fps=3)
     return trainer

@@ -7,8 +7,10 @@ mesh and colours its vertices from the radiance field.
     python -m v3d_tpu_torch.apps.recon_neus --frames FRAMES --output DIR
 
 ``FRAMES`` is an ``.mp4`` (as ``apps.generate`` writes it), a folder of
-PNG frames (sorted by name) or an ``.npy`` of (T, H, W, 3) frames.  Outputs: ``DIR/mesh.obj``, ``DIR/mesh.glb`` and
-``DIR/config.json``; an empty isosurface (a degenerate fit) writes no mesh.
+PNG frames (sorted by name) or an ``.npy`` of (T, H, W, 3) frames.
+Outputs: ``DIR/mesh.obj``, ``DIR/mesh.glb``, ``DIR/config.json`` and
+``DIR/snapshot/`` (config, git state, sources: ``utils.snapshot``); an
+empty isosurface (a degenerate fit) writes no mesh.
 
 Normal supervision, first found: ``--normals`` (world normals), the DPT
 predictor's normals from ``--dpt-weights`` or ``$V3D_TPU_DPT_WEIGHTS`` (the
@@ -40,6 +42,7 @@ from v3d_tpu_torch.data.cameras import fov2focal, get_ray_directions, get_unifor
 from v3d_tpu_torch.meshops.mcubes import isosurface
 from v3d_tpu_torch.meshops.mesh import Mesh
 from v3d_tpu_torch.nerf.system import NeusConfig, NeusTrainer
+from v3d_tpu_torch.utils.snapshot import snapshot_run
 
 
 def foreground_masks(frames: np.ndarray, threshold: float = 0.95) -> np.ndarray:
@@ -141,6 +144,8 @@ def reconstruct(frames: np.ndarray, output: str, max_steps: int = 3000,
     os.makedirs(output, exist_ok=True)
     with open(os.path.join(output, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
+    # run-reproducibility snapshot (reference utils/callbacks.py:52-95)
+    snapshot_run(output, config=cfg)
     t0 = time.perf_counter()
     verts, faces = isosurface(None, radius=radius, resolution=mc_resolution,
                               grid_fn=trainer.sdf_grid)

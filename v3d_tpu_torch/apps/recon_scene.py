@@ -17,7 +17,9 @@ K5 at the scene's own size; sides need not be multiples of 16).  NeuS
 picks its recipe from the device as ``apps.recon_neus`` does: on the card
 the frequency encoding, the exact SDF gradient, 64 coarse + 256 fine
 samples; on the CPU the hash grid, finite differences and 1024 uniform
-samples.  Outputs: ``point_cloud.ply`` (gs) or ``mesh.obj`` (neus).
+samples.  Both fits run chunks of steps between log points
+(``GSTrainer.train``, ``NeusTrainer.train(n, chunk)``).  Outputs:
+``point_cloud.ply`` (gs) or ``mesh.obj`` (neus).
 """
 
 from __future__ import annotations
@@ -160,8 +162,12 @@ def run_neus(scene: sd.SceneFrames, args, log_fn=None):
         print(f"step {trainer.global_step} loss {float(stats['loss']):.4f}",
               flush=True)
 
-    trainer.train(args.iterations, log_every=args.log_every,
-                  log_fn=log_fn or print_stats)
+    # the JAX CLI's loop (recon_scene.py:134-136): chunks of up to 50 steps
+    # per log interval (CUDA graph replays on the card)
+    for start in range(0, args.iterations, args.log_every):
+        n = min(args.log_every, args.iterations - start)
+        stats = trainer.train(n, chunk=min(50, n))
+        (log_fn or print_stats)(stats)
     os.makedirs(args.output, exist_ok=True)
     verts, faces = isosurface(None, radius=cfg.radius,
                               resolution=args.mc_resolution,

@@ -36,6 +36,7 @@ from v3d_tpu_torch.engines.builder import build_v3d_engine
 from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
 from v3d_tpu_torch.models.clip_vit import clip_preprocess
 from v3d_tpu_torch.utils.logging import ExperimentLogger
+from v3d_tpu_torch.utils.snapshot import snapshot_run
 
 
 def build_train_engine(num_frames: int = 18, device="cuda",
@@ -113,12 +114,14 @@ def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
           log_every: int = TrainConfig.log_every, device="cuda", engine=None,
           log_fn: Callable[[Dict], None] = print,
           checkpoint: Optional[str] = None,
-          log_dir: Optional[str] = None) -> DiffusionTrainer:
+          log_dir: Optional[str] = None,
+          snapshot_config: Optional[Dict] = None) -> DiffusionTrainer:
     """Fine-tune ``engine`` (by default the full-width V3D-512 training
     engine on ``device``, from ``checkpoint`` when given) for ``max_steps``
     steps on ``batches`` of ``data``; each logged step goes to ``log_fn``
-    and, with ``log_dir``, to an ``ExperimentLogger`` there.  Returns the
-    trainer."""
+    and, with ``log_dir``, to an ``ExperimentLogger`` there, where
+    ``snapshot_config`` (the CLI's arguments) is written with the run's
+    snapshot (``utils.snapshot``).  Returns the trainer."""
     engine = engine or build_train_engine(num_frames=num_frames, device=device,
                                           checkpoint=checkpoint)
     trainer = DiffusionTrainer(
@@ -128,6 +131,9 @@ def train(data: str = "synthetic", batch_size: int = 1, num_frames: int = 18,
         num_frames=num_frames)
     if log_dir:
         logger, show = ExperimentLogger(log_dir), log_fn
+        if snapshot_config is not None:
+            # run-reproducibility snapshot (reference utils/callbacks.py:52-95)
+            snapshot_run(log_dir, config=snapshot_config)
 
         def log_fn(stats):
             show(stats)
@@ -163,7 +169,8 @@ def main(argv=None) -> None:
     train(args.data, args.batch_size, args.num_frames, args.max_steps, args.lr,
           args.ckpt_dir, args.ckpt_every, device=args.device,
           log_fn=lambda s: print(json.dumps(s), flush=True),
-          checkpoint=args.checkpoint, log_dir=args.log_dir)
+          checkpoint=args.checkpoint, log_dir=args.log_dir,
+          snapshot_config=vars(args))
 
 
 if __name__ == "__main__":

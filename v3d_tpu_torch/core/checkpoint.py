@@ -16,6 +16,11 @@
   names, so nothing is renamed; a key a module does not know raises.  Keys
   under "other" (denoiser buffers, the other embedders) are not loaded, as
   in the JAX package.
+- ``save_trainer_state`` / ``load_trainer_state``: a trainer's
+  ``capture()`` tree (``GSTrainer``, ``NeusTrainer``) as one ``.npz``, its
+  nested keys joined by "/".  The JAX package stores it with orbax, a JAX
+  library, so the file format is the port's own; zero-size arrays (f_rest at
+  sh_degree 0) are kept as they are.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import mmap
 import struct
 from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 # safetensors dtype names, in the order the format sorts them (widest first)
@@ -162,3 +168,39 @@ def save_v3d_checkpoint(engine, path: str) -> None:
         write_safetensors(sd, path)
     else:
         torch.save({"state_dict": {k: v.cpu() for k, v in sd.items()}}, path)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if "/" in str(k):
+            raise ValueError(f"trainer state key {k!r} holds '/'")
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "/"))
+        elif torch.is_tensor(v):
+            out[key] = v.detach().cpu().numpy()
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_trainer_state(path: str, tree: Mapping) -> None:
+    """A nested dict of arrays, tensors and scalars -> one .npz at ``path``
+    (written as given: numpy appends no suffix to an open file)."""
+    with open(path, "wb") as f:
+        np.savez(f, **_flatten(tree))
+
+
+def load_trainer_state(path: str) -> Dict:
+    """The nested dict of numpy arrays that ``save_trainer_state`` wrote
+    (scalars come back as 0-d arrays)."""
+    out: Dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return out

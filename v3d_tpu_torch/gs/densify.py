@@ -9,12 +9,18 @@ their shape.  Everything runs on the tensors' device; nothing comes back to
 the host.  Split offsets are standard normals drawn from a
 ``torch.Generator``, or given as ``samples`` (cap, 3) so that a test can feed
 the same normals as the JAX package's ``jax.random.normal(key, (cap, 3))``.
+
+``densify_and_prune_np`` is the numpy reference path on the host (a copy
+of v3d_tpu/gs/densify.py ``densify_and_prune``), drawing the split offsets
+from a ``np.random.RandomState``; ``GSTrainConfig.host_densify`` selects it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 PARAM_KEYS = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
@@ -130,3 +136,112 @@ def reset_opacity(opacity: torch.Tensor, max_opacity: float = 0.01) -> torch.Ten
     ``max_opacity`` after the sigmoid."""
     op = torch.clamp(torch.sigmoid(opacity), max=max_opacity)
     return torch.log(op / (1 - op))
+
+
+# ----------------------------------------------------------------------
+# the host (numpy) path
+
+
+@dataclasses.dataclass
+class DensifyState:
+    """Accumulated screen-gradient statistics
+    (gaussian_model.py:107-110, 566-569), as numpy."""
+
+    xyz_gradient_accum: np.ndarray  # (N,)
+    denom: np.ndarray               # (N,)
+    max_radii2d: np.ndarray         # (N,)
+
+    @staticmethod
+    def zeros(capacity: int) -> "DensifyState":
+        return DensifyState(np.zeros(capacity, np.float32),
+                            np.zeros(capacity, np.float32),
+                            np.zeros(capacity, np.float32))
+
+
+def _quat_rotate_np(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    w, x, y, z = q[:, 0:1], q[:, 1:2], q[:, 2:3], q[:, 3:4]
+    n = np.sqrt(w**2 + x**2 + y**2 + z**2) + 1e-12
+    w, x, y, z = w / n, x / n, y / n, z / n
+    vx, vy, vz = v[:, 0:1], v[:, 1:2], v[:, 2:3]
+    rx = (1 - 2 * (y**2 + z**2)) * vx + 2 * (x * y - w * z) * vy + 2 * (x * z + w * y) * vz
+    ry = 2 * (x * y + w * z) * vx + (1 - 2 * (x**2 + z**2)) * vy + 2 * (y * z - w * x) * vz
+    rz = 2 * (x * z - w * y) * vx + 2 * (y * z + w * x) * vy + (1 - 2 * (x**2 + y**2)) * vz
+    return np.concatenate([rx, ry, rz], axis=1)
+
+
+def densify_and_prune_np(g_np: Dict[str, np.ndarray], state: DensifyState,
+                         rng: np.random.RandomState, max_grad: float = 0.0002,
+                         min_opacity: float = 0.005, extent: float = 2.0,
+                         max_screen_size: float = 0.0, percent_dense: float = 0.01,
+                         n_split: int = 2) -> Tuple[Dict[str, np.ndarray], DensifyState, Dict]:
+    """One densify + prune pass over a numpy dict of the gaussian fields and
+    ``alive`` (gaussian_model.py:477-563), modified in place and returned
+    with zeroed statistics and the counts.  Clones and split children take
+    the free slots in slot order; split offsets are ``rng.randn``."""
+    alive = g_np["alive"].copy()
+    grads = np.where(state.denom > 0,
+                     state.xyz_gradient_accum / np.maximum(state.denom, 1), 0.0)
+    max_scale = np.exp(g_np["scaling"]).max(axis=1)
+
+    high_grad = (grads >= max_grad) & alive
+    clone_mask = high_grad & (max_scale <= percent_dense * extent)
+    split_mask = high_grad & (max_scale > percent_dense * extent)
+
+    free = np.nonzero(~alive)[0]
+    stats = {"cloned": 0, "split": 0, "pruned": 0, "out_of_capacity": 0}
+
+    def alloc(k):
+        nonlocal free
+        take = free[:k]
+        free = free[k:]
+        return take
+
+    new_slots = np.zeros_like(alive)
+    # clone: copy the small gaussians verbatim (gaussian_model.py:521-546)
+    clone_idx = np.nonzero(clone_mask)[0]
+    take = alloc(len(clone_idx))
+    src = clone_idx[:len(take)]
+    stats["cloned"] = len(take)
+    stats["out_of_capacity"] += len(clone_idx) - len(take)
+    for k in PARAM_KEYS:
+        g_np[k][take] = g_np[k][src]
+    alive[take] = True
+    new_slots[take] = True
+
+    # split: n_split samples of each large gaussian, shrunk by 0.8 n_split;
+    # the source is pruned (gaussian_model.py:477-519)
+    split_idx = np.nonzero(split_mask)[0]
+    new_needed = len(split_idx) * n_split
+    take = alloc(new_needed)
+    stats["out_of_capacity"] += new_needed - len(take)
+    src = np.repeat(split_idx, n_split)[:len(take)]
+    stats["split"] = len(take)
+    if len(take):
+        std = np.exp(g_np["scaling"][src])
+        samples = rng.randn(len(take), 3).astype(np.float32) * std
+        offset = _quat_rotate_np(g_np["rotation"][src], samples)
+        for k in ("f_dc", "f_rest", "opacity"):
+            g_np[k][take] = g_np[k][src]
+        g_np["rotation"][take] = g_np["rotation"][src]
+        g_np["xyz"][take] = g_np["xyz"][src] + offset
+        g_np["scaling"][take] = np.log(np.exp(g_np["scaling"][src]) / (0.8 * n_split))
+        alive[take] = True
+        new_slots[take] = True
+    # prune only the split sources whose children were placed
+    placed_src = split_idx[np.arange(len(split_idx)) * n_split < len(take)]
+    alive[placed_src] = False
+
+    # prune on the post-densification values (gaussian_model.py:548-563)
+    opacity = 1.0 / (1.0 + np.exp(-g_np["opacity"][:, 0]))
+    max_scale = np.exp(g_np["scaling"]).max(axis=1)
+    prune = (opacity < min_opacity) & alive
+    if max_screen_size > 0:
+        # new slots have zero accumulated radii (densification_postfix)
+        radii = np.where(new_slots, 0.0, state.max_radii2d)
+        prune |= (radii > max_screen_size) & alive
+        prune |= (max_scale > 0.1 * extent) & alive
+    stats["pruned"] = int(prune.sum())
+    alive &= ~prune
+
+    g_np["alive"] = alive
+    return g_np, DensifyState.zeros(len(alive)), stats

@@ -25,11 +25,13 @@ def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(a - b))
 
 
-@functools.lru_cache(maxsize=8)
-def _gaussian_window(size: int, sigma: float) -> np.ndarray:
+@functools.lru_cache(maxsize=None)
+def _gaussian_window(size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """The window on ``device``, made once: a step captured in a CUDA graph
+    reads it and may not copy it from the host."""
     g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2 * sigma**2))
     g = g / g.sum()
-    return np.outer(g, g).astype(np.float32)
+    return torch.from_numpy(np.outer(g, g).astype(np.float32)).to(device)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, size: int = 11,
@@ -41,7 +43,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, size: int = 11,
     # the five filtered maps as 5*C channels of one depthwise convolution
     stack = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2],
                       dim=-1).permute(0, 3, 1, 2)
-    win = torch.from_numpy(_gaussian_window(size, sigma)).to(stack.device)
+    win = _gaussian_window(size, sigma, stack.device)
     weight = win.expand(5 * c, 1, size, size)
     f = conv2d_f32(stack, weight, padding=size // 2, groups=5 * c)
     mu1, mu2, m11, m22, m12 = f.split(c, dim=1)

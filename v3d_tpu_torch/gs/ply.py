@@ -1,6 +1,6 @@
 """PLY IO for gaussian point clouds, byte-compatible with the reference
 (recon/scene/gaussian_model.py:236-359 save_ply/load_ply); a numpy copy of
-v3d_tpu/gs/ply.py ``save_ply`` / ``load_ply``."""
+v3d_tpu/gs/ply.py ``save_ply`` / ``load_ply`` / ``save_packed_ply``."""
 
 from __future__ import annotations
 
@@ -69,3 +69,26 @@ def load_ply(path: str) -> Dict[str, np.ndarray]:
         "rotation": data[:, [col[f"rot_{i}"] for i in range(4)]].copy(),
         "alive": np.ones(n, bool),
     }
+
+
+def save_packed_ply(path: str, g_np: Dict[str, np.ndarray]) -> None:
+    """LGM-style packed 14-float gaussian ply (recon/lgm/gs.py:112-213):
+    xyz(3) + opacity(1, activated) + scale(3, activated) + rotation(4,
+    normalized) + rgb(3, SH DC -> colour)."""
+    alive = g_np["alive"].astype(bool)
+    xyz = g_np["xyz"][alive]
+    n = len(xyz)
+    opacity = 1.0 / (1.0 + np.exp(-g_np["opacity"][alive]))
+    scale = np.exp(g_np["scaling"][alive])
+    rot = g_np["rotation"][alive]
+    rot = rot / (np.linalg.norm(rot, axis=1, keepdims=True) + 1e-12)
+    rgb = np.clip(g_np["f_dc"][alive][:, 0, :] * 0.28209479177387814 + 0.5, 0, 1)
+    attrs = np.concatenate([xyz, opacity, scale, rot, rgb], axis=1).astype(np.float32)
+    names = ["x", "y", "z", "opacity", "scale_0", "scale_1", "scale_2",
+             "rot_0", "rot_1", "rot_2", "rot_3", "red", "green", "blue"]
+    with open(path, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+        header += [f"property float {nm}" for nm in names]
+        header += ["end_header", ""]
+        f.write("\n".join(header).encode())
+        f.write(attrs.tobytes())

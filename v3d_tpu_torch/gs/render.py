@@ -145,7 +145,7 @@ class Slabs(NamedTuple):
     n_ty: int
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)   # kept: a captured step graph reads them
 def _tile_layout(n_tx: int, n_ty: int, cf: int, coarse: bool, device):
     """The static tile raster: each tile's coarse cell and pixel origin."""
     n_tiles = n_tx * n_ty

@@ -17,6 +17,7 @@ background.
 
 from __future__ import annotations
 
+import functools
 import os
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -37,13 +38,19 @@ SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 DEFAULT_WEIGHTS = Path(__file__).resolve().parents[2] / "weights" / "lpips_vgg.npz"
 
 
+@functools.lru_cache(maxsize=None)
+def _input_norm(device: torch.device):
+    """SHIFT and SCALE on ``device``, made once (a step captured in a CUDA
+    graph reads them and may not copy them from the host)."""
+    return (torch.as_tensor(SHIFT, device=device), torch.as_tensor(SCALE, device=device))
+
+
 def vgg_features(params: Dict[str, torch.Tensor], x: torch.Tensor) -> List[torch.Tensor]:
     """x (N, H, W, 3) in [-1, 1] -> the tap activations, NCHW.  3x3 convs
     with SAME padding (1), 2x2 max pools VALID (odd sizes floor).  The
     convolutions and their gradients run in full float32 whatever the
     caller's TF32 setting (``utils.precision.conv2d_f32``)."""
-    shift = torch.as_tensor(SHIFT, device=x.device)
-    scale = torch.as_tensor(SCALE, device=x.device)
+    shift, scale = _input_norm(x.device)
     h = ((x - shift) / scale).permute(0, 3, 1, 2)
     feats, conv_i = [], 0
     for spec in VGG_PLAN:

@@ -16,6 +16,7 @@ v3d_tpu/nerf/encoding.py).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -27,6 +28,13 @@ from torch import nn
 _PRIMES = (1, 2654435761, 805459861)
 # the 8 corners of a cell, bit k of the corner index = offset along axis k
 _CORNER_OFFSETS = [[(c >> k) & 1 for k in range(3)] for c in range(8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _corner_offsets(device: torch.device) -> torch.Tensor:
+    """_CORNER_OFFSETS on ``device``, made once (a step captured in a CUDA
+    graph may not copy from the host)."""
+    return torch.tensor(_CORNER_OFFSETS, device=device)
 
 
 class HashGrid(nn.Module):
@@ -60,7 +68,7 @@ class HashGrid(nn.Module):
     def forward(self, x: torch.Tensor,
                 level_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         n_levels, size, n_feat = self.table.shape
-        offs = torch.tensor(_CORNER_OFFSETS, device=x.device)        # (8, 3)
+        offs = _corner_offsets(x.device)                           # (8, 3)
         rows, weights = [], []
         for l, res in enumerate(self.resolutions()):
             xl = x * res

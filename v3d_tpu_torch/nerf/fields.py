@@ -9,6 +9,7 @@ an explicit generator (the JAX package's init distributions).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -89,6 +90,14 @@ class VanillaMLP(nn.Module):
         return self.layers[-1](x)
 
 
+@functools.lru_cache(maxsize=None)
+def _fd_directions(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """+x, -x, +y, -y, +z, -z as (6, 3), made once on ``device`` (a step
+    captured in a CUDA graph may not copy from the host)."""
+    return torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                         [0, 0, 1], [0, 0, -1]], dtype=dtype, device=device)
+
+
 class VolumeSDF(nn.Module):
     """geometry.py:144-237.  Points in world scale [-radius, radius],
     normalised to [0, 1] for the encoding.  ``forward`` returns (sdf, grad,
@@ -157,10 +166,8 @@ class VolumeSDF(nn.Module):
         sdf = out[..., 0]
         if not with_grad:
             return sdf, out
-        offsets = torch.tensor(
-            [[eps, 0, 0], [-eps, 0, 0], [0, eps, 0], [0, -eps, 0],
-             [0, 0, eps], [0, 0, -eps]], dtype=points_world.dtype,
-            device=points_world.device)
+        # eps: a number or a 0-d tensor (a captured step's input)
+        offsets = _fd_directions(points_world.dtype, points_world.device) * eps
         pd = (points_world[..., None, :] + offsets).clamp(-self.radius, self.radius)
         sdf_d = self.field(pd.reshape(-1, 3), level_mask)[..., 0].reshape(
             points_world.shape[:-1] + (6,))

@@ -52,10 +52,42 @@ def neus_alpha(sdf, normal, dirs, dists, inv_s, cos_anneal_ratio: float):
     return ((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)).clamp(0.0, 1.0)
 
 
+def _reversed_cumsum(x):
+    return torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1])
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod(x, 1)`` whose backward reads nothing back to the host.
+    PyTorch's asks the device whether ``x`` holds a zero (and then selects
+    by masks of data-dependent size), which a CUDA graph's capture refuses;
+    this one takes every case through fixed-shape masks: before a row's
+    first zero (the whole row when there is none) the gradient is
+    PyTorch's zero-free formula, reversed_cumsum(g * y) / x; at the first
+    zero it is the reversed cumsum of g times the product with that entry
+    taken as 1; after it, 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, 1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        zeros = torch.cumsum(x == 0, 1)
+        before = zeros == 0
+        first = (x == 0) & (zeros == 1)
+        past_first = torch.cumprod(torch.where(first, 1.0, x), 1)
+        return torch.where(before, _reversed_cumsum(g * y) / torch.where(before, x, 1.0),
+                           torch.where(first, _reversed_cumsum(g * past_first), 0.0))
+
+
 def _weights(alpha):
     """alpha * exclusive cumulative product of (1 - alpha) along samples."""
     ones = torch.ones_like(alpha[:, :1])
-    return alpha * torch.cumprod(torch.cat([ones, 1.0 - alpha[:, :-1]], 1), 1)
+    return alpha * _Cumprod.apply(torch.cat([ones, 1.0 - alpha[:, :-1]], 1))
 
 
 class BgRenderResult(NamedTuple):

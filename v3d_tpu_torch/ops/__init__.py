@@ -20,7 +20,8 @@ The JAX package's other attention kernels are routes onto these:
 
 The backwards of K2, K3, K6 and of the T2-T4 routes recompute through their
 plain versions (``_dispatch.plain_vjp``), as the JAX package's custom VJPs
-do.
+do.  ``step_graph.StepGraph`` replays a trainer's step from a CUDA graph
+and counts the launches of each replay.
 """
 
 from v3d_tpu_torch.ops._dispatch import (

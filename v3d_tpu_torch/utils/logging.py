@@ -2,7 +2,7 @@
 reference's CSV logger, train_from_vid.py:226-316).
 
 ``<log_dir>/metrics.csv``: its header from the first row; only int and
-float fields are written.  The CSV is the only sink: TensorBoard's writer
+float fields are written.  ``log_images`` writes a PNG grid beside it.  The CSV is the only sink: TensorBoard's writer
 imports TensorFlow where it is installed, and that can bring in jax, which
 this package never loads.
 """
@@ -34,3 +34,10 @@ class ExperimentLogger:
             if write_header:
                 w.writeheader()
             w.writerow(row)
+
+    def log_images(self, name: str, images, step: int) -> None:
+        """``<log_dir>/<name>_<step:08d>.png``: the (T, H, W, C) frames in one
+        row (the reference's recon grid, video_diffusion.py:276-291)."""
+        from v3d_tpu_torch.data.video_io import save_image_grid
+
+        save_image_grid(os.path.join(self.log_dir, f"{name}_{step:08d}.png"), images)
