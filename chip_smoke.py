@@ -168,13 +168,32 @@ Phases, each printing lines before the last:
     a replay and an eager step from one state (loss bit for bit,
     gradients within 1e-5 of the largest); the fits' losses and
     parameters, chunked against per-step, beside the per-step path's own
-    run-to-run spread.
+    run-to-run spread;
+26. the multi-device path (``v3d_tpu_torch.parallel``): (a) on phase 8's
+    engine, 3 fine-tune steps on a ("data", "model") mesh of world size 1
+    over NCCL (the trainer's broadcast and gradient all_reduce) against 3
+    steps without a mesh, run twice, on the same batch and draws: bit for
+    bit, or within the two mesh-less runs' own difference; launches as
+    phase 8; (b) ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m v3d_tpu_torch.apps.train_diffusion --model-axis 1``
+    for 2 steps, after phase 8's engine has left the card: exit 0, two
+    finite steps, the launches its JSON lines carry (exact, as phase 8's
+    per step), its seconds; (c) ``python -m v3d_tpu_torch.parallel.dryrun
+    --nproc 2 --backend gloo`` (two ranks on this card) at the full refpoint
+    rung: the DP fine-tune step of the tiny engine (loss rel <= 1e-3, each
+    gradient's cosine >= 0.999 against one process on the global batch;
+    each rank's launches exact, ``train_launches`` of the tiny UNet),
+    the DP 3DGS and NeuS steps, the tile-sharded 3DGS step (render within
+    2e-5 of one process's, gradients within 1e-3 of their largest; K4 and
+    K5 once a rank) and the ray-parallel NeuS step.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
-19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval`` and each
-run of 25) is run with the launch counts set to 0 just before it and read
-just after (phase 12: each stage's launches, the counters read before and
-after it).  A kernel of the path launched
+19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval``, each
+run of 25 and 26(a)'s, and in each rank of 26(c) its steps) is run with
+the launch counts set to 0 just before it and read just after (phase 12:
+each stage's launches, the counters read before and after it; 26(b): the
+counts of the torchrun child, which start at 0 with its process and which
+its JSON line of each step carries).  A kernel of the path launched
 no time, or another number of times than the path needs (counted from the
 modules and their routing rules, see ``unet_sites``), fails the run.
 Then one JSON line with every kernel's numbers (``launches``: the sum over
@@ -4869,11 +4888,249 @@ def phase_chunks(frames, dev="cuda") -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the multi-device path (parallel/, DiffusionTrainer(mesh=...),
+# train_diffusion under torchrun, rasterize_sharded, the dry run)
+
+DP_STEPS = 3          # 26(a): AdamW steps a run of the full-width fine-tune
+DP_CLI_STEPS = 2      # 26(b): steps of the torchrun launch
+DP_NPROC = 2          # 26(c): dry-run ranks, sharing this card over gloo
+DP_RUNG = "full"      # 26(c): 300k gaussians at 512^2, Kc 4096; 4096 rays x 64
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _max_abs_diff(a, b) -> float:
+    """The largest |a - b| over lists of tensors."""
+    import torch
+
+    with torch.no_grad():
+        return float(torch.stack([(x - y).abs().max() for x, y in zip(a, b)]).max())
+
+
+def phase_dp_step(engine, dev) -> dict:
+    """26(a): the fine-tune step of phase 8's full-width engine on a
+    ("data", "model") mesh of world size 1 over NCCL (the trainer's
+    broadcast and its gradient all_reduce run, on one rank) against the
+    same steps without a mesh: DP_STEPS steps a run from the same parameters
+    on the same batch and draws, twice without a mesh, then on the mesh; the
+    losses, gradient norms, parameters and EMA bit for bit, or within the
+    two mesh-less runs' own difference where those differ."""
+    import torch
+    import torch.distributed as dist
+
+    from v3d_tpu_torch.apps.train_diffusion import batches, make_dataset
+    from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel.mesh import all_reduce_mean_, init_distributed, make_mesh
+
+    phase = "26 dp step"
+    t_phase = time.perf_counter()
+    unet, t = engine.unet, engine.num_frames
+    unet.zero_grad(set_to_none=True)
+    data = batches(engine, make_dataset("synthetic", t, unet.context_dim), 1, t)
+    batch = next(data)
+    data.close()
+    init = [p.detach().clone() for p in unet.parameters()]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def run(mesh):
+        with torch.no_grad():
+            torch._foreach_copy_(list(unet.parameters()), init)
+        trainer = DiffusionTrainer(engine, TrainConfig(log_every=1), num_frames=t, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stats, ms = [], []
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            stats.append(trainer.train_step(batch["latents"], batch["cond"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        counts = dict(LAUNCHES)
+        if mesh is not None:   # what the mesh adds to a step: the gradients' all_reduce
+            grads = [p.grad for p in trainer.params if p.grad is not None]
+            stats.append(cuda_ms(lambda: all_reduce_mean_(grads, mesh), iters=3, warmup=1))
+        unet.zero_grad(set_to_none=True)
+        return trainer, stats, ms, counts
+
+    port = _free_port()
+    try:
+        first, s1, ms1, c1 = run(None)
+        params1 = [p.detach().clone() for p in first.params]
+        ema1 = [e.clone() for e in first.ema]
+        del first
+        second, s2, ms2, c2 = run(None)
+        d_own = {"params": _max_abs_diff(second.params, params1),
+                 "ema": _max_abs_diff(second.ema, ema1),
+                 "loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(s1, s2)),
+                 "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"])
+                                  for a, b in zip(s1, s2))}
+        del second
+        torch.cuda.empty_cache()
+        init_distributed("cuda", init_method=f"tcp://localhost:{port}", rank=0,
+                         world_size=1)
+        mesh = make_mesh()
+        backend = dist.get_backend()
+        meshed, s3, ms3, c3 = run(mesh)
+        reduce_ms = s3.pop()
+        d_mesh = {"params": _max_abs_diff(meshed.params, params1),
+                  "ema": _max_abs_diff(meshed.ema, ema1),
+                  "loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(s1, s3)),
+                  "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"])
+                                   for a, b in zip(s1, s3))}
+        del meshed, params1, ema1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+        with torch.no_grad():
+            torch._foreach_copy_(list(unet.parameters()), init)
+        del init
+        torch.cuda.empty_cache()
+    per_step = train_launches(unet, 64, use_checkpoint=True)
+    expect = _scaled(per_step, DP_STEPS)
+    bitwise = all(v == 0 for v in d_mesh.values())
+    ok = (c1 == c2 == c3 == expect and backend == "nccl"
+          and all(d_mesh[k] <= d_own[k] for k in d_mesh)
+          and all(math.isfinite(s["loss"]) for s in s3))
+    say(phase, f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over {backend} at world size 1, "
+        f"{DP_STEPS} AdamW steps of phase 8's engine on one batch (1 video x {t} frames, "
+        f"cudnn deterministic): losses {[s['loss'] for s in s3]} vs without a mesh "
+        f"{[s['loss'] for s in s1]} | largest |difference| from the first mesh-less run: "
+        f"mesh {d_mesh} (bit for bit: {'yes' if bitwise else 'no'}), second mesh-less run "
+        f"{d_own} (the bound) | ms per step (host clock, synchronised) without a mesh "
+        f"{[round(x, 1) for x in ms1]} {[round(x, 1) for x in ms2]}, on the mesh "
+        f"{[round(x, 1) for x in ms3]}; the flat all_reduce of the gradients alone "
+        f"{reduce_ms:.2f} ms (CUDA events, back to back) | launches per step "
+        f"{ {k: v / DP_STEPS for k, v in c3.items() if v} } (expect "
+        f"{ {k: v for k, v in per_step.items() if v} }) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"DP step at world size 1: launches {c1} {c2} {c3} (expect "
+                           f"{expect}), differences {d_mesh} against {d_own}")
+    say(phase, f"26(a) took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": c3, "ms_mesh": ms3, "ms_plain": ms1 + ms2, "diff": d_mesh,
+            "diff_bound": d_own, "all_reduce_ms": reduce_ms, "per_step": per_step}
+
+
+def phase_dp_ranks(dev, per_step: dict) -> dict:
+    """26(b): ``train_diffusion`` launched by ``torch.distributed.run``
+    (--standalone, one process, --model-axis 1) for DP_CLI_STEPS steps of
+    the full-width engine, its launches after step i (its JSON lines)
+    i times ``per_step`` (phase 8's step, ``train_launches``); 26(c):
+    ``parallel.dryrun`` with DP_NPROC ranks on this card over gloo at the
+    DP_RUNG rung: the DP fine-tune step of the tiny engine, the DP 3DGS /
+    NeuS steps, the tile-sharded 3DGS step and the ray-parallel NeuS step,
+    each against one process, and each rank's launches of the fine-tune
+    step and of the tile-sharded step.  Run after phase 8's engine has left
+    the card."""
+    import os
+    import tempfile
+
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.parallel import dryrun
+
+    phase = "26 dp ranks"
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "v3d_tpu_torch.apps.train_diffusion",
+               "--data", "synthetic", "--max-steps", str(DP_CLI_STEPS), "--model-axis", "1",
+               "--log-every", "1", "--ckpt-dir", os.path.join(tmp, "ck"),
+               "--log-dir", os.path.join(tmp, "logs")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=400)
+        cli_s = time.perf_counter() - t0
+        steps = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        cli_launches = [s_.pop("launches", None) for s_ in steps]
+        cli_want = [{k: i * v for k, v in per_step.items() if v}
+                    for i in range(1, DP_CLI_STEPS + 1)]
+        ok = (proc.returncode == 0 and len(steps) == DP_CLI_STEPS
+              and cli_launches == cli_want
+              and all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                      for s_ in steps))
+        say(phase, f"python -m torch.distributed.run --standalone --nproc-per-node 1 -m "
+            f"v3d_tpu_torch.apps.train_diffusion --data synthetic --max-steps {DP_CLI_STEPS} "
+            f"--model-axis 1: exit {proc.returncode} in {cli_s:.1f} s (the launch, the "
+            f"full-width engine, NCCL, the steps) | steps {steps} | launches after each "
+            f"step {cli_launches} (expect {cli_want}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"torchrun launch: exit {proc.returncode}, steps {steps}, "
+                               f"launches {cli_launches} (expect {cli_want}): "
+                               f"{proc.stderr[-3000:]}")
+
+        out = os.path.join(tmp, "dryrun.json")
+        cmd = [sys.executable, "-m", "v3d_tpu_torch.parallel.dryrun", "--nproc",
+               str(DP_NPROC), "--backend", "gloo", "--rung", DP_RUNG, "--timeout", "300",
+               "--join-timeout", "600", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=700)
+        dry_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            say(phase, line)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"dry run: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            report = json.load(f)
+    ranks = report["ranks"]
+    render = {"gs_composite_fwd": 1, "gs_composite_bwd": 1}
+    got = [{k: v for k, v in r["refpoint"]["gs"]["launches"].items() if v} for r in ranks]
+    tiny = build_tiny_engine(num_frames=2 * DP_NPROC, device="cpu").unet
+    tiny_step = {k: v for k, v in train_launches(tiny, dryrun.TRAIN_HW,
+                                                 tiny.use_checkpoint).items() if v}
+    got_train = [{k: v for k, v in r["train"]["launches"].items() if v} for r in ranks]
+    gs, ne = ranks[0]["refpoint"]["gs"], ranks[0]["refpoint"]["neus"]
+    ok = (len(ranks) == DP_NPROC and report["backend"] == "gloo"
+          and all(g == render for g in got) and all(g == tiny_step for g in got_train)
+          and gs["render_max_abs"] <= dryrun.RENDER_MAX_ABS
+          and gs["grad_rel"] <= dryrun.GS_GRAD_REL and ne["grad_rel"] <= dryrun.NEUS_GRAD_REL
+          and all(r["train"]["loss_rel"] <= dryrun.TRAIN_LOSS_REL
+                  and r["train"]["min_cos"] >= dryrun.TRAIN_MIN_COS for r in ranks))
+    say(phase, f"dryrun --nproc {DP_NPROC} --backend gloo --rung {DP_RUNG}: {dry_s:.1f} s | "
+        f"tile-sharded render max abs {gs['render_max_abs']} (<= {dryrun.RENDER_MAX_ABS}), "
+        f"gradients {gs['grad_rel']} of the largest (<= {dryrun.GS_GRAD_REL}), ms single "
+        f"{gs['ms_single']:.1f}, sharded a rank "
+        f"{[round(r['refpoint']['gs']['ms_sharded'], 1) for r in ranks]}; NeuS gradients "
+        f"{ne['grad_rel']} (<= {dryrun.NEUS_GRAD_REL}), ms single {ne['ms_single']:.1f}, "
+        f"sharded {[round(r['refpoint']['neus']['ms_sharded'], 1) for r in ranks]} "
+        f"| K4 / K5 launches per rank {got} (expect {render} each) | DP fine-tune loss rel "
+        f"{[r['train']['loss_rel'] for r in ranks]}, least cosine "
+        f"{[r['train']['min_cos'] for r in ranks]}, launches per rank {got_train} (expect "
+        f"{tiny_step} each) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"dry run: launches {got}, fine-tune {got_train} (expect "
+                           f"{tiny_step}), report {json.dumps(ranks)[:3000]}")
+    say(phase, f"phase 26 (b, c) took {time.perf_counter() - t_phase:.1f} s")
+
+    def summed(key):
+        total = {}
+        for r in ranks:
+            for k, v in key(r).items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    return {"dp_cli": {"launches": cli_launches[-1]},
+            "dp_render": {"launches": summed(lambda r: r["refpoint"]["gs"]["launches"])},
+            "dp_tiny_train": {"launches": summed(lambda r: r["train"]["launches"])},
+            "cli_s": cli_s, "dryrun_s": dry_s}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,"
-                           "25",
+                           "25,26",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -4930,8 +5187,16 @@ def main(argv=None) -> int:
     train_engine = paths["train"].pop("engine", None)
     if 18 in phases:
         paths["png_train"] = phase_png_train(train_engine, rgba, dev)
+    if 26 in phases:
+        from v3d_tpu_torch.apps.train_diffusion import build_train_engine
+
+        paths["dp_train"] = phase_dp_step(train_engine or build_train_engine(device=dev), dev)
     del train_engine
     torch.cuda.empty_cache()
+    if 26 in phases:
+        dp = phase_dp_ranks(dev, paths["dp_train"]["per_step"])
+        paths.update(dp_cli=dp["dp_cli"], dp_render=dp["dp_render"],
+                     dp_tiny_train=dp["dp_tiny_train"])
     paths["ae"] = phase_ae(rgba[..., :3], dev) if 19 in phases else {}
     paths["pixelnerf"] = phase_pixelnerf(rgba[..., :3], dev) if 20 in phases else {}
     neus = phase_neus() if 11 in phases else {}

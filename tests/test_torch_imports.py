@@ -13,8 +13,9 @@ with LPIPS, ``render_cli``, ``metrics_cli`` and ``validate_ckpt --lpips``,
 or a posed blender / COLMAP scene through ``recon_scene`` and
 ``imgs2poses``, ``full_eval`` on an mp4, ``recon_neus_ortho`` and
 ``validate_ckpt --all``, or the trainers' step chunks, their save / load, the
-host densify, the packed PLY, ``snapshot_run`` and ``log_images``, loads
-neither jax, jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
+host densify, the packed PLY, ``snapshot_run`` and ``log_images``, or the
+multi-device package with two spawned gloo ranks, loads neither jax,
+jaxlib, flax nor v3d_tpu.  chip_smoke.py refuses to run, printing no result, without
 a CUDA device or outside a checkout of the repository."""
 
 import json
@@ -440,6 +441,24 @@ print("FOREIGN", bad)
 """
 
 
+_PARALLEL_PROBE = r"""
+import pathlib, sys, tempfile
+import torch
+sys.path.insert(0, "tests")
+import torch_dist_helpers as h
+from v3d_tpu_torch.parallel import dryrun, mesh
+with tempfile.TemporaryDirectory() as d:
+    ranks = h.run_ranks(h.import_probe, 2, pathlib.Path(d), timeout_s=120)
+assert [r["foreign"] for r in ranks] == [[], []], [r["foreign"] for r in ranks]
+assert "v3d_tpu_torch.parallel.dryrun" in ranks[0]["modules"], ranks[0]["modules"]
+assert all(torch.equal(r["mean"], torch.full((3,), 0.5)) for r in ranks)
+assert all(torch.equal(r["replicated"], torch.zeros(2)) for r in ranks)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "v3d_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
@@ -554,6 +573,16 @@ def test_chunks_save_load_and_snapshot_run_without_jax():
     save / load, ``snapshot_run`` and ``log_images``, in a fresh
     interpreter with no jax."""
     out = subprocess.run([sys.executable, "-c", _CHUNKS_PROBE], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_parallel_modules_and_spawned_ranks_run_without_jax():
+    """``v3d_tpu_torch.parallel`` imported, and two ranks spawned on the CPU
+    over gloo that import each of its modules and average and broadcast a
+    tensor, in a fresh interpreter: neither it nor a rank loads jax."""
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout

@@ -19,6 +19,8 @@ reference.  This package imports torch and never jax.
 - ``apps``      ``python -m v3d_tpu_torch.apps.generate`` and the other CLIs
 - ``core``      weight bridge to and from the JAX package's param trees,
                 YAML configs, the component registry
+- ``parallel``  the ("data", "model") device mesh over torch.distributed
+                ranks, batch sharding, the multi-rank dry run
 """
 
 __version__ = "0.1.0"

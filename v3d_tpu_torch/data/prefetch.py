@@ -7,7 +7,9 @@ the torch DataLoader worker + pin_memory pipeline the reference relies on).
 - ``device_prefetch``: also copies each batch to the device one step ahead.
   On the card the producer thread pins the batch's arrays; the copies are
   issued without blocking on a side stream, and the consumer's stream waits
-  on an event before it reads them.
+  on an event before it reads them.  ``put_fn`` (the JAX signature,
+  prefetch.py:71-82) maps each host batch first, on the producer thread:
+  ``parallel.mesh.shard_batch`` there makes a rank copy only its slice.
 
 The producer thread does host work only.  ``reference_mode()`` is
 process-wide and ``torch.no_grad`` thread-local, so any device stage of the
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -100,12 +102,16 @@ def pin_batch(batch):
     return _tree_map(lambda x: x if x.is_cuda else x.pin_memory(), batch)
 
 
-def device_prefetch(it: Iterable, depth: int = 2, device="cuda") -> Iterator:
+def device_prefetch(it: Iterable, put_fn: Optional[Callable] = None,
+                    depth: int = 2, device="cuda") -> Iterator:
     """Yield the batches of ``it`` on ``device`` (every tensor and numeric
     array of a nested batch), each copied while the caller computes on the
-    one before."""
+    one before; ``put_fn`` maps each host batch before its copy, on the
+    host stage."""
     dev = torch.device(device)
     card = dev.type == "cuda"
+    if put_fn is not None:
+        it = map(put_fn, it)             # runs on the producer thread
     if card:
         stream = torch.cuda.Stream(dev)
         it = map(pin_batch, it)          # runs on the producer thread

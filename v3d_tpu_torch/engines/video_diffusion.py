@@ -19,7 +19,7 @@ import torch
 
 from v3d_tpu_torch.diffusion.denoise import Denoiser
 from v3d_tpu_torch.diffusion.discretize import SlicedDiscretization
-from v3d_tpu_torch.diffusion.loss import StandardDiffusionLoss
+from v3d_tpu_torch.diffusion.loss import StandardDiffusionLoss, global_rows
 from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
 from v3d_tpu_torch.models.clip_vit import clip_preprocess
 from v3d_tpu_torch.models.conditioner import (
@@ -158,13 +158,21 @@ class VideoDiffusionEngine:
     @torch.no_grad()
     def encode_first_stage(self, frames: torch.Tensor,
                            noise: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None
+                           generator: Optional[torch.Generator] = None,
+                           block: Optional[Tuple[int, int]] = None
                            ) -> torch.Tensor:
         """frames (n, H, W, 3) in [-1, 1] -> scaled latents (n, h, w, 4), a
-        sample of the encoder's moments (video_diffusion.py:195-201)."""
+        sample of the encoder's moments (video_diffusion.py:195-201).
+        Under ``block`` (index, count) the frames are a data-parallel
+        rank's rows of the global batch, and the noise drawn is their rows
+        of the draw at the global batch's shape (``global_rows``)."""
         moments = self.vae_encoder(frames.to(self.device).permute(0, 3, 1, 2))
         moments = moments.permute(0, 2, 3, 1).float()
         shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
+        if noise is None:
+            total, mine = global_rows(shape[0], block)
+            noise = torch.randn((total,) + tuple(shape[1:]), device=self.device,
+                                generator=generator)[mine]
         return self.scale_factor * gaussian_sample(
             moments, _draw(noise, shape, self.device, generator))
 
@@ -193,24 +201,27 @@ class VideoDiffusionEngine:
                       sigma_per_video: bool = False,
                       sigmas: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      block: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
         """Mean EDM loss on pre-encoded latents ((b t), h, w, 4), already
         scaled (video_diffusion.py:233-258).  Sigmas are drawn per flattened
         frame, as the reference does, or with ``sigma_per_video`` one per
-        video shared by its frames; ``sigmas`` / ``noise`` may be given."""
+        video shared by its frames; ``sigmas`` / ``noise`` may be given.
+        ``block``: the latents are a data-parallel rank's rows, drawn for as
+        the loss's ``block`` says."""
         t = num_frames or self.num_frames
         b = latents.shape[0] // t
         network = make_unet_network_fn(self.unet, t)
         indicator = torch.zeros((b, t), device=latents.device)
         if sigma_per_video and sigmas is None:
             sigmas = self.loss_fn.sigma_sampler(
-                b, device=latents.device, generator=generator
+                global_rows(b, block)[0], device=latents.device, generator=generator
             ).repeat_interleave(t)
         per_sample = self.loss_fn(
             network, self.denoiser, cond, latents, sigmas=sigmas, noise=noise,
             generator=generator,
-            extra_model_inputs={"image_only_indicator": indicator})
+            extra_model_inputs={"image_only_indicator": indicator}, block=block)
         return per_sample.mean()
 
 

@@ -12,6 +12,8 @@ v3d_tpu/gs/render.py, itself of recon/gaussian_renderer/__init__.py:22-134).
 - ``rasterize``: the slab through the compositor (ops/gs_composite.py: T10
   and T11 on the card, the plain version on the CPU or in
   ``reference_mode()``), background blended from acc, tiles untiled.
+- ``rasterize_sharded``: the same over the ranks of a mesh axis, each
+  compositing its strip of the tile grid against the replicated slab.
 - ``render``: projection + rasterization.
 
 CUDA semantics throughout: 0.3 px low-pass on the 2D covariance, 1/255 alpha
@@ -27,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from v3d_tpu_torch.gs.gaussians import (
     Gaussians,
@@ -37,6 +40,7 @@ from v3d_tpu_torch.gs.gaussians import (
 )
 from v3d_tpu_torch.gs.sh import eval_sh
 from v3d_tpu_torch.ops.gs_composite import TILE, composite
+from v3d_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
 
 
 class ProjectedGaussians(NamedTuple):
@@ -220,6 +224,12 @@ def rasterize(proj: ProjectedGaussians, height: int, width: int,
     D = max(1, min(config.max_per_tile, s.slab.shape[1]))
     rgb, acc, dep = composite(s.slab, s.live_count, s.cell_of_tile, s.tile_xy,
                               depth_chunk=D, tile_chunk=config.tile_chunk)
+    return _output(rgb, acc, dep, s, proj, background, height, width)
+
+
+def _output(rgb, acc, dep, s: Slabs, proj: ProjectedGaussians,
+            background: torch.Tensor, height: int, width: int) -> RenderOutput:
+    """The tiles' composites, the background blended in, as images."""
     # sum_i alpha_i T_i + T_final == 1 (also under the stop mask), so the
     # background weight is exactly 1 - acc
     rgb = rgb + (1.0 - acc)[..., None] * background[None, None, :]
@@ -228,6 +238,73 @@ def rasterize(proj: ProjectedGaussians, height: int, width: int,
     depth = untile(dep, s.n_tx, s.n_ty, height, width)[..., 0]
     radii = torch.where(proj.valid, proj.radius, 0.0)
     return RenderOutput(image, alpha, depth, radii)
+
+
+class _GatherTiles(torch.autograd.Function):
+    """Forward: every rank's block of tiles, concatenated in rank order
+    along the axis (one all_gather).  Backward: the rank's own block of the
+    incoming gradient, since every rank computes the same loss on the whole
+    image (shard_map's ``out_specs=P(axis)``)."""
+
+    @staticmethod
+    def forward(ctx, local, group, index):
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local.contiguous(), group=group)
+        ctx.block = (index * local.shape[0], (index + 1) * local.shape[0])
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, end = ctx.block
+        return grad[start:end], None, None
+
+
+class _ReplicatedIn(torch.autograd.Function):
+    """Forward: the identity on a tensor every rank holds whole.  Backward:
+    its cotangent summed over the axis (one all_reduce), the psum of a
+    replicated shard_map input, so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def rasterize_sharded(proj: ProjectedGaussians, height: int, width: int,
+                      background: torch.Tensor, mesh, axis: str,
+                      config: RasterizeConfig = RasterizeConfig(),
+                      screen_offset: Optional[torch.Tensor] = None) -> RenderOutput:
+    """Tile-sharded rasterization (render.py:460-512) over the ranks of the
+    mesh ``axis``: the binning runs on every rank, the tile list is padded
+    to a multiple of the axis size with tile 0's cell at pixel (0, 0), each
+    rank composites its contiguous block of tiles (K4, and K5 in the
+    backward, on the card) against the whole slab, and the blocks are
+    gathered.  Every rank returns the whole render; the slab's gradient is
+    summed over the axis, so every rank then holds the whole gradient."""
+    s = build_slabs(proj, height, width, config, screen_offset)
+    n_tiles = s.cell_of_tile.shape[0]
+    size, index = axis_size(mesh, axis), axis_index(mesh, axis)
+    pad = (-n_tiles) % size
+    cell = torch.cat([s.cell_of_tile, s.cell_of_tile.new_zeros(pad)])
+    xy = torch.cat([s.tile_xy, s.tile_xy.new_zeros(pad, 2)])
+    per = (n_tiles + pad) // size
+    block = slice(index * per, (index + 1) * per)
+    group = axis_group(mesh, axis)
+    slab = s.slab if group is None else _ReplicatedIn.apply(s.slab, group)
+    D = max(1, min(config.max_per_tile, s.slab.shape[1]))
+    rgb, acc, dep = composite(slab, s.live_count, cell[block], xy[block],
+                              depth_chunk=D, tile_chunk=config.tile_chunk)
+    local = torch.cat([rgb, acc[..., None], dep[..., None]], dim=-1)
+    tiles = local if group is None else _GatherTiles.apply(local, group, index)
+    tiles = tiles[:n_tiles]
+    return _output(tiles[..., :3], tiles[..., 3], tiles[..., 4], s, proj, background,
+                   height, width)
 
 
 def render(g: Gaussians, cam, background: torch.Tensor,
