@@ -185,11 +185,27 @@ Phases, each printing lines before the last:
     each rank's launches exact, ``train_launches`` of the tiny UNet),
     the DP 3DGS and NeuS steps, the tile-sharded 3DGS step (render within
     2e-5 of one process's, gradients within 1e-3 of their largest; K4 and
-    K5 once a rank) and the ray-parallel NeuS step.
+    K5 once a rank) and the ray-parallel NeuS step;
+27. frame-sharded sampling and the frame-split step (``parallel/frames.py``):
+    (a) on phase 5's engine (right after phase 17's count), the 25-step
+    sample through ``sample_latents(mesh=)`` on a (1, 1) NCCL mesh against
+    the same sample without a mesh on the same seeded c / uc / noise
+    (PSNR >= 30 dB; seconds, peak memory, launches exact both ways: the
+    mesh's time stacks run K6's split pair); (b) once that engine has left
+    the card, 2 ranks on this card over gloo, the full-width engine each,
+    2 Euler steps with 18 of the 36 CFG frames a rank against one
+    process's 2 steps on the same noise (PSNR >= 30 dB, max abs; each
+    rank's launches exact; seconds a forward, the bytes the exchanges
+    moved); (c) the dry run's sampling stage and its fine-tune step at the
+    graft's shape (one video, 2 frames a rank), each rank's launches exact
+    (phase 26(c)'s run of the dry run, or one at the "small" rung).  Phase
+    3 holds K6's split entries to their plain versions at the temporal
+    ResBlock's shapes, whole and on a half strip, beside the one-launch K6.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
 19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval``, each
-run of 25 and 26(a)'s, and in each rank of 26(c) its steps) is run with
+run of 25 and 26(a)'s, in each rank of 26(c) its steps, each run of 27(a)
+and in each rank of 27(b) and (c) its sample and step) is run with
 the launch counts set to 0 just before it and read just after (phase 12:
 each stage's launches, the counters read before and after it; 26(b): the
 counts of the torchrun child, which start at 0 with its process and which
@@ -290,6 +306,14 @@ KERNELS = {
         label="K9", source="v3d_tpu_torch/csrc/flash_attn_fwd_wide.cu",
         replaces="v3d_tpu/ops/flash_attention.py:68 (_flash_forward, T2, at "
                  "d = 80/128/512; also _flash_packed_forward :196, T4)"),
+    "group_norm_stats": dict(
+        label="K6 split statistics", source="v3d_tpu_torch/csrc/group_norm.cu",
+        replaces="v3d_tpu/ops/fused_groupnorm.py:100 (_pallas_group_norm's "
+                 "_stats_kernel call, T9)"),
+    "group_norm_apply": dict(
+        label="K6 split apply", source="v3d_tpu_torch/csrc/group_norm.cu",
+        replaces="v3d_tpu/ops/fused_groupnorm.py:126 (_pallas_group_norm's "
+                 "_norm_kernel call, T9)"),
 }
 # K6's calls in one full-width V3D-512 UNet forward (bf16, the CFG-doubled
 # video of 36 frames at 64^2 latents): (B, C, *spatial) of the GroupNorm
@@ -612,6 +636,7 @@ def phase_kernels() -> dict:
     for name, checks in route_checks(randn).items():
         results[name] += checks
     results["group_norm"] = group_norm_checks(randn) + group_norm_unet2d_checks(randn)
+    results["group_norm_stats"], results["group_norm_apply"] = group_norm_split_checks(randn)
     results.update(flash_bwd_checks(randn))
     results.update(phase_gs_kernels())
     return results
@@ -1016,6 +1041,73 @@ def group_norm_checks(randn) -> list:
             del x, up
         del x32
     return out + group_norm_forward_mix(randn)
+
+
+# the time stack's GroupNorm inputs of a full-width forward, (b, C, t, s, 1)
+# as the frame-parallel VideoResBlock holds them: whole (one rank) and a
+# half strip of pixels (two)
+K6_SPLIT_SHAPES = tuple((tag, (2, c, 18, s, 1)) for c, hw in
+                        ((320, 64), (640, 32), (1280, 16), (1280, 8))
+                        for tag, s in (("whole", hw * hw), ("half strip", hw * hw // 2)))
+
+
+def group_norm_split_checks(randn) -> tuple:
+    """K6's split entries at the temporal ResBlock's shapes (whole and half
+    strips), f32 and bf16 (with SiLU, as the time stack runs them), each
+    against its plain version: the statistics entry (library: one
+    ``torch.var_mean`` over each sample's groups; bound: one read of x) and
+    the apply entry with the sums of this call (library none: no single
+    call takes given statistics; bound: one read of x, one write of y);
+    then the pair against the one-launch K6 and F.group_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.group_norm import (
+        group_norm_apply_fwd,
+        group_norm_apply_plain,
+        group_norm_fwd,
+        group_norm_stats_fwd,
+        group_norm_stats_plain,
+    )
+
+    stats, apply = [], []
+    for tag, shape in K6_SPLIT_SHAPES:
+        B, C = shape[:2]
+        n = math.prod(shape[2:])
+        count = n * (C // 32)
+        x32 = (randn(*shape) + 0.3).contiguous(memory_format=torch.channels_last_3d)
+        w32, b32 = 1 + randn(C, scale=0.1), randn(C, scale=0.1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            up = x.float()
+            elem = x.element_size()
+            sums = group_norm_stats_plain(x, 32)
+            stats.append(_check(
+                "group_norm_stats", f"{tag} {shape}", dtype,
+                lambda: group_norm_stats_fwd(x, 32), lambda: group_norm_stats_plain(x, 32),
+                lambda: group_norm_stats_plain(up, 32),
+                (3 * n * C, n * C * elem + B * 32 * 2 * 4),
+                lambda: torch.var_mean(x.unflatten(1, (32, C // 32)),
+                                       dim=tuple(range(2, x.dim() + 1)))))
+            apply.append(_check(
+                "group_norm_apply", f"{tag} {shape} +SiLU", dtype,
+                lambda: group_norm_apply_fwd(x, sums, w32, b32, 32, count, 1e-5, True),
+                lambda: group_norm_apply_plain(x, sums, w32, b32, 32, count, 1e-5, True),
+                lambda: group_norm_apply_plain(up, sums, w32, b32, 32, count, 1e-5, True),
+                group_norm_work(shape, True, elem, 4)))
+            if tag == "whole":
+                pair = cuda_ms(lambda: group_norm_apply_fwd(
+                    x, group_norm_stats_fwd(x, 32), w32, b32, 32, count, 1e-5, True))
+                one = cuda_ms(lambda: group_norm_fwd(x, w32, b32, 32, 1e-5, True))
+                lib = cuda_ms(lambda: F.group_norm(x, 32, w32.to(dtype), b32.to(dtype), 1e-5))
+                bound, _ = bound_ms(*group_norm_work(shape, True, elem, 4),
+                                    PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+                say("3 kernels", f"K6 split pair {shape} +SiLU {str(dtype).split('.')[-1]}: "
+                    f"statistics + apply {pair:.4f} ms, the one-launch K6 {one:.4f} ms, "
+                    f"F.group_norm {lib:.4f} ms, bound {bound:.4f} ms (bytes)")
+            del x, up
+        del x32
+    return stats, apply
 
 
 def group_norm_unet2d_checks(randn) -> list:
@@ -1428,7 +1520,8 @@ def k5_backward_check(args, saved, pairs, tag: str, phase: str,
 ATTENTION_KERNELS = ("flash_attn_fwd", "flash_attn_fwd_wide")
 
 
-def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
+def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None,
+               ranks=None, rank: int = 0) -> dict:
     """What one VideoUNet forward at hw^2 latents (activations in ``dtype``,
     default bf16) launches under the attention routing set now, counted
     from the modules and their own routing rules: each spatial self- and
@@ -1438,22 +1531,31 @@ def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
     self-attentions that take K2
     (``TemporalSelfAttention.takes_block``) or else K3, and the GroupNorms
     (K6) inside the blocks that ``use_checkpoint`` recomputes
-    (VideoResBlock, SpatialVideoTransformer) and outside them."""
+    (VideoResBlock, SpatialVideoTransformer) and outside them.  With
+    ``ranks``: rank ``rank``'s share of a frame-parallel forward over that
+    many ranks (``parallel/frames.py``): the temporal attentions on its
+    strip of pixels (``pixel_strips``), and the time stacks' GroupNorms as
+    K6's split pair (``gn_split``, each a statistics and an apply launch)."""
     import torch
 
     from v3d_tpu_torch.models.layers import Downsample, GroupNorm32, Upsample
     from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
     from v3d_tpu_torch.models.video_unet import VideoResBlock
     from v3d_tpu_torch.ops.attention import route_kernel
+    from v3d_tpu_torch.parallel.mesh import pixel_strips
 
     sites = dict.fromkeys(ATTENTION_KERNELS + ("k1_grad", "temporal_block",
                                                "temporal_core", "gn_blocks",
-                                               "gn_other"), 0)
+                                               "gn_other", "gn_split"), 0)
     res = hw
     blocks = list(unet.input_blocks) + [unet.middle_block] + list(unet.output_blocks)
     for layer in [m for block in blocks for m in block] + [unet.out]:
         n_gn = sum(isinstance(m, GroupNorm32) for m in layer.modules())
         if isinstance(layer, (VideoResBlock, SpatialVideoTransformer)):
+            if ranks and isinstance(layer, VideoResBlock):
+                split = count_group_norms(layer.time_stack)
+                sites["gn_split"] += split
+                n_gn -= split
             sites["gn_blocks"] += n_gn
         else:
             sites["gn_other"] += n_gn
@@ -1466,8 +1568,9 @@ def unet_sites(unet, hw: int, context_tokens: int = 1, dtype=None) -> dict:
                     if kernel:
                         sites[kernel] += 1
                     sites["k1_grad"] += kernel == "flash_attn_fwd" and route == "flash_jax"
+            a, b = pixel_strips(tokens, ranks)[rank] if ranks else (0, tokens)
             for tb in layer.time_stack:
-                fused = tb.attn1.takes_block(tokens)
+                fused = tb.attn1.takes_block(b - a)
                 sites["temporal_block" if fused else "temporal_core"] += 1
         elif isinstance(layer, Downsample):
             res //= 2
@@ -1570,21 +1673,25 @@ def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
     return out
 
 
-def forward_launches(unet, hw: int = 64, dtype=None) -> dict:
-    """Launches of one UNet forward under the routing set now."""
-    u = unet_sites(unet, hw, dtype=dtype)
+def forward_launches(unet, hw: int = 64, dtype=None, ranks=None, rank: int = 0) -> dict:
+    """Launches of one UNet forward under the routing set now (with
+    ``ranks``: rank ``rank``'s share of a frame-parallel forward)."""
+    u = unet_sites(unet, hw, dtype=dtype, ranks=ranks, rank=rank)
     out = {name: 0 for name in KERNELS}
     out.update({k: u[k] for k in ATTENTION_KERNELS + ("temporal_block", "temporal_core")},
-               group_norm=u["gn_blocks"] + u["gn_other"])
+               group_norm=u["gn_blocks"] + u["gn_other"],
+               group_norm_stats=u["gn_split"], group_norm_apply=u["gn_split"])
     return out
 
 
-def train_launches(unet, hw: int = 64, use_checkpoint: bool = True) -> dict:
+def train_launches(unet, hw: int = 64, use_checkpoint: bool = True, ranks=None,
+                   rank: int = 0, dtype=None) -> dict:
     """Launches of one fine-tune step: the forward, the blocks' forwards
     once more when checkpointing recomputes them, K8 and K7 once per K1
     site of the "flash_jax" route; K2/K3/K6 and the other attention routes'
-    backwards recompute through plain formulas."""
-    u = unet_sites(unet, hw)
+    backwards recompute through plain formulas.  With ``ranks``: rank
+    ``rank``'s share of a frame-split step (``unet_sites``)."""
+    u = unet_sites(unet, hw, dtype=dtype, ranks=ranks, rank=rank)
     r = 2 if use_checkpoint else 1
     out = {name: 0 for name in KERNELS}
     out.update(flash_attn_fwd=r * u["flash_attn_fwd"],
@@ -1592,7 +1699,8 @@ def train_launches(unet, hw: int = 64, use_checkpoint: bool = True) -> dict:
                flash_attn_bwd_dq=u["k1_grad"], flash_attn_bwd_dkv=u["k1_grad"],
                temporal_block=r * u["temporal_block"],
                temporal_core=r * u["temporal_core"],
-               group_norm=r * u["gn_blocks"] + u["gn_other"])
+               group_norm=r * u["gn_blocks"] + u["gn_other"],
+               group_norm_stats=r * u["gn_split"], group_norm_apply=r * u["gn_split"])
     return out
 
 
@@ -5033,14 +5141,11 @@ def phase_dp_ranks(dev, per_step: dict) -> dict:
     import os
     import tempfile
 
-    from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.parallel import dryrun
 
     phase = "26 dp ranks"
     t_phase = time.perf_counter()
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    repo, env = _repo_env()
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", "1", "-m", "v3d_tpu_torch.apps.train_diffusion",
@@ -5069,30 +5174,15 @@ def phase_dp_ranks(dev, per_step: dict) -> dict:
                                f"launches {cli_launches} (expect {cli_want}): "
                                f"{proc.stderr[-3000:]}")
 
-        out = os.path.join(tmp, "dryrun.json")
-        cmd = [sys.executable, "-m", "v3d_tpu_torch.parallel.dryrun", "--nproc",
-               str(DP_NPROC), "--backend", "gloo", "--rung", DP_RUNG, "--timeout", "300",
-               "--join-timeout", "600", "--out", out]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
-                              timeout=700)
-        dry_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            say(phase, line)
-        if proc.returncode != 0:
-            raise SmokeFailure(f"dry run: exit {proc.returncode}: {proc.stderr[-3000:]}")
-        with open(out) as f:
-            report = json.load(f)
+    report, dry_s = run_dryrun(phase, DP_RUNG)
     ranks = report["ranks"]
     render = {"gs_composite_fwd": 1, "gs_composite_bwd": 1}
     got = [{k: v for k, v in r["refpoint"]["gs"]["launches"].items() if v} for r in ranks]
-    tiny = build_tiny_engine(num_frames=2 * DP_NPROC, device="cpu").unet
-    tiny_step = {k: v for k, v in train_launches(tiny, dryrun.TRAIN_HW,
-                                                 tiny.use_checkpoint).items() if v}
     got_train = [{k: v for k, v in r["train"]["launches"].items() if v} for r in ranks]
+    tiny_step = dryrun_train_launches()
     gs, ne = ranks[0]["refpoint"]["gs"], ranks[0]["refpoint"]["neus"]
     ok = (len(ranks) == DP_NPROC and report["backend"] == "gloo"
-          and all(g == render for g in got) and all(g == tiny_step for g in got_train)
+          and all(g == render for g in got) and got_train == tiny_step
           and gs["render_max_abs"] <= dryrun.RENDER_MAX_ABS
           and gs["grad_rel"] <= dryrun.GS_GRAD_REL and ne["grad_rel"] <= dryrun.NEUS_GRAD_REL
           and all(r["train"]["loss_rel"] <= dryrun.TRAIN_LOSS_REL
@@ -5104,33 +5194,356 @@ def phase_dp_ranks(dev, per_step: dict) -> dict:
         f"{[round(r['refpoint']['gs']['ms_sharded'], 1) for r in ranks]}; NeuS gradients "
         f"{ne['grad_rel']} (<= {dryrun.NEUS_GRAD_REL}), ms single {ne['ms_single']:.1f}, "
         f"sharded {[round(r['refpoint']['neus']['ms_sharded'], 1) for r in ranks]} "
-        f"| K4 / K5 launches per rank {got} (expect {render} each) | DP fine-tune loss rel "
-        f"{[r['train']['loss_rel'] for r in ranks]}, least cosine "
-        f"{[r['train']['min_cos'] for r in ranks]}, launches per rank {got_train} (expect "
-        f"{tiny_step} each) | {'ok' if ok else 'FAIL'}")
+        f"| K4 / K5 launches per rank {got} (expect {render} each) | fine-tune (one "
+        f"video, 2 frames a rank) loss rel {[r['train']['loss_rel'] for r in ranks]}, least "
+        f"cosine {[r['train']['min_cos'] for r in ranks]}, launches per rank {got_train} "
+        f"(expect {tiny_step}) | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"dry run: launches {got}, fine-tune {got_train} (expect "
                            f"{tiny_step}), report {json.dumps(ranks)[:3000]}")
     say(phase, f"phase 26 (b, c) took {time.perf_counter() - t_phase:.1f} s")
-
-    def summed(key):
-        total = {}
-        for r in ranks:
-            for k, v in key(r).items():
-                total[k] = total.get(k, 0) + v
-        return total
-
     return {"dp_cli": {"launches": cli_launches[-1]},
-            "dp_render": {"launches": summed(lambda r: r["refpoint"]["gs"]["launches"])},
-            "dp_tiny_train": {"launches": summed(lambda r: r["train"]["launches"])},
-            "cli_s": cli_s, "dryrun_s": dry_s}
+            "dp_render": {"launches": _rank_sum(ranks, lambda r: r["refpoint"]["gs"]["launches"])},
+            "dp_tiny_train": {"launches": _rank_sum(ranks, lambda r: r["train"]["launches"])},
+            "cli_s": cli_s, "dryrun_s": dry_s, "dryrun": report}
+
+
+def _rank_sum(ranks, key) -> dict:
+    """The launches ``key(rank)`` summed over the ranks."""
+    total = {}
+    for r in ranks:
+        for k, v in key(r).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _repo_env():
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return repo, dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+
+
+def run_dryrun(phase: str, rung: str) -> tuple:
+    """``python -m v3d_tpu_torch.parallel.dryrun`` with DP_NPROC ranks on this
+    card over gloo at ``rung``, its lines echoed; (its report, seconds)."""
+    import os
+    import tempfile
+
+    repo, env = _repo_env()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dryrun.json")
+        cmd = [sys.executable, "-m", "v3d_tpu_torch.parallel.dryrun", "--nproc",
+               str(DP_NPROC), "--backend", "gloo", "--rung", rung, "--timeout", "300",
+               "--join-timeout", "600", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=700)
+        seconds = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            say(phase, line)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"dry run: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            return json.load(f), seconds
+
+
+def dryrun_train_launches() -> list:
+    """Each dry-run rank's launches of its fine-tune step: its share of the
+    tiny engine's frame-split step (one video of 2 DP_NPROC frames)."""
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.parallel import dryrun
+
+    tiny = build_tiny_engine(num_frames=2 * DP_NPROC, device="cpu").unet
+    return [{k: v for k, v in train_launches(tiny, dryrun.TRAIN_HW, tiny.use_checkpoint,
+                                             ranks=DP_NPROC, rank=r).items() if v}
+            for r in range(DP_NPROC)]
+
+
+def dryrun_sample_launches() -> list:
+    """Each dry-run rank's launches of its sampling stage: SAMPLE_STEPS
+    shares of the tiny engine's frame-parallel forward (f32)."""
+    import torch
+
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.parallel import dryrun
+
+    t = max(2 * DP_NPROC, 2)
+    tiny = build_tiny_engine(num_frames=t, device="cpu").unet
+    hw = dryrun.SAMPLE_RES // 8
+    return [{k: dryrun.SAMPLE_STEPS * v for k, v in forward_launches(
+        tiny, hw, dtype=torch.float32, ranks=DP_NPROC, rank=r).items() if v}
+        for r in range(DP_NPROC)]
+
+
+# ---------------------------------------------------------------------------
+# phase 27: frame-sharded sampling and the frame-split step
+
+FRAMES_NPROC = 2           # 27(b): ranks sharing this card over gloo
+FRAMES_STEPS = 2           # 27(b): Euler steps (of 25)
+FRAMES_MIN_PSNR = 30.0     # dB, latents against one process (phases 4, 9's bar)
+FRAMES_DRY_RUNG = "small"  # 27(c) when phase 26 did not run the dry run
+FRAMES_RES = 512           # pixels (64^2 latents)
+
+
+def build_frames_engine(device):
+    """The V3D-512 engine of phase 5 (seeded bf16 weights) on ``device``."""
+    import torch
+
+    from v3d_tpu_torch.engines.builder import build_v3d_engine
+
+    return build_v3d_engine(device=device, dtype=torch.bfloat16, seed=0)
+
+
+def frames_inputs(engine, dev, seed: int = 5) -> tuple:
+    """(c, uc, noise) of a FRAMES_RES^2 sample from a seeded draw on ``dev``:
+    per-frame cond at the engine's shapes (uc: the image conds zeroed, the
+    vector kept, as ``build_cond`` gives it), noise of its latent shape."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t, h, w, ch = engine.latent_shape(FRAMES_RES, FRAMES_RES)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    c = {"crossattn": randn(t, 1, engine.unet.context_dim), "concat": randn(t, h, w, ch),
+         "vector": randn(t, 768)}
+    uc = {k: v if k == "vector" else torch.zeros_like(v) for k, v in c.items()}
+    return c, uc, randn(t, h, w, ch)
+
+
+def frames_forward_launches(unet, ranks=None, rank: int = 0) -> dict:
+    """``forward_launches`` of a FRAMES_RES^2 forward in the UNet's dtype."""
+    return forward_launches(unet, FRAMES_RES // 8, dtype=unet.dtype, ranks=ranks, rank=rank)
+
+
+def _param_sum(unet) -> str:
+    """A hash of the first values of the UNet's first tensors (the ranks
+    build the same seeded engine)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in list(unet.parameters())[:16]:
+        h.update(p.detach().flatten()[:4096].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_frames_one(engine, dev) -> dict:
+    """27(a): the 25-step sample of phase 5's engine through
+    ``sample_latents(mesh=)`` on a (1, 1) NCCL mesh against the same sample
+    without a mesh (same c, uc, noise), each after one warm-up forward:
+    PSNR of the latents, seconds, peak memory, launches exact both ways;
+    then one process's FRAMES_STEPS-step sample, the reference of 27(b)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    phase = "27 frames"
+    t_phase = time.perf_counter()
+    c, uc, noise = frames_inputs(engine, dev)
+    steps = engine.sampler.num_steps
+    runs = {}
+
+    def warm_up(mesh):
+        """One forward of the sampler's network, so that neither timed
+        sample pays a first call (the mesh's communicators start lazily)."""
+        from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+
+        rows = 2 * engine.num_frames
+        x = torch.randn((rows,) + tuple(noise.shape[1:]), device=dev)
+        cond = {k: torch.cat([uc[k], c[k]]) for k in c}
+        with torch.no_grad():
+            make_unet_network_fn(engine.unet, engine.num_frames, mesh=mesh)(
+                x, torch.zeros(rows, device=dev), cond, torch.zeros(2, engine.num_frames,
+                                                                     device=dev))
+        torch.cuda.synchronize()
+
+    def sample(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        z = engine.sample_latents(c, uc, FRAMES_RES, FRAMES_RES, noise=noise, mesh=mesh)
+        torch.cuda.synchronize()
+        return {"z": z, "s": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    warm_up(None)
+    runs["plain"] = sample(None)
+    init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                     world_size=1)
+    try:
+        mesh = make_mesh()
+        backend = dist.get_backend()
+        warm_up(mesh)
+        runs["mesh"] = sample(mesh)
+    finally:
+        dist.destroy_process_group()
+    expect = {"plain": _scaled(frames_forward_launches(engine.unet), steps),
+              "mesh": _scaled(frames_forward_launches(engine.unet, ranks=1), steps)}
+    quality = psnr(runs["mesh"]["z"], runs["plain"]["z"])
+    ok = (backend == "nccl" and quality >= FRAMES_MIN_PSNR
+          and bool(torch.isfinite(runs["mesh"]["z"]).all())
+          and all(runs[k]["launches"] == expect[k] for k in runs))
+    say(phase, f"(a) {steps}-step V3D-512 sample ({engine.num_frames} frames, CFG-doubled "
+        f"to {2 * engine.num_frames}) through sample_latents(mesh=) on a (1, 1) {backend} "
+        f"mesh vs without: PSNR {quality:.2f} dB (>= {FRAMES_MIN_PSNR:g}), max abs "
+        f"{float((runs['mesh']['z'] - runs['plain']['z']).abs().max()):.3e} | seconds "
+        f"{runs['mesh']['s']:.3f} on the mesh vs {runs['plain']['s']:.3f} without | peak "
+        f"{runs['mesh']['peak_gib']:.2f} vs {runs['plain']['peak_gib']:.2f} GiB | launches "
+        f"on the mesh {_nonzero(runs['mesh']['launches'])} (expect "
+        f"{_nonzero(expect['mesh'])}), without {_nonzero(runs['plain']['launches'])} "
+        f"(expect {_nonzero(expect['plain'])}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"frame-sharded sample on one rank: {quality} dB, launches "
+                           f"{runs['mesh']['launches']} (expect {expect['mesh']})")
+    saved = engine.sampler
+    engine.sampler = dataclasses.replace(saved, num_steps=FRAMES_STEPS)
+    try:
+        ref = engine.sample_latents(c, uc, FRAMES_RES, FRAMES_RES, noise=noise).cpu()
+    finally:
+        engine.sampler = saved
+    say(phase, f"27(a) took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": runs["mesh"]["launches"], "ref": ref,
+            "param_sum": _param_sum(engine.unet),
+            "seconds": {k: r["s"] for k, r in runs.items()}, "psnr": quality}
+
+
+def _frames_rank(index: int, nproc: int, store: str, out_dir: str, build,
+                 device: str) -> None:
+    """A rank of 27(b): ``build(device)``'s engine (the full-width one on this
+    card), FRAMES_STEPS steps of ``sample_latents(mesh=)`` over gloo; its
+    latents, launches, exchange traffic and seconds into ``out_dir``."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel import frames
+    from v3d_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // nproc))  # they share the host
+    dev = init_distributed(device, timeout_s=300, backend="gloo",
+                           init_method=f"file://{store}", rank=index, world_size=nproc)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = make_mesh(device=dev.type)
+        engine = build(dev)
+        engine.sampler = dataclasses.replace(engine.sampler, num_steps=FRAMES_STEPS)
+        c, uc, noise = frames_inputs(engine, dev)
+        engine.sample_latents(c, uc, FRAMES_RES, FRAMES_RES, noise=noise, mesh=mesh)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        frames.reset_traffic()
+        t0 = time.perf_counter()
+        z = engine.sample_latents(c, uc, FRAMES_RES, FRAMES_RES, noise=noise, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        torch.save({"z": z.cpu(), "launches": dict(LAUNCHES), "traffic": dict(frames.TRAFFIC),
+                    "seconds": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "param_sum": _param_sum(engine.unet), "backend": dist.get_backend()},
+                   os.path.join(out_dir, f"rank{index}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_frames_ranks(one: dict, build=build_frames_engine, device: str = "cuda:0") -> dict:
+    """27(b): FRAMES_NPROC ranks sharing this card over gloo, each with the
+    full-width engine, sample FRAMES_STEPS steps with the 36 CFG frames over
+    "data" (18 a rank) against one process's FRAMES_STEPS steps on the same
+    noise (27(a)'s ``ref``): PSNR and max abs of the latents, each rank's
+    launches exact, seconds a forward and the bytes the exchanges moved."""
+    import os
+    import tempfile
+
+    import torch
+
+    from v3d_tpu_torch.parallel.dryrun import spawn_ranks
+
+    phase = "27 frames"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(_frames_rank, FRAMES_NPROC,
+                    (FRAMES_NPROC, os.path.join(tmp, "store"), tmp, build, device),
+                    timeout_s=400)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(FRAMES_NPROC)]
+    unet = build("meta").unet
+    expect = [_scaled(frames_forward_launches(unet, ranks=FRAMES_NPROC, rank=r), FRAMES_STEPS)
+              for r in range(FRAMES_NPROC)]
+    ref = one["ref"]
+    quality = [psnr(r["z"], ref) for r in ranks]
+    max_abs = [float((r["z"] - ref).abs().max()) for r in ranks]
+    ok = (all(q >= FRAMES_MIN_PSNR for q in quality)
+          and all(torch.equal(r["z"], ranks[0]["z"]) for r in ranks)
+          and all(r["param_sum"] == one["param_sum"] and r["backend"] == "gloo"
+                  for r in ranks)
+          and [r["launches"] for r in ranks] == expect)
+    say(phase, f"(b) {FRAMES_NPROC} ranks on this card over gloo, the full-width engine each, "
+        f"{FRAMES_STEPS} Euler steps with {2 * len(ref) // FRAMES_NPROC} of the {2 * len(ref)} "
+        f"CFG frames a rank "
+        f"vs one process's {FRAMES_STEPS} steps: PSNR {[round(q, 2) for q in quality]} dB "
+        f"(>= {FRAMES_MIN_PSNR:g}), max abs {max_abs} | seconds a forward "
+        f"{[round(r['seconds'] / FRAMES_STEPS, 3) for r in ranks]} (host clock, synchronised; "
+        f"gloo stages every exchange through the host) | exchanges a rank "
+        f"{[r['traffic']['exchanges'] for r in ranks]} receiving "
+        f"{[r['traffic']['bytes'] for r in ranks]} bytes | peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB | launches per rank "
+        f"{[_nonzero(r['launches']) for r in ranks]} (expect "
+        f"{[_nonzero(e) for e in expect]}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"frame-sharded sample on {FRAMES_NPROC} ranks: {quality} dB, "
+                           f"launches {[r['launches'] for r in ranks]} (expect {expect})")
+    say(phase, f"27(b) took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": _summed(*(r["launches"] for r in ranks)), "psnr": quality,
+            "max_abs": max_abs, "seconds": [r["seconds"] for r in ranks],
+            "traffic": [r["traffic"] for r in ranks]}
+
+
+def phase_frames_dryrun(report=None) -> dict:
+    """27(c): the dry run's sampling stage (max abs <= its bound) and its
+    fine-tune step at the graft's shape (one video, 2 frames a rank; loss
+    and cosines within its bounds), each rank's launches exact: phase 26's
+    run of the dry run where it ran, else one at FRAMES_DRY_RUNG."""
+    from v3d_tpu_torch.parallel import dryrun
+
+    phase = "27 frames"
+    if report is None:
+        report, _ = run_dryrun(phase, FRAMES_DRY_RUNG)
+    ranks = report["ranks"]
+    got_s = [_nonzero(r["sampling"]["launches"]) for r in ranks]
+    got_t = [_nonzero(r["train"]["launches"]) for r in ranks]
+    want_s, want_t = dryrun_sample_launches(), dryrun_train_launches()
+    ok = (report["backend"] == "gloo" and got_s == want_s and got_t == want_t
+          and all(r["sampling"]["max_abs"] <= dryrun.SAMPLE_MAX_ABS
+                  and r["train"]["loss_rel"] <= dryrun.TRAIN_LOSS_REL
+                  and r["train"]["min_cos"] >= dryrun.TRAIN_MIN_COS for r in ranks))
+    say(phase, f"(c) dry run on {len(ranks)} ranks over gloo ({report['rung']} rung): sampling "
+        f"max abs {[r['sampling']['max_abs'] for r in ranks]} (<= {dryrun.SAMPLE_MAX_ABS}), "
+        f"launches {got_s} (expect {want_s}); fine-tune at the graft's shape loss rel "
+        f"{[r['train']['loss_rel'] for r in ranks]} (<= {dryrun.TRAIN_LOSS_REL}), least cosine "
+        f"{[r['train']['min_cos'] for r in ranks]} (>= {dryrun.TRAIN_MIN_COS}), launches "
+        f"{got_t} (expect {want_t}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"dry run's frame stages: {json.dumps(ranks)[:3000]}")
+    return {"launches": _rank_sum(ranks, lambda r: r["sampling"]["launches"])}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,"
-                           "25,26",
+                           "25,26,27",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -5150,7 +5563,7 @@ def main(argv=None) -> int:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
     engine = (build_engine(dev)
-              if phases & {4, 5, 9, 10, 12, 16, 17} else None)
+              if phases & {4, 5, 9, 10, 12, 16, 17, 27} else None)
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
@@ -5160,8 +5573,13 @@ def main(argv=None) -> int:
     entry = phase_gen_entry_points(engine, gen) if 16 in phases else {}
     gen_expect = gen_launches(engine) if 12 in phases else {}
     iter_expect = iterative_launches(engine) if 17 in phases else {}
+    frames_one = phase_frames_one(engine, dev) if 27 in phases else {}
     del engine
     torch.cuda.empty_cache()
+    frames = {}
+    if 27 in phases:
+        frames = {"frames_one": {"launches": frames_one["launches"]},
+                  "frames_ranks": phase_frames_ranks(frames_one)}
     image = phase_image(dev) if 21 in phases else {}
     fit, rgba = {}, None
     if phases & {6, 7, 18, 19, 20, 22, 25}:
@@ -5175,7 +5593,7 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
     paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})},
-             "image": image}
+             "image": image, **frames}
     if 22 in phases:
         paths.update(phase_lpips(rgba, dev, fit.get("step_ms")))
     if 25 in phases:
@@ -5193,10 +5611,13 @@ def main(argv=None) -> int:
         paths["dp_train"] = phase_dp_step(train_engine or build_train_engine(device=dev), dev)
     del train_engine
     torch.cuda.empty_cache()
+    dp = {}
     if 26 in phases:
         dp = phase_dp_ranks(dev, paths["dp_train"]["per_step"])
         paths.update(dp_cli=dp["dp_cli"], dp_render=dp["dp_render"],
                      dp_tiny_train=dp["dp_tiny_train"])
+    if 27 in phases:
+        paths["frames_dryrun"] = phase_frames_dryrun(dp.get("dryrun"))
     paths["ae"] = phase_ae(rgba[..., :3], dev) if 19 in phases else {}
     paths["pixelnerf"] = phase_pixelnerf(rgba[..., :3], dev) if 20 in phases else {}
     neus = phase_neus() if 11 in phases else {}

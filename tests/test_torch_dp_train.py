@@ -24,6 +24,9 @@ engine.
   the uninterrupted 6-step run (which prefetches host batches and shards
   them on the host) exactly, optimizer moments included; one file a
   checkpoint is written, and only rank 0 logs.
+- The same three steps on 4 ranks, 2 frames a rank, so that each video's
+  frames split over 2 ranks (the frame-parallel forward,
+  ``parallel/frames.py``), held to the JAX trainer as the 2-rank steps are.
 - ``batches`` on PNG orbits under the mesh (each rank's slice cut before
   the encode, its noise its block of the global draw) equals the slice of
   one process's batch: the VAE encodes 4 frames instead of 8, so its
@@ -37,7 +40,7 @@ from PIL import Image
 
 import jax
 
-from torch_dist_helpers import T, dp_train, run_ranks
+from torch_dist_helpers import T, dp_train, frame_train, run_ranks, start_ranks
 from torch_port_helpers import MAP_UNET, numpy_init_, to_flax
 from v3d_tpu.diffusion.sigma_sampling import EDMSampling
 from v3d_tpu.engines.builder import build_tiny_engine as jax_tiny_engine
@@ -93,6 +96,8 @@ def run(tmp_path_factory):
                       np.asarray(jax.random.normal(k_noise, host["latents"].shape))))
 
     png = _write_orbits(tmp_path_factory.mktemp("orbits"))
+    frame_ranks = start_ranks(frame_train, 4, tmp_path_factory.mktemp("frames"),
+                              unet_state, hosts, draws, CLIP)
     ranks = run_ranks(dp_train, 2, tmp_path_factory.mktemp("dp"), unet_state, hosts,
                       draws, CLIP, str(png))
 
@@ -106,7 +111,7 @@ def run(tmp_path_factory):
     png_single = next(src)
     src.close()
     return dict(jt=jt, jstats=jstats, ranks=ranks, single=single, sstats=sstats,
-                png_single=png_single)
+                png_single=png_single, frame_ranks=frame_ranks())
 
 
 def _flax_get(tree, path):
@@ -143,6 +148,24 @@ def test_dp_steps_match_the_jax_trainer_on_8_devices(run):
         _hold(r0[key], lambda name: _flax_get(tree["params"], MAP_UNET(name)[0]), r0["grads"])
         for name, x in r0[key].items():     # the replicas agree exactly
             assert torch.equal(run["ranks"][1]["jax"][key][name], x), name
+
+
+def test_frame_split_steps_on_4_ranks_match_the_jax_trainer(run):
+    """The same three steps on 4 ranks, 2 frames a rank: each video's
+    frames split over 2 ranks (the frame-parallel UNet forward), held as
+    the 2-rank steps are."""
+    jt = run["jt"]
+    for r in run["frame_ranks"]:
+        assert r["foreign"] == [] and r["rows"] == 2
+        for got, want in zip(r["stats"], run["jstats"]):
+            assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
+            assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-4)
+    r0 = run["frame_ranks"][0]
+    for key, tree in (("params", jt.params), ("ema", jt.ema_params)):
+        _hold(r0[key], lambda name: _flax_get(tree["params"], MAP_UNET(name)[0]), r0["grads"])
+        for r in run["frame_ranks"][1:]:      # the replicas agree exactly
+            for name, x in r0[key].items():
+                assert torch.equal(r[key][name], x), name
 
 
 def test_two_ranks_equal_one_process_on_the_global_batch(run):

@@ -215,8 +215,8 @@ def test_dryrun_small_rung_on_two_cpu_ranks(tmp_path):
          "--join-timeout", "420", "--out", str(out)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=480)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    for stage in ("dryrun DP fine-tune", "dryrun recon DP", "dryrun GS refpoint [small]",
-                  "dryrun NeuS refpoint [small]"):
+    for stage in ("dryrun DP fine-tune", "dryrun sampling parity", "dryrun recon DP",
+                  "dryrun GS refpoint [small]", "dryrun NeuS refpoint [small]"):
         line = next(ln for ln in proc.stdout.splitlines() if ln.startswith(stage))
         assert line.endswith(" OK"), line
     assert "ALL STAGES DONE" in proc.stdout
@@ -224,3 +224,4 @@ def test_dryrun_small_rung_on_two_cpu_ranks(tmp_path):
     assert report["backend"] == "gloo" and len(report["ranks"]) == 2
     assert report["ranks"][0]["refpoint"]["gs"]["render_max_abs"] <= 2e-5
     assert all(r["train"]["min_cos"] >= 0.999 for r in report["ranks"])
+    assert all(r["sampling"]["max_abs"] <= 1e-2 for r in report["ranks"])

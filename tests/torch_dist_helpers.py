@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-rank CPU tests (test_torch_parallel.py,
-test_torch_dp_train.py, test_torch_gs_sharded.py, test_torch_imports.py).
+test_torch_dp_train.py, test_torch_gs_sharded.py, test_torch_imports.py,
+test_torch_frames.py).
 
 A spawned rank re-imports the module that holds its function, so this one
 imports torch, numpy and the port only, never jax or v3d_tpu (the parent
@@ -36,6 +37,34 @@ def run_ranks(fn, world: int, tmp_path, *args, timeout_s: float = JOIN_TIMEOUT_S
     out.mkdir()
     spawn_ranks(_entry, world, (fn, world, str(out), args), timeout_s=timeout_s)
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def start_ranks(fn, world: int, tmp_path, *args, timeout_s: float = JOIN_TIMEOUT_S):
+    """``run_ranks`` in a thread of this process, so that it can work while
+    the ranks do; the returned function waits for them and returns their
+    dicts (or raises what ``run_ranks`` raised)."""
+    import threading
+
+    box = {}
+
+    def target():
+        try:
+            box["ranks"] = run_ranks(fn, world, tmp_path, *args, timeout_s=timeout_s)
+        except BaseException as e:   # handed to the waiting thread
+            box["error"] = e
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def wait() -> list:
+        thread.join(timeout_s + 30)
+        if "error" in box:
+            raise box["error"]
+        if "ranks" not in box:
+            raise TimeoutError(f"{world} ranks of {fn.__name__} did not finish")
+        return box["ranks"]
+
+    return wait
 
 
 def _entry(rank: int, fn, world: int, out: str, args) -> None:
@@ -232,6 +261,239 @@ def dp_train(rank: int, world: int, out: str, unet_state: dict, hosts: list,
     src = app.batches(engine, ds, 2, T, mesh=mesh)
     r["png"] = next(src)
     src.close()
+    return r
+
+
+def frame_train(rank: int, world: int, out: str, unet_state: dict, hosts: list,
+                draws: list, grad_clip: float) -> dict:
+    """dp_train's "jax" run on ``world`` ranks that split each video: three
+    steps on the global batches ``hosts`` (2 videos of T frames, T * 2 /
+    world frames a rank) with the global draws ``draws``."""
+    from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
+    from v3d_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    mesh = make_mesh(device="cpu")
+    engine = _tiny_engine(unet_state)
+    tr = DiffusionTrainer(engine, TrainConfig(log_every=1, grad_clip=grad_clip),
+                          num_frames=T, mesh=mesh)
+    stats = []
+    for host, (sigmas, noise) in zip(hosts, draws):
+        local = shard_batch(_cpu_batch(engine, host), mesh)
+        stats.append(tr.train_step(local["latents"], local["cond"],
+                                   sigmas=torch.from_numpy(sigmas),
+                                   noise=torch.from_numpy(noise)))
+    return {"rows": int(local["latents"].shape[0]), "stats": stats,
+            "params": _unet_state(tr), "ema": _ema_state(tr),
+            "grads": {k: p.grad.clone() for k, p in zip(tr.names, tr.params)
+                      if p.grad is not None}}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_frames.py
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _count_as_on_card() -> None:
+    """Route as on the card, each kernel wrapper counting its call and
+    running its plain version (test_torch_routes.py's ``accelerators``, in
+    this rank's process only)."""
+    from v3d_tpu_torch.models import attention_blocks as pblocks
+    from v3d_tpu_torch.ops import LAUNCHES, group_norm
+    from v3d_tpu_torch.ops import attention as pattn
+    from v3d_tpu_torch.ops import flash_attention as pfa
+    from v3d_tpu_torch.ops import temporal_attention as pta
+
+    pattn._on_card = lambda *tensors: True
+    pblocks.use_plain = lambda *tensors: False
+    for mod, name, key in ((pattn, "flash_attn_fwd", "flash_attn_fwd"),
+                           (pfa, "flash_attn_fwd", "flash_attn_fwd"),
+                           (pfa, "flash_attn_fwd_wide", "flash_attn_fwd_wide"),
+                           (pta, "temporal_core_fwd", "temporal_core"),
+                           (pta, "temporal_block_fwd", "temporal_block"),
+                           (group_norm, "group_norm_fwd", "group_norm"),
+                           (group_norm, "group_norm_stats_fwd", "group_norm_stats"),
+                           (group_norm, "group_norm_apply_fwd", "group_norm_apply")):
+        def counted(*args, _orig=getattr(mod, name), _key=key, **kw):
+            LAUNCHES[_key] += 1
+            return _orig(*args, **kw)
+
+        setattr(mod, name, counted)
+
+
+def _frames_engine(t: int, unet_state: dict):
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+
+    engine = build_tiny_engine(num_frames=t, num_steps=2, device="cpu")
+    engine.unet.load_state_dict(unet_state)
+    return engine
+
+
+def frames_run(rank: int, world: int, out: str, t: int, unet_state: dict,
+               inputs: dict, checks: bool = False) -> dict:
+    """The frame-parallel paths on mesh (world, 1), every video's frames
+    split: ``sample_latents(mesh=)`` from ``inputs["noise"]`` with c / uc, one
+    network forward through ``make_unet_network_fn(mesh=)``, one fine-tune
+    step on ``inputs["batch"]`` with its global draws, the exchanges'
+    round trips in both modes on uneven strips, the refusal of a row count
+    the ranks do not divide, and with ``checks`` ``frames_checks`` on ranks
+    0 and 1."""
+    import dataclasses
+
+    from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
+    from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+    from v3d_tpu_torch.parallel import frames as fr
+    from v3d_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    def tt(tree):
+        return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+    mesh = make_mesh(device="cpu")
+    engine = _frames_engine(t, unet_state)
+    r = {}
+    fr.reset_traffic()
+    r["sample"] = engine.sample_latents(tt(inputs["c"]), tt(inputs["uc"]), 64, 64,
+                                        noise=torch.from_numpy(inputs["noise"]), mesh=mesh)
+    r["traffic"] = dict(fr.TRAFFIC)
+    fwd = inputs["forward"]
+    net = make_unet_network_fn(engine.unet, t, mesh=mesh)
+    with torch.no_grad():
+        r["forward"] = net(torch.from_numpy(fwd["x"]), torch.from_numpy(fwd["c_noise"]),
+                           tt(fwd["cond"]), torch.zeros(2, t))
+    try:    # 2 (world - 1) rows: whole videos that the ranks do not divide
+        make_unet_network_fn(engine.unet, world - 1, mesh=mesh)(
+            torch.zeros(2 * world - 2, 8, 8, 4), torch.zeros(2 * world - 2), {}, None)
+        r["indivisible"] = None
+    except ValueError as e:
+        r["indivisible"] = str(e)
+
+    batch = inputs["batch"]
+    tr = DiffusionTrainer(_frames_engine(t, unet_state), TrainConfig(), num_frames=t,
+                          mesh=mesh)
+    tr.unet.use_checkpoint = True      # the recompute re-issues the collectives
+    local = shard_batch({"latents": torch.from_numpy(batch["latents"]),
+                         "cond": tt(batch["cond"])}, mesh)
+    r["step"] = tr.train_step(local["latents"], local["cond"],
+                              sigmas=torch.from_numpy(batch["sigmas"]),
+                              noise=torch.from_numpy(batch["noise"]))
+    r["grads"] = {k: p.grad.clone() for k, p in zip(tr.names, tr.params)
+                  if p.grad is not None}
+
+    # the launches of a forward and of a step as on the card, against
+    # chip_smoke.py's counts of this rank's share (walked from the modules)
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cs = _chip_smoke()
+    _count_as_on_card()
+    reset_launch_counts()
+    with torch.no_grad():
+        net(torch.from_numpy(fwd["x"]), torch.from_numpy(fwd["c_noise"]),
+            tt(fwd["cond"]), torch.zeros(2, t))
+    r["forward_launches"] = (dict(LAUNCHES), cs.forward_launches(
+        engine.unet, 8, dtype=torch.float32, ranks=world, rank=rank))
+    reset_launch_counts()
+    tr.train_step(local["latents"], local["cond"], sigmas=torch.from_numpy(batch["sigmas"]),
+                  noise=torch.from_numpy(batch["noise"]))
+    r["step_launches"] = (dict(LAUNCHES), cs.train_launches(
+        tr.unet, 8, True, ranks=world, rank=rank, dtype=torch.float32))
+
+    # exchanges on (R, s, c) tokens with s not a multiple of the ranks
+    fs = fr.frame_shard(mesh, 2 * world, 2)
+    whole = torch.from_numpy(np.random.RandomState(5).randn(2 * world, 7, 3)
+                             .astype(np.float32))
+    x = whole[fs.block]
+    r["round_trip"] = {"mode": fs.mode, "whole": whole}
+    for mode in ("all_gather", "all_to_all"):
+        m = dataclasses.replace(fs, mode=mode)
+        px = fr.frames_to_pixels(x, m)
+        r["round_trip"][mode] = (px, fr.pixels_to_frames(px, 7, m), x)
+    if checks:
+        pair = dist.new_group([0, 1])      # every rank creates it
+        if rank < 2:
+            r["checks"] = frames_checks(rank, pair)
+    return r
+
+
+def _global(op, take, fs):
+    """op, a function of this rank's share of a distributed tensor, as a
+    function of the whole tensor X that every rank holds (gradcheck
+    perturbs each element of X on every rank at once): X's sum over the
+    ranks / n (whose backward adds each rank's gradient of its share), this
+    rank's share of it (``take``), op, and every rank's result gathered, so
+    both the output and the gradient are the whole function's."""
+    from v3d_tpu_torch.parallel import frames as fr
+
+    return lambda X: fr.gather_rows(op(take(fr.all_reduce_sum(X, fs) / fs.size)), fs)
+
+
+def frames_checks(rank: int, group) -> dict:
+    """On the 2 ranks of ``group``: ``gradcheck`` (float64) of
+    frames_to_pixels / pixels_to_frames in both exchange modes and of the
+    differentiable all_reduce / gather, each as a function of the whole
+    distributed tensor (``_global``); the split-statistics GroupNorm on
+    strips of a video against the whole video in float64
+    (``F.group_norm``)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.group_norm import group_norm_act_split
+    from v3d_tpu_torch.parallel import frames as fr
+    from v3d_tpu_torch.parallel.mesh import pixel_strips
+
+    # 2 ranks, 2 rows each
+    fs = fr.FrameShard(group, 2, rank, 4, 2, fr.EXCHANGE[dist.get_backend(group)])
+    r = {"mode": fs.mode, "gradcheck": {}}
+    rs = np.random.RandomState(11)           # the same X on both ranks
+    a, b = pixel_strips(5, 2)[rank]       # strips of 3 and 2 pixels
+    for mode in ("all_gather", "all_to_all"):
+        m = dataclasses.replace(fs, mode=mode)
+        x = torch.from_numpy(rs.randn(4, 5, 3)).requires_grad_(True)
+        r["gradcheck"][mode] = (   # (strips padded to one width to be gathered)
+            torch.autograd.gradcheck(_global(
+                lambda v: F.pad(fr.frames_to_pixels(v, m), (0, 0, 0, 3 - (b - a))),
+                lambda X: X[fs.block], fs), (x,)),
+            torch.autograd.gradcheck(_global(lambda v: fr.pixels_to_frames(v, 5, m),
+                                             lambda X: X[:, a:b], fs), (x,)))
+    v = torch.from_numpy(rs.randn(4, 3)).requires_grad_(True)
+    r["gradcheck"]["reduce"] = (
+        torch.autograd.gradcheck(_global(lambda u: fr.all_reduce_sum(u, fs),
+                                         lambda X: X[fs.block], fs), (v,)),
+        torch.autograd.gradcheck(_global(lambda u: fr.gather_rows(u, fs)[::2],
+                                         lambda X: X[fs.block], fs), (v,)))
+
+    # one video (b, c, t, h, w) = (2, 64, 3, 4, 6): rank r's pixel strip of
+    # every frame, channels-last as the frame-parallel time stack holds it
+    whole = np.random.RandomState(0).randn(2, 64, 3, 4, 6).astype(np.float32)
+    scale = 1 + 0.1 * np.random.RandomState(1).randn(64).astype(np.float32)
+    bias = 0.1 * np.random.RandomState(2).randn(64).astype(np.float32)
+    cot = np.random.RandomState(3).randn(*whole.shape).astype(np.float32)
+    a, b = pixel_strips(24, 2)[rank]
+    flat = whole.reshape(2, 64, 3, 24)[..., a:b]
+    x = torch.from_numpy(np.ascontiguousarray(flat))[..., None].contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_(True)
+    w, bb = (torch.from_numpy(p).requires_grad_(True) for p in (scale, bias))
+    y = group_norm_act_split(x, w, bb, 32, 1e-5, True, 3 * 24,
+                             lambda s: fr.all_reduce_sum(s, fs))
+    g = torch.from_numpy(np.ascontiguousarray(cot.reshape(2, 64, 3, 24)[..., a:b]))[..., None]
+    y.backward(g)
+    x64, w64, b64 = (torch.from_numpy(p).double().requires_grad_(True)
+                     for p in (whole, scale, bias))
+    y64 = F.silu(F.group_norm(x64, 32, w64, b64, 1e-5))
+    y64.backward(torch.from_numpy(cot).double())
+    r["gn"] = {"y": y.detach(), "dx": x.grad, "dw": w.grad, "db": bb.grad,
+               "y64": y64.detach().reshape(2, 64, 3, 24)[..., a:b, None],
+               "dx64": x64.grad.reshape(2, 64, 3, 24)[..., a:b, None],
+               "dw64": w64.grad, "db64": b64.grad}
     return r
 
 

@@ -52,6 +52,19 @@
 //    three launches, never a combine by B blocks walking every split
 //    serially.
 //
+// 3. Split statistics (v3d_group_norm_stats, v3d_group_norm_apply): the
+//    two launches of path 2 as two entries, for a sample whose rows lie on
+//    several ranks (the frame-parallel VideoUNet's temporal GroupNorms, each
+//    rank holding a strip of pixels of every frame; parallel/frames.py).
+//    The statistics entry is gn_stats_kernel whose last block writes the
+//    sample's per-group (sum x, sum x^2) in f32 and stops; the caller
+//    all-reduces those sums over the ranks; the apply entry is
+//    gn_norm_kernel, each thread turning the global sums of its channels'
+//    groups and the global element count into mean / inv in its prologue.
+//    These are T9's own two pallas_calls (_stats_kernel :100, _norm_kernel
+//    :126) with the collective between them.  Bound: bytes, x read twice
+//    and y written once, as path 2.
+//
 // With a non-null ``prof`` the one-launch kernel's thread 0 records
 // clock64 deltas per block: load, statistics + cluster combine, normalise +
 // store (chip_smoke.py phase 3 prints their means).
@@ -289,13 +302,13 @@ __host__ __device__ inline int rows_per_step(int ncv) {
   return ncv >= GN_THREADS ? 1 : GN_THREADS / ncv;
 }
 
-// part: [B][splits][G][2]; stats: [B][G][2] (mean, inv); tickets: [B] ints,
-// 0 on entry.
+// part: [B][splits][G][2]; stats: [B][G][2] (mean, inv), or with ``raw``
+// the sums (sum x, sum x^2) themselves; tickets: [B] ints, 0 on entry.
 template <typename T>
 __global__ void __launch_bounds__(1024)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                 float* __restrict__ stats, int* __restrict__ tickets, int L, int C,
-                int G, int splits, int rows_per_split, float eps) {
+                int G, int splits, int rows_per_split, float eps, int raw) {
   constexpr int VEC = Pack<T>::VEC;
   extern __shared__ float sm[];  // [rps][C] of s1, then [rps][C] of s2
   __shared__ int is_last;
@@ -390,6 +403,11 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
       a += red[(jj * G + tid) * 2];
       q += red[(jj * G + tid) * 2 + 1];
     }
+    if (raw) {
+      stats[((long long)b * G + tid) * 2] = a;
+      stats[((long long)b * G + tid) * 2 + 1] = q;
+      return;
+    }
     const float n = (float)L * (float)cpg;
     const float mean = a / n;
     const float var = fmaxf(q / n - mean * mean, 0.f);
@@ -398,11 +416,13 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
   }
 }
 
+// stats: [B][G][2] (mean, inv); with count > 0 the sums (sum x, sum x^2)
+// of count elements a group, turned into mean / inv here (eps).
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(1024)
 gn_norm_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ stats,
                const void* scale, const void* bias, int sdt, int L, int C,
-               int G, int rows_per_split) {
+               int G, int rows_per_split, float count, float eps) {
   constexpr int VEC = Pack<T>::VEC;
   const int ncv = C / VEC, rps = rows_per_step(ncv);
   const int tid = threadIdx.x;
@@ -413,8 +433,13 @@ gn_norm_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restri
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     const int c = cv * VEC + i, g = c / cpg;
-    const float mean = stats[((long long)b * G + g) * 2];
-    a[i] = stats[((long long)b * G + g) * 2 + 1] * load_param(scale, sdt, c);
+    float mean = stats[((long long)b * G + g) * 2];
+    float inv = stats[((long long)b * G + g) * 2 + 1];
+    if (count > 0.f) {
+      mean = mean / count;
+      inv = rsqrtf(fmaxf(inv / count - mean * mean, 0.f) + eps);
+    }
+    a[i] = inv * load_param(scale, sdt, c);
     sh[i] = load_param(bias, sdt, c) - mean * a[i];
   }
   // the split's rows from its last one down: the statistics pass read them
@@ -507,12 +532,44 @@ int launch_two(const void* x, void* y, const void* scale, const void* bias, int 
   if (err != cudaSuccess) return (int)err;
   const size_t smem = stats_smem(C, sizeof(T));  // <= 32 KB: no attribute needed
   gn_stats_kernel<T><<<dim3(splits, B), threads, smem, stream>>>(
-      static_cast<const T*>(x), part, stats, tickets, L, C, G, splits, rows_per_split, eps);
+      static_cast<const T*>(x), part, stats, tickets, L, C, G, splits, rows_per_split, eps,
+      0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_norm_kernel<T, SILU><<<dim3(splits, B), threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), stats, scale, bias, sdt, L, C, G,
-      rows_per_split);
+      rows_per_split, 0.f, eps);
+  return (int)cudaGetLastError();
+}
+
+// Path 3's statistics entry: the (B, G, 2) sums of x into ``sums``.
+template <typename T>
+int launch_stats(const void* x, float* sums, float* scratch, int B, int L, int C, int G,
+                 int splits, cudaStream_t stream) {
+  constexpr int VEC = Pack<T>::VEC;
+  const int ncv = C / VEC, threads = rows_per_step(ncv) * ncv;
+  const int rows_per_split = (L + splits - 1) / splits;
+  int* tickets = reinterpret_cast<int*>(scratch + 2LL * B * splits * G);
+  cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(int) * B, stream);
+  if (err != cudaSuccess) return (int)err;
+  gn_stats_kernel<T><<<dim3(splits, B), threads, stats_smem(C, sizeof(T)), stream>>>(
+      static_cast<const T*>(x), scratch, sums, tickets, L, C, G, splits, rows_per_split,
+      0.f, 1);
+  return (int)cudaGetLastError();
+}
+
+// Path 3's apply entry: y from x and the global sums of ``count`` elements a
+// group.
+template <typename T, bool SILU>
+int launch_apply(const void* x, void* y, const float* sums, const void* scale,
+                 const void* bias, int sdt, int B, int L, int C, int G, int splits,
+                 float count, float eps, cudaStream_t stream) {
+  constexpr int VEC = Pack<T>::VEC;
+  const int ncv = C / VEC, threads = rows_per_step(ncv) * ncv;
+  const int rows_per_split = (L + splits - 1) / splits;
+  gn_norm_kernel<T, SILU><<<dim3(splits, B), threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), sums, scale, bias, sdt, L, C, G,
+      rows_per_split, count, eps);
   return (int)cudaGetLastError();
 }
 
@@ -568,5 +625,43 @@ extern "C" int v3d_group_norm(int dtype, const void* x, void* y, const void* sca
   if (dtype == V3D_BF16)
     return launch<__nv_bfloat16>(x, y, scale, bias, sdt, s, B, L, C, G, eps, silu, gpc,
                                  cs, rows_per_block, splits, pr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Split statistics, the first entry: x (B, L, C) as v3d_group_norm takes it;
+// sums (B, G, 2) f32 receives each sample's per-group (sum x, sum x^2) over
+// its L rows; scratch 2 * B * splits * G floats (partials) and B ints
+// (tickets, zeroed here on ``stream``); grid (splits, B).
+extern "C" int v3d_group_norm_stats(int dtype, const void* x, void* sums, void* scratch,
+                                    int B, int L, int C, int G, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(sums);
+  float* s = static_cast<float*>(scratch);
+  if (dtype == V3D_F32) return launch_stats<float>(x, out, s, B, L, C, G, splits, st);
+  if (dtype == V3D_BF16)
+    return launch_stats<__nv_bfloat16>(x, out, s, B, L, C, G, splits, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Split statistics, the second entry: y = GroupNorm(x) (+ SiLU) from sums
+// (B, G, 2) f32 of ``count`` elements a group (all ranks' rows), scale /
+// bias as v3d_group_norm takes them; grid (splits, B).
+extern "C" int v3d_group_norm_apply(int dtype, const void* x, void* y, const void* sums,
+                                    const void* scale, const void* bias, int sdt, int B,
+                                    int L, int C, int G, float count, float eps, int silu,
+                                    int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sm = static_cast<const float*>(sums);
+  if (!(count > 0.f)) return (int)cudaErrorInvalidValue;
+  if (dtype == V3D_F32)
+    return silu ? launch_apply<float, true>(x, y, sm, scale, bias, sdt, B, L, C, G, splits,
+                                            count, eps, st)
+                : launch_apply<float, false>(x, y, sm, scale, bias, sdt, B, L, C, G, splits,
+                                             count, eps, st);
+  if (dtype == V3D_BF16)
+    return silu ? launch_apply<__nv_bfloat16, true>(x, y, sm, scale, bias, sdt, B, L, C, G,
+                                                    splits, count, eps, st)
+                : launch_apply<__nv_bfloat16, false>(x, y, sm, scale, bias, sdt, B, L, C, G,
+                                                     splits, count, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,11 +13,16 @@ continues with the draws the uninterrupted run would have made
 
 Data parallel (``mesh``, trainer.py:49-66, :87-127): the parameters are
 broadcast from the mesh's first rank at construction; each rank steps on
-its slice of the batch along "data" (``parallel.mesh.shard_batch``), its
-draws its rows of the step's draws at the global batch's shape (the loss's
-``block``), and after the backward one all_reduce on a flat buffer averages
-the gradients (and the loss) over "data".  Every rank then clips, steps
-and updates its EMA exactly as one process would on the global batch.  No
+its slice of the batch's (b t) frames along "data"
+(``parallel.mesh.shard_batch``, as the JAX ``shard_batch`` splits them;
+the ranks must divide the frames), its draws its rows of the step's draws
+at the global batch's shape (the loss's ``block``), and after the backward
+one all_reduce on a flat buffer averages the gradients (and the loss) over
+"data".  Where a rank's frames are not whole videos, the UNet forward is
+frame-parallel (``parallel/frames.py``): the collectives inside it have
+differentiable backwards, so the averaged gradients are one process's.
+Every rank then clips, steps and updates its EMA exactly as one process
+would on the global batch.  No
 DDP wrapper: the parameters keep the names that checkpoints and the key
 maps use.  With no mesh the same step runs as on a (1, 1) mesh, with no
 collective.
@@ -38,7 +43,6 @@ from v3d_tpu_torch.data.prefetch import device_prefetch
 from v3d_tpu_torch.engines.ema import ema_init, ema_update_
 from v3d_tpu_torch.engines.lr_schedule import lambda_linear
 from v3d_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     all_reduce_mean_,
     barrier,
     data_block,
@@ -131,17 +135,13 @@ class DiffusionTrainer:
         global batch's shape unless ``sigmas`` / ``noise`` (the global
         batch's) are given.  The loss and gradient norm returned are the
         global batch's."""
-        if latents.shape[0] % self.t:
-            raise ValueError(f"{latents.shape[0]} frames are not whole videos of "
-                             f"{self.t}: under a mesh the batch's videos must split "
-                             f"evenly over {DATA_AXIS} (frame sharding is not ported)")
         for group in self.opt.param_groups:
             group["lr"] = self.cfg.base_learning_rate * self.schedule(self.step)
         self.opt.zero_grad(set_to_none=True)
         loss = self.engine.training_loss(
             latents, cond, num_frames=self.t, sigmas=sigmas, noise=noise,
             generator=step_generator(self.seed, self.step, latents.device),
-            block=data_block(self.mesh))
+            block=data_block(self.mesh), mesh=self.mesh)
         loss.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
         loss = loss.detach().reshape(1).clone()

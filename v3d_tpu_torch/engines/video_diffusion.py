@@ -30,6 +30,7 @@ from v3d_tpu_torch.models.conditioner import (
     repeat_cond_per_frame,
 )
 from v3d_tpu_torch.models.vae import gaussian_sample
+from v3d_tpu_torch.parallel.mesh import replicate
 
 
 def _draw(noise: Optional[torch.Tensor], shape, device,
@@ -124,15 +125,26 @@ class VideoDiffusionEngine:
     @torch.no_grad()
     def sample_latents(self, c: Dict, uc: Dict, height: int = 512,
                        width: int = 512, noise: Optional[torch.Tensor] = None,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       mesh=None) -> torch.Tensor:
         """EDM sampling of the VideoUNet: the hot loop.  ``noise`` is the
-        initial standard-normal latent (t, h, w, 4)."""
+        initial standard-normal latent (t, h, w, 4).
+
+        ``mesh``: every rank of its "data" axis calls this with the same c /
+        uc; the sampler's state stays replicated (the noise is the first
+        rank's: one broadcast) and each UNet forward is frame-parallel, the
+        ranks taking the CFG-doubled 2t frames in blocks (the ranks must
+        divide 2t; ``make_unet_network_fn``).  A sampler that draws needs
+        the same ``generator`` state on every rank.  The latents returned
+        are the same on every rank (v3d_tpu/engines/video_diffusion.py
+        :110-126 jitted on frame-sharded inputs)."""
         dev = self.device
         noise = _draw(noise, self.latent_shape(height, width), dev, generator)
+        if mesh is not None:
+            noise = replicate(noise, mesh)
         # CFG doubles the video batch -> indicator (2, t) (V3D_512.py:273-275)
         indicator = torch.zeros((2, self.num_frames), device=dev)
-        network = make_unet_network_fn(self.unet, self.num_frames)
+        network = make_unet_network_fn(self.unet, self.num_frames, mesh=mesh)
 
         def denoiser_fn(x, sigma, cond):
             return self.denoiser(network, x, sigma, cond,
@@ -202,22 +214,27 @@ class VideoDiffusionEngine:
                       sigmas: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      block: Optional[Tuple[int, int]] = None
-                      ) -> torch.Tensor:
+                      block: Optional[Tuple[int, int]] = None,
+                      mesh=None) -> torch.Tensor:
         """Mean EDM loss on pre-encoded latents ((b t), h, w, 4), already
         scaled (video_diffusion.py:233-258).  Sigmas are drawn per flattened
         frame, as the reference does, or with ``sigma_per_video`` one per
         video shared by its frames; ``sigmas`` / ``noise`` may be given.
         ``block``: the latents are a data-parallel rank's rows, drawn for as
-        the loss's ``block`` says."""
+        the loss's ``block`` says.  ``mesh``: the rank's rows are its block
+        of the batch along "data" (``block``); where they are not whole
+        videos, the UNet forward is frame-parallel (``make_unet_network_fn``
+        with ``rows_local``), else each rank's videos run alone."""
         t = num_frames or self.num_frames
-        b = latents.shape[0] // t
-        network = make_unet_network_fn(self.unet, t)
-        indicator = torch.zeros((b, t), device=latents.device)
+        n = latents.shape[0]
+        videos = global_rows(n, block)[0] // t
+        split = mesh is not None and n % t != 0
+        network = make_unet_network_fn(self.unet, t, mesh=mesh if split else None,
+                                       rows_local=True)
+        indicator = torch.zeros((videos if split else n // t, t), device=latents.device)
         if sigma_per_video and sigmas is None:
             sigmas = self.loss_fn.sigma_sampler(
-                global_rows(b, block)[0], device=latents.device, generator=generator
-            ).repeat_interleave(t)
+                videos, device=latents.device, generator=generator).repeat_interleave(t)
         per_sample = self.loss_fn(
             network, self.denoiser, cond, latents, sigmas=sigmas, noise=noise,
             generator=generator,

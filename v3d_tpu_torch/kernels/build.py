@@ -53,6 +53,9 @@ SIGNATURES = {
     "v3d_group_norm": ([_I] + [_P] * 4 + [_I, _P] + [_I] * 4
                        + [ctypes.c_float] + [_I] * 5 + [_P, _P], _I),
     "v3d_group_norm_smem": ([_I] * 6, _L),
+    "v3d_group_norm_stats": ([_I, _P, _P, _P] + [_I] * 5 + [_P], _I),
+    "v3d_group_norm_apply": ([_I] + [_P] * 5 + [_I] * 5
+                             + [ctypes.c_float] * 2 + [_I, _I, _P], _I),
     "v3d_temporal_core": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                           + [_L] * 9 + [_P], _I),
     "v3d_temporal_core_smem": ([_I, _I], _L),

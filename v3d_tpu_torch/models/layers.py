@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from v3d_tpu_torch.ops.group_norm import group_norm_act
+from v3d_tpu_torch.ops.group_norm import group_norm_act, group_norm_act_split
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -41,7 +41,11 @@ class GroupNorm32(nn.GroupNorm):
     ``ops.group_norm.group_norm_act`` (kernel K6 on the card).  eps is 1e-5
     in the UNet and 1e-6 in the VAE and the transformers' ``norm``.  Where a
     module fuses the SiLU, an ``nn.Identity`` holds the SiLU's old place in
-    its Sequential, so parameter names stay the checkpoint's."""
+    its Sequential, so parameter names stay the checkpoint's.  ``split``
+    (rows, reduce): each sample's ``rows`` spatial positions lie on several
+    ranks, x holds this rank's, and ``reduce`` adds the statistics over the
+    ranks (``group_norm_act_split``; the frame-parallel UNet's temporal
+    GroupNorms)."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5,
                  num_groups: int = 32, act: Optional[str] = None):
@@ -50,7 +54,10 @@ class GroupNorm32(nn.GroupNorm):
             raise ValueError(f"GroupNorm32: act must be None or 'silu', got {act}")
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        if split is not None:
+            return group_norm_act_split(x, self.weight, self.bias, self.num_groups,
+                                        self.eps, self.act == "silu", *split)
         return group_norm_act(x, self.weight, self.bias, self.num_groups,
                               self.eps, self.act == "silu")
 
@@ -112,7 +119,8 @@ class AlphaBlender(nn.Module):
     V3D uses (diffusionmodules/util.py:312-369): alpha is 1 (spatial only)
     where ``image_only_indicator`` is set, else sigmoid(mix_factor).
     ``alpha_shape``: "btc" for ((b t), s, c) tokens, "bcthw" for
-    (b, c, t, h, w) video maps."""
+    (b, c, t, h, w) video maps.  An indicator of one dim holds one entry a
+    row of x, whatever its shape (a frame-parallel rank's rows)."""
 
     def __init__(self, alpha: float = 0.5, alpha_shape: str = "btc"):
         super().__init__()
@@ -127,7 +135,9 @@ class AlphaBlender(nn.Module):
         alpha = torch.sigmoid(self.mix_factor[0].float())
         alpha = torch.where(image_only_indicator.bool(),
                             torch.ones_like(alpha), alpha)  # (b, t)
-        if self.alpha_shape == "btc":
+        if image_only_indicator.dim() == 1:
+            alpha = alpha.reshape((-1,) + (1,) * (x_spatial.dim() - 1))
+        elif self.alpha_shape == "btc":
             alpha = alpha.reshape(-1, 1, 1)
         else:
             alpha = alpha[:, None, :, None, None]
@@ -169,7 +179,8 @@ class ResBlock(nn.Module):
     stacks).  With ``use_scale_shift_norm`` (openaimodel.py:334-341) the
     embedding is a (scale, shift) pair applied after the out-norm:
     ``GN(h) * (1 + scale) + shift``, then SiLU; that norm runs without the
-    fused SiLU and ``out_layers.1`` is the SiLU itself."""
+    fused SiLU and ``out_layers.1`` is the SiLU itself.  ``split`` goes to
+    both GroupNorms (``GroupNorm32``)."""
 
     def __init__(self, channels: int, emb_channels: int,
                  out_channels: Optional[int] = None, dims: int = 2,
@@ -200,8 +211,10 @@ class ResBlock(nn.Module):
             nn.Identity() if out_channels == channels
             else conv_nd(dims, channels, out_channels, 1))
 
-    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.in_layers(x)
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor],
+                split=None) -> torch.Tensor:
+        # in_layers.1 and, without scale-shift, out_layers.1 are Identity
+        h = self.in_layers[2](self.in_layers[0](x, split))
         if not self.skip_t_emb:
             e = self.emb_layers(emb).to(h.dtype)
             if self.exchange_temb_dims:  # (b, t, c) -> (b, c, t, 1, 1)
@@ -210,7 +223,7 @@ class ResBlock(nn.Module):
                 e = e.reshape(e.shape + (1,) * (h.dim() - 2))
             if self.use_scale_shift_norm:
                 scale, shift = e.chunk(2, dim=1)
-                h = self.out_layers[0](h) * (1 + scale) + shift
+                h = self.out_layers[0](h, split) * (1 + scale) + shift
                 return self.skip_connection(x) + self.out_layers[1:](h)
             h = h + e
-        return self.skip_connection(x) + self.out_layers(h)
+        return self.skip_connection(x) + self.out_layers[1:](self.out_layers[0](h, split))

@@ -33,6 +33,7 @@ from v3d_tpu_torch.ops.temporal_attention import (
     temporal_block_attention,
     temporal_core,
 )
+from v3d_tpu_torch.parallel.frames import frames_to_pixels, pixels_to_frames
 
 
 class _QKVOut(nn.Module):
@@ -132,7 +133,10 @@ class SpatialVideoTransformer(nn.Module):
 
     Input ((b t), c, h, w); context ((b t), s_ctx, context_dim).  The
     temporal context is each video's first-frame context, (b, s_ctx,
-    context_dim) (V3D's use_spatial_context)."""
+    context_dim) (V3D's use_spatial_context).  Under ``frames`` (a bound
+    ``parallel.frames.FrameShard``) x and context are this rank's rows, the
+    frame embedding takes each row's global frame index, and the time stack
+    runs on this rank's strip of pixels of every frame."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
                  context_dim: int, depth: int = 1):
@@ -153,20 +157,28 @@ class SpatialVideoTransformer(nn.Module):
         self.proj_out = Linear(inner, in_channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                num_frames: int, image_only_indicator) -> torch.Tensor:
+                num_frames: int, image_only_indicator, frames=None) -> torch.Tensor:
         bt, c, h, w = x.shape
         t = num_frames
         x_in = x
         if context is None or context.dim() != 3:
             raise ValueError("SpatialVideoTransformer needs a 3-D context")
-        time_context = context[::t]
+        if frames is None:
+            time_context = context[::t]
+            index = torch.arange(t, dtype=torch.float32, device=x.device).repeat(bt // t)
+        else:
+            time_context = frames.time_context
+            index = frames.frame_index(x.device).float()
 
         x = self.proj_in(to_tokens(self.norm(x)))
-        frames = torch.arange(t, dtype=torch.float32, device=x.device).repeat(bt // t)
-        t_emb = timestep_embedding(frames, c)
+        t_emb = timestep_embedding(index, c)
         emb = self.time_pos_embed(t_emb.to(x.dtype))[:, None, :]
         for block, time_block in zip(self.transformer_blocks, self.time_stack):
             x = block(x, context)
-            x_mix = time_block(x + emb, t, time_context)
+            if frames is None:
+                x_mix = time_block(x + emb, t, time_context)
+            else:
+                x_mix = pixels_to_frames(time_block(
+                    frames_to_pixels(x + emb, frames), t, time_context), h * w, frames)
             x = self.time_mixer(x, x_mix, image_only_indicator)
         return from_tokens(self.proj_out(x), h, w) + x_in

@@ -11,6 +11,12 @@ parameters' (f32 master weights under bf16 compute, flax's ``dtype`` with
 ``param_dtype=float32``), and ``use_checkpoint`` recomputes each
 VideoResBlock and SpatialVideoTransformer in the backward, the counterpart
 of ``nn.remat`` (v3d_tpu/models/video_unet.py:141-165).
+
+Under ``frames`` (a ``parallel.frames.FrameShard``) the forward is one
+rank's share of a frame-parallel forward: its inputs are this rank's block
+of the batch's rows, spatial layers run on them alone, and each temporal
+sub-block runs on this rank's strip of pixels of every frame
+(``parallel/frames.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from v3d_tpu_torch.core.registry import check_fixed, register
 from v3d_tpu_torch.models.layers import (
@@ -34,7 +40,9 @@ from v3d_tpu_torch.models.layers import (
     timestep_embedding,
     to_video,
 )
+from v3d_tpu_torch.models.attention_blocks import from_tokens, to_tokens
 from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+from v3d_tpu_torch.parallel.frames import frames_to_pixels, pixels_to_frames
 
 
 class VideoResBlock(ResBlock):
@@ -48,12 +56,24 @@ class VideoResBlock(ResBlock):
                                    exchange_temb_dims=True)
         self.time_mixer = AlphaBlender(0.5, "bcthw")
 
-    def forward(self, x, emb, num_frames: int, image_only_indicator):
+    def forward(self, x, emb, num_frames: int, image_only_indicator, frames=None):
         x = super().forward(x, emb)
-        x5 = to_video(x, num_frames)
-        emb5 = emb.reshape(-1, num_frames, emb.shape[-1])
-        x_temporal = self.time_stack(x5, emb5)
-        return from_video(self.time_mixer(x5, x_temporal, image_only_indicator))
+        if frames is None:
+            x5 = to_video(x, num_frames)
+            emb5 = emb.reshape(-1, num_frames, emb.shape[-1])
+            x_temporal = self.time_stack(x5, emb5)
+            return from_video(self.time_mixer(x5, x_temporal, image_only_indicator))
+        # this rank's rows -> every frame of its pixel strip, (b, c, t, s_r, 1)
+        # in channels_last_3d; the time stack's GroupNorms span the strips
+        _, c, h, w = x.shape
+        xp = frames_to_pixels(to_tokens(x), frames)
+        s_r = xp.shape[1]
+        x5 = xp.reshape(frames.videos, num_frames, s_r, 1, c).permute(0, 4, 1, 2, 3)
+        emb5 = frames.emb.reshape(frames.videos, num_frames, -1)
+        xt = self.time_stack(x5, emb5, frames.split_norm(h * w))
+        xt = xt.permute(0, 2, 3, 4, 1).reshape(frames.rows, s_r, c)
+        x_temporal = from_tokens(pixels_to_frames(xt, h * w, frames), h, w)
+        return self.time_mixer(x, x_temporal, image_only_indicator)
 
 
 def unet_layer_specs(model_channels: int, channel_mult: Sequence[int],
@@ -113,6 +133,10 @@ class VideoUNet(nn.Module):
       context    ((b t), s_ctx, context_dim)  CLIP crossattn tokens
       y          ((b t), adm_in_channels)     fps / motion / cond-aug vector
     returns ((b t), out_channels, h, w) in float32.
+
+    ``frames``: a ``parallel.frames.FrameShard``; x, timesteps, context and
+    y are then this rank's rows of the batch (``image_only_indicator`` the
+    whole (b, t)), and the result is this rank's rows.
 
     The JAX module's other fields are taken only at V3D's values
     (``VIDEO_UNET_FIXED``); any other value raises.
@@ -188,8 +212,8 @@ class VideoUNet(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None, num_video_frames: int = 1,
-                image_only_indicator: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                image_only_indicator: Optional[torch.Tensor] = None,
+                frames=None) -> torch.Tensor:
         t = num_video_frames
         dt = self.dtype
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dt))
@@ -199,20 +223,27 @@ class VideoUNet(nn.Module):
             emb = emb + self.label_emb(y.to(dt))
         if context is not None:
             context = context.to(dt)
+        if frames is not None:
+            # every row's embedding and each video's first-frame context
+            frames = frames.bind(emb, context)
+            image_only_indicator = frames.local(image_only_indicator)
 
         remat = self.use_checkpoint and torch.is_grad_enabled()
 
         def call(layer, *args):
-            if remat:
+            if not remat:
+                return layer(*args)
+            # the recompute re-issues a layer's collectives: all of them,
+            # on every rank, so it must not stop early
+            with set_checkpoint_early_stop(frames is None):
                 return checkpoint(layer, *args, use_reentrant=False)
-            return layer(*args)
 
         def run(block, h):
             for layer in block:
                 if isinstance(layer, VideoResBlock):
-                    h = call(layer, h, emb, t, image_only_indicator)
+                    h = call(layer, h, emb, t, image_only_indicator, frames)
                 elif isinstance(layer, SpatialVideoTransformer):
-                    h = call(layer, h, context, t, image_only_indicator)
+                    h = call(layer, h, context, t, image_only_indicator, frames)
                 else:
                     h = layer(h)
             return h

@@ -8,6 +8,13 @@ cluster's shared memory, else two, as ``group_norm_plan`` says) and the
 backward recomputes through the plain formula, as
 ``_gn_bwd`` (:214-219) does; the JAX package has no backward kernel here.
 
+``group_norm_act_split`` is the GroupNorm of samples whose rows lie on
+several ranks (the frame-parallel UNet's temporal GroupNorms,
+parallel/frames.py): K6's statistics entry sums this rank's rows
+(``group_norm_stats``), the caller's ``reduce`` adds the sums over the
+ranks, and K6's apply entry normalises with them (``group_norm_apply``):
+T9's two pallas_calls (:100, :126) with the collective between them.
+
 Tensors are NCHW / NCTHW in ``channels_last`` / ``channels_last_3d`` memory,
 so the kernel reads them as (B, L, C) with channels fastest, as the Pallas
 kernel's (B, L, C) blocks.  Scale and bias may be float32 or bfloat16.
@@ -17,7 +24,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -114,15 +121,29 @@ def group_norm_plan(B: int, L: int, C: int, G: int, dtype=torch.bfloat16,
                     grid=(best["blocks"],), splits=0,
                     **{k: best[k] for k in ("gpc", "cluster", "rows_per_block",
                                             "smem", "row_bytes")})
+    return dict(path="two_launch", launches=2, **_two_launch_grid(B, L, C, elem, sms),
+                gpc=G, cluster=1, row_bytes=C * elem)
+
+
+def _two_launch_grid(B: int, L: int, C: int, elem: int, sms: int) -> dict:
+    """threads, grid (splits, B), splits, rows_per_block and the statistics
+    kernel's smem of the two-launch path, which the split entries share."""
     ncv = C * elem // 16
     rps = 1 if ncv >= GN_THREADS else GN_THREADS // ncv
     # B * splits <= the blocks resident at once: a second, partial wave of
     # blocks that each walk ~1/splits of a sample doubles the time
     splits = max(1, min(GN_TWO_PASS_PER_SM * sms // B, L))
-    return dict(path="two_launch", launches=2, threads=rps * ncv,
-                grid=(splits, B), splits=splits, gpc=G, cluster=1,
-                rows_per_block=-(-L // splits), smem=2 * rps * C * 4,
-                row_bytes=C * elem)
+    return dict(threads=rps * ncv, grid=(splits, B), splits=splits,
+                rows_per_block=-(-L // splits), smem=2 * rps * C * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_split_plan(B: int, L: int, C: int, dtype=torch.bfloat16,
+                          sms: int = GN_SMS) -> dict:
+    """How K6's split entries run on (B, L, C): the two-launch path's grid,
+    one launch each (statistics, then apply)."""
+    elem = 4 if dtype == torch.float32 else 2
+    return dict(path="split", launches=1, **_two_launch_grid(B, L, C, elem, sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,24 +155,42 @@ def group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, num_groups: int = 32,
                          eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
     """Plain version of K6, line for line ``_reference``
-    (fused_groupnorm.py:141-163) on the (B, C, *spatial) layout."""
+    (fused_groupnorm.py:141-163) on the (B, C, *spatial) layout: the
+    statistics, then the normalisation."""
+    n = x[0, 0].numel() * (x.shape[1] // num_groups)
+    return group_norm_apply_plain(x, group_norm_stats_plain(x, num_groups), scale,
+                                  bias, num_groups, n, eps, silu)
+
+
+def group_norm_stats_plain(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """Plain version of K6's statistics entry: (B, G, 2) float32 per-group
+    (sum x, sum x^2) of x (B, C, *spatial), per channel first."""
     C = x.shape[1]
     G = num_groups
     xf = x.float()
     red = tuple(range(2, x.dim()))
-    n_per_ch = xf[0, 0].numel()
     s1 = torch.sum(xf, dim=red)
     s2 = torch.sum(xf * xf, dim=red)
     B = s1.shape[0]
     g1 = torch.sum(s1.reshape(B, G, C // G), dim=-1)
     g2 = torch.sum(s2.reshape(B, G, C // G), dim=-1)
-    n = n_per_ch * (C // G)
-    mean = g1 / n
-    var = torch.clamp(g2 / n - mean * mean, min=0.0)
+    return torch.stack([g1, g2], dim=-1)
+
+
+def group_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, num_groups: int, count: float,
+                           eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """Plain version of K6's apply entry: x normalised with the (B, G, 2)
+    sums of ``count`` elements a group (+ SiLU), in x.dtype."""
+    C = x.shape[1]
+    G = num_groups
+    xf = x.float()
+    mean = sums[..., 0] / count
+    var = torch.clamp(sums[..., 1] / count - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
     mean_c = torch.repeat_interleave(mean, C // G, dim=-1)
     inv_c = torch.repeat_interleave(inv, C // G, dim=-1)
-    shape = (B, C) + (1,) * (x.dim() - 2)
+    shape = (x.shape[0], C) + (1,) * (x.dim() - 2)
     ch = (C,) + (1,) * (x.dim() - 2)
     y = ((xf - mean_c.reshape(shape))
          * (inv_c.reshape(shape) * scale.float().reshape(ch))
@@ -191,27 +230,8 @@ def group_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     store) and rows (chip_smoke.py phase 3)."""
     if use_plain(x, scale, bias):
         return group_norm_act_plain(x, scale, bias, num_groups, eps, silu)
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"group_norm: needs float32 or bfloat16, got {x.dtype}")
-    code = DTYPE_CODES[x.dtype]
-    rows = channels_last_rows(x)
-    if rows is None:
-        raise ValueError(f"group_norm: x {tuple(x.shape)} strides {x.stride()} "
-                         f"is not in channels-last memory")
-    B, L, C = rows
-    vec = 16 // x.element_size()
-    if (C % num_groups or C % vec or C > _MAX_CHANNELS or B > 65535
-            or min(B, L) == 0 or x.data_ptr() % 16):
-        raise ValueError(f"group_norm: needs C a multiple of {num_groups} and "
-                         f"{vec}, C <= {_MAX_CHANNELS}, 1 <= B <= 65535, a "
-                         f"16-byte aligned x; got {tuple(x.shape)}")
-    sdt = {torch.float32: 0, torch.bfloat16: 1}.get(scale.dtype)
-    if (sdt is None or bias.dtype != scale.dtype or scale.shape != (C,)
-            or bias.shape != (C,) or not scale.is_contiguous()
-            or not bias.is_contiguous()):
-        raise TypeError(f"group_norm: scale/bias must be contiguous ({C},) "
-                        f"float32 or bfloat16, got {scale.dtype} "
-                        f"{tuple(scale.shape)} {bias.dtype} {tuple(bias.shape)}")
+    code, (B, L, C) = _kernel_rows(x, num_groups)
+    sdt = _param_code(scale, bias, C)
     sms = _sm_count(x.device.index) if x.is_cuda else GN_SMS
     plan = group_norm_plan(B, L, C, num_groups, x.dtype, sms)
     splits = plan["splits"]
@@ -227,6 +247,124 @@ def group_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            plan["rows_per_block"], splits,
            None if prof is None else prof.data_ptr())
     return y
+
+
+def _kernel_rows(x: torch.Tensor, num_groups: int) -> Tuple[int, Tuple[int, int, int]]:
+    """K6's dtype code and (B, L, C) of x; raises on what K6 does not take."""
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"group_norm: needs float32 or bfloat16, got {x.dtype}")
+    rows = channels_last_rows(x)
+    if rows is None:
+        raise ValueError(f"group_norm: x {tuple(x.shape)} strides {x.stride()} "
+                         f"is not in channels-last memory")
+    B, L, C = rows
+    vec = 16 // x.element_size()
+    if (C % num_groups or C % vec or C > _MAX_CHANNELS or B > 65535
+            or min(B, L) == 0 or x.data_ptr() % 16):
+        raise ValueError(f"group_norm: needs C a multiple of {num_groups} and "
+                         f"{vec}, C <= {_MAX_CHANNELS}, 1 <= B <= 65535, a "
+                         f"16-byte aligned x; got {tuple(x.shape)}")
+    return DTYPE_CODES[x.dtype], rows
+
+
+def _param_code(scale: torch.Tensor, bias: torch.Tensor, C: int) -> int:
+    """K6's code of the scale / bias dtype; raises on what K6 does not take."""
+    sdt = {torch.float32: 0, torch.bfloat16: 1}.get(scale.dtype)
+    if (sdt is None or bias.dtype != scale.dtype or scale.shape != (C,)
+            or bias.shape != (C,) or not scale.is_contiguous()
+            or not bias.is_contiguous()):
+        raise TypeError(f"group_norm: scale/bias must be contiguous ({C},) "
+                        f"float32 or bfloat16, got {scale.dtype} "
+                        f"{tuple(scale.shape)} {bias.dtype} {tuple(bias.shape)}")
+    return sdt
+
+
+def group_norm_stats_fwd(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """(B, G, 2) float32 per-group (sum x, sum x^2) of x (B, C, *spatial) in
+    channels-last memory: on a CUDA tensor K6's statistics entry."""
+    if use_plain(x):
+        return group_norm_stats_plain(x, num_groups)
+    code, (B, L, C) = _kernel_rows(x, num_groups)
+    sms = _sm_count(x.device.index)
+    splits = group_norm_split_plan(B, L, C, x.dtype, sms)["splits"]
+    sums = torch.empty((B, num_groups, 2), dtype=torch.float32, device=x.device)
+    # the partials, then the tickets (B ints, zeroed by the entry)
+    scratch = torch.empty(2 * B * num_groups * splits + B, dtype=torch.float32,
+                          device=x.device)
+    launch("group_norm_stats", "v3d_group_norm_stats", x.device, code, x.data_ptr(),
+           sums.data_ptr(), scratch.data_ptr(), B, L, C, num_groups, splits)
+    return sums
+
+
+def group_norm_apply_fwd(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, num_groups: int, count: float,
+                         eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """x normalised with the (B, G, 2) float32 ``sums`` of ``count`` elements
+    a group (+ SiLU), output in x.dtype and x's channels-last memory: on a
+    CUDA tensor K6's apply entry."""
+    if use_plain(x, sums, scale, bias):
+        return group_norm_apply_plain(x, sums, scale, bias, num_groups, count, eps, silu)
+    code, (B, L, C) = _kernel_rows(x, num_groups)
+    sdt = _param_code(scale, bias, C)
+    if (sums.dtype != torch.float32 or tuple(sums.shape) != (B, num_groups, 2)
+            or not sums.is_contiguous() or not count > 0):
+        raise ValueError(f"group_norm_apply: sums must be contiguous float32 "
+                         f"({B}, {num_groups}, 2) and count > 0, got {sums.dtype} "
+                         f"{tuple(sums.shape)}, count {count}")
+    splits = group_norm_split_plan(B, L, C, x.dtype, _sm_count(x.device.index))["splits"]
+    y = torch.empty_like(x)
+    launch("group_norm_apply", "v3d_group_norm_apply", x.device, code, x.data_ptr(),
+           y.data_ptr(), sums.data_ptr(), scale.data_ptr(), bias.data_ptr(), sdt, B, L,
+           C, num_groups, float(count), float(eps), int(silu), splits)
+    return y
+
+
+class _GroupNormStats(torch.autograd.Function):
+    """K6's statistics entry; the backward recomputes through the plain
+    formula."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups):
+        ctx.save_for_backward(x)
+        ctx.num_groups = num_groups
+        return group_norm_stats_fwd(x, num_groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(group_norm_stats_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, ctx.num_groups)
+
+
+class _GroupNormApply(torch.autograd.Function):
+    """K6's apply entry; the backward recomputes through the plain formula
+    (gradients of x, the sums, scale and bias)."""
+
+    @staticmethod
+    def forward(ctx, x, sums, scale, bias, num_groups, count, eps, silu):
+        ctx.save_for_backward(x, sums, scale, bias)
+        ctx.config = (num_groups, count, eps, silu)
+        return group_norm_apply_fwd(x, sums, scale, bias, num_groups, count, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(group_norm_apply_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, *ctx.config)
+
+
+def group_norm_act_split(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                         num_groups: int, eps: float, silu: bool, rows: int,
+                         reduce: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """GroupNorm (+ SiLU) of samples whose ``rows`` spatial positions lie on
+    several ranks, x (B, C, *spatial) this rank's share of them: this rank's
+    (B, G, 2) sums, added over the ranks by ``reduce`` (differentiable, the
+    same collective on every rank), then the normalisation with the global
+    sums.  Differentiable; K6's two split entries on the card."""
+    count = rows * (x.shape[1] // num_groups)
+    if needs_grad(x, scale, bias):
+        sums = reduce(_GroupNormStats.apply(x, num_groups))
+        return _GroupNormApply.apply(x, sums, scale, bias, num_groups, count, eps, silu)
+    sums = reduce(group_norm_stats_fwd(x, num_groups))
+    return group_norm_apply_fwd(x, sums, scale, bias, num_groups, count, eps, silu)
 
 
 class _GroupNormAct(torch.autograd.Function):

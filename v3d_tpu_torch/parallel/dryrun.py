@@ -9,10 +9,16 @@ process on the same inputs.
 The launcher spawns ``--nproc`` ranks (rank r on ``cuda:r % cards``, or on
 the CPU over gloo) joined on a ("data", "model") mesh of (nproc, 1):
 
-(a) one data-parallel fine-tune step of the tiny engine: nproc videos of
-    t = 2 nproc frames, a video a rank (graft :150-198), against one
-    process's step on the whole batch: the loss, and each gradient's
-    cosine with the single process's;
+(a) one fine-tune step of the tiny engine at the graft's shape (:150-206):
+    one video of t = 2 nproc frames, 2 frames a rank (the UNet forward
+    frame-parallel, ``parallel/frames.py``), against one process's step on
+    the whole video: the loss, and each gradient's cosine with the single
+    process's;
+(s) the sampling parity stage (graft :217-254): the tiny engine with t =
+    max(2 nproc, 2) frames, 3 Euler steps at 64^2, c ones and uc zeros,
+    seeded noise, sampled with the CFG-doubled 2t frames over "data"
+    (``sample_latents(mesh=)``) against one process's sample: max abs
+    <= 1e-2, the JAX dry run's bound;
 (b) the data-parallel recon stage (graft :257-363): one 3DGS step with the
     cameras over "data" (each rank's mean loss, gradients averaged; the
     gaussians made anisotropic and rotated, as in (c)) and one
@@ -28,8 +34,8 @@ the CPU over gloo) joined on a ("data", "model") mesh of (nproc, 1):
 
 Each stage prints one OK line on rank 0, or fails its rank; any failed or
 hung rank makes the launcher exit non-zero.  ``--out`` writes every rank's
-numbers as JSON.  The frame-sharded sampling parity, the tensor-parallel
-step and the full-size AOT compile of the JAX dry run are not ported yet.
+numbers as JSON.  The tensor-parallel step and the full-size AOT compile
+of the JAX dry run are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,7 +72,11 @@ NEUS_GRAD_REL = 1e-4      # NeuS gradients: max abs <= 1e-4 max |single| per
 #                           tensor (reduction order over rays)
 RENDER_MAX_ABS = 2e-5     # (c) tile-sharded image / alpha against one render
 
+SAMPLE_MAX_ABS = 1e-2     # (s) the graft's bound (__graft_entry__.py:251)
+
 TRAIN_HW = 8              # (a) the tiny engine's latents are TRAIN_HW^2
+SAMPLE_RES = 64           # (s) pixels (8^2 latents)
+SAMPLE_STEPS = 3
 
 
 def spawn_ranks(fn: Callable, nprocs: int, args: Sequence = (),
@@ -130,8 +140,9 @@ def _check(ok: bool, msg: str) -> None:
 
 
 def stage_train(mesh, dev, n: int) -> Dict:
-    """(a): the DP step on each rank's video against one process's step on
-    all n videos; both draw from step 0's generator at the global shape."""
+    """(a): the step on each rank's 2 frames of one video of 2n against one
+    process's step on the whole video; both draw from step 0's generator
+    at the global shape."""
     from v3d_tpu_torch.data.objaverse import SyntheticOrbitDataset
     from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
@@ -140,8 +151,8 @@ def stage_train(mesh, dev, n: int) -> Dict:
 
     t = 2 * n
     engine = build_tiny_engine(num_frames=t, device=dev)
-    ds = SyntheticOrbitDataset(n, t, TRAIN_HW, clip_dim=engine.unet.context_dim)
-    host = next(ds.iter_batches(n))
+    ds = SyntheticOrbitDataset(1, t, TRAIN_HW, clip_dim=engine.unet.context_dim)
+    host = next(ds.iter_batches(1))
     batch = {"latents": torch.as_tensor(host["latents"], device=dev),
              "cond": engine.training_cond(host, num_frames=t)}
     local = shard_batch(batch, mesh)
@@ -166,8 +177,8 @@ def stage_train(mesh, dev, n: int) -> Dict:
            f"DP fine-tune step: loss {stats['loss']} vs single {ref['loss']} "
            f"(rel {loss_rel:.2e}), least gradient cosine {cos:.6f}")
     launches = _gather_counts(counts, dev)
-    _say(f"dryrun DP fine-tune: mesh {n}x1, {n} videos x t={t} at {TRAIN_HW}^2 latents, "
-         f"a video a rank, loss {stats['loss']:.6f} vs single {ref['loss']:.6f} (rel "
+    _say(f"dryrun DP fine-tune: mesh {n}x1, 1 video x t={t} at {TRAIN_HW}^2 latents, "
+         f"2 frames a rank, loss {stats['loss']:.6f} vs single {ref['loss']:.6f} (rel "
          f"{loss_rel:.2e} <= {TRAIN_LOSS_REL}), grad norm {stats['grad_norm']:.6f} vs "
          f"{ref['grad_norm']:.6f}, least gradient cosine {cos:.6f} (>= {TRAIN_MIN_COS}; "
          f"{len(pairs) - len(held)} of {len(pairs)} tensors with no gradient), "
@@ -176,6 +187,41 @@ def stage_train(mesh, dev, n: int) -> Dict:
             "grad_norm": stats["grad_norm"], "grad_norm_single": ref["grad_norm"],
             "min_cos": cos, "no_grad_tensors": len(pairs) - len(held),
             "launches": counts}
+
+
+def stage_sampling(mesh, dev, n: int) -> Dict:
+    """(s): the tiny engine's sample with the CFG-doubled 2t frames over
+    "data" against one process's sample on the same noise (every rank
+    makes both: the one-process sample is tiny)."""
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    t = max(2 * n, 2)
+    engine = build_tiny_engine(num_frames=t, num_steps=SAMPLE_STEPS, device=dev)
+    hw = SAMPLE_RES // engine.downscale
+    ctx = engine.unet.context_dim
+    c = {"crossattn": torch.ones((t, 1, ctx), device=dev),
+         "concat": torch.ones((t, hw, hw, 4), device=dev),
+         "vector": torch.ones((t, 768), device=dev)}
+    uc = {k: torch.zeros_like(v) for k, v in c.items()}
+    noise = torch.from_numpy(np.random.RandomState(3).randn(t, hw, hw, 4)
+                             .astype(np.float32)).to(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.sample_latents(c, uc, SAMPLE_RES, SAMPLE_RES, noise=noise, mesh=mesh)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    ref = engine.sample_latents(c, uc, SAMPLE_RES, SAMPLE_RES, noise=noise)
+    diff = float((out - ref).abs().max())
+    _check(bool(torch.isfinite(out).all()) and diff <= SAMPLE_MAX_ABS,
+           f"frame-sharded sampling: max|diff| {diff:.2e} from one process")
+    launches = _gather_counts(counts, dev)
+    _say(f"dryrun sampling parity: t={t}, {2 * t} CFG frames over data={n} "
+         f"({2 * t // n} a rank), {SAMPLE_STEPS} steps at {SAMPLE_RES}^2, frame-sharded vs "
+         f"one process max|diff|={diff:.2e} (<= {SAMPLE_MAX_ABS}), {seconds:.2f} s, launches "
+         f"per rank {[{k: v for k, v in c_.items() if v} for c_ in launches]} OK")
+    return {"t": t, "max_abs": diff, "seconds": seconds, "launches": counts}
 
 
 def _gs_scene(n_points: int, radius: float, dev, anisotropic: bool = False):
@@ -423,6 +469,7 @@ def _rank(index: int, nproc: int, store: str, opts: Dict, out_dir: str) -> None:
         result = {"rank": index, "device": str(dev),
                   "backend": dist.get_backend()}
         result["train"] = stage_train(mesh, dev, nproc)
+        result["sampling"] = stage_sampling(mesh, dev, nproc)
         result["recon_dp"] = stage_recon_dp(mesh, dev, nproc)
         result["refpoint"] = stage_refpoint(mesh, dev, nproc, opts["rung"])
         result["seconds"] = time.perf_counter() - t0

@@ -9,7 +9,9 @@ and the collectives are placed by hand:
 - "data": data parallelism.  Each rank keeps its contiguous slice of every
   batch tensor's leading axis (``shard_batch``); parameters are replicated
   (``replicate``) and gradients averaged over the axis
-  (``engines/trainer.py``).
+  (``engines/trainer.py``).  A slice may cut a video's frames: the UNet
+  forward is then frame-parallel (``parallel/frames.py``, which also
+  exchanges blocks by all_to_all on NCCL).
 - "model": tensor parallelism.  ``param_specs`` / ``shard_params`` give the
   placements of ``DEFAULT_TP_RULES``; the tensor-parallel forward is not
   ported yet, so the ranks of one model row compute the same step.
@@ -25,7 +27,7 @@ from __future__ import annotations
 import datetime
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -179,6 +181,18 @@ def shard_block(n: int, mesh, axis: str = DATA_AXIS) -> slice:
     per = n // size
     start = axis_index(mesh, axis) * per
     return slice(start, start + per)
+
+
+def pixel_strips(s: int, n: int) -> List[Tuple[int, int]]:
+    """The ``n`` contiguous strips (start, stop) of ``s`` pixels that
+    ``torch.tensor_split`` cuts, the first ``s % n`` one pixel longer: each
+    rank's pixels in a frame-parallel temporal layer (``parallel/frames.py``);
+    a strip of no pixel raises (``s < n``)."""
+    if s < n:
+        raise ValueError(f"{s} pixels do not give each of {n} ranks a strip")
+    sizes = [s // n + (i < s % n) for i in range(n)]
+    starts = [sum(sizes[:i]) for i in range(n)]
+    return [(a, a + k) for a, k in zip(starts, sizes)]
 
 
 def shard_batch(tree, mesh):
