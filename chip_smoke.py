@@ -201,11 +201,29 @@ Phases, each printing lines before the last:
     (phase 26(c)'s run of the dry run, or one at the "small" rung).  Phase
     3 holds K6's split entries to their plain versions at the temporal
     ResBlock's shapes, whole and on a half strip, beside the one-launch K6.
+28. the tensor-parallel forward over "model" (``parallel/tensor.py``): (a)
+    K2 at one rank's ds1 heads (3 and 2 heads of 64: Q/K/V rows of 192 and
+    128, the output projection zero-padded, no bias) against its plain
+    version; on phase 5's engine, a CFG-doubled denoise step at full width
+    (36 frames at 64^2, bf16) after a warm-up; then, once that engine has
+    left the card, 2 ranks on this card over gloo on a (1, 2) mesh, the
+    full-width UNet cut by ``tp_shard_`` on each, the same step: PSNR >= 30
+    dB against the one process, each rank's launches exactly one process's,
+    seconds a forward, the all-reduces and bytes a forward, parameter bytes
+    and peak memory per rank; (b) ``python -m v3d_tpu_torch.parallel.dryrun
+    --nproc 4 --backend gloo --rung small`` (a (2, 2) mesh on this card): the
+    tensor-parallel fine-tune step (loss rel <= 1e-3, gathered gradients'
+    cosines >= 0.999, updated parameters within 2 lr), sampling with the UNet
+    tensor-parallel (max abs <= 1e-2), the full-size meta stage (shapes, the
+    parameter count), the DP recon stages and the refpoint, each rank's
+    launches exact.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
 19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval``, each
 run of 25 and 26(a)'s, in each rank of 26(c) its steps, each run of 27(a)
-and in each rank of 27(b) and (c) its sample and step) is run with
+and in each rank of 27(b) and (c) its sample and step, 28(a)'s denoise
+steps in the one process and in each rank, and in each rank of 28(b) its
+step, sample and tile-sharded render) is run with
 the launch counts set to 0 just before it and read just after (phase 12:
 each stage's launches, the counters read before and after it; 26(b): the
 counts of the torchrun child, which start at 0 with its process and which
@@ -522,7 +540,7 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 
 def _check(name, shape_tag, dtype, kernel_fn, plain_fn, plain_f32_fn, work,
-           library_fn=None) -> dict:
+           library_fn=None, phase: str = "3 kernels") -> dict:
     """Run kernel and plain version on the same inputs; compare and time.
     ``work`` = (flops, bytes) of the function at this shape."""
     import torch
@@ -546,7 +564,7 @@ def _check(name, shape_tag, dtype, kernel_fn, plain_fn, plain_f32_fn, work,
     library_ms = cuda_ms(library_fn) if library_fn else None
     bound, bound_by = bound_ms(*work, PEAK_BF16 if dtype == torch.bfloat16
                                else PEAK_FP32)
-    say("3 kernels", f"{KERNELS[name]['label']} {name} {shape_tag} "
+    say(phase, f"{KERNELS[name]['label']} {name} {shape_tag} "
         f"{str(dtype).split('.')[-1]}: max_abs {err:.3e} {metric} | kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} | bound "
@@ -5225,8 +5243,8 @@ def _repo_env():
         [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
 
 
-def run_dryrun(phase: str, rung: str) -> tuple:
-    """``python -m v3d_tpu_torch.parallel.dryrun`` with DP_NPROC ranks on this
+def run_dryrun(phase: str, rung: str, nproc: int = DP_NPROC) -> tuple:
+    """``python -m v3d_tpu_torch.parallel.dryrun`` with ``nproc`` ranks on this
     card over gloo at ``rung``, its lines echoed; (its report, seconds)."""
     import os
     import tempfile
@@ -5235,7 +5253,7 @@ def run_dryrun(phase: str, rung: str) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "dryrun.json")
         cmd = [sys.executable, "-m", "v3d_tpu_torch.parallel.dryrun", "--nproc",
-               str(DP_NPROC), "--backend", "gloo", "--rung", rung, "--timeout", "300",
+               str(nproc), "--backend", "gloo", "--rung", rung, "--timeout", "300",
                "--join-timeout", "600", "--out", out]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
@@ -5249,32 +5267,33 @@ def run_dryrun(phase: str, rung: str) -> tuple:
             return json.load(f), seconds
 
 
-def dryrun_train_launches() -> list:
-    """Each dry-run rank's launches of its fine-tune step: its share of the
-    tiny engine's frame-split step (one video of 2 DP_NPROC frames)."""
+def dryrun_train_launches(data: int = DP_NPROC) -> list:
+    """Each "data" rank's launches of the dry run's fine-tune step: its share
+    of the tiny engine's frame-split step (one video of 2 ``data`` frames;
+    a rank of a model row launches what one process of its share would)."""
     from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.parallel import dryrun
 
-    tiny = build_tiny_engine(num_frames=2 * DP_NPROC, device="cpu").unet
+    tiny = build_tiny_engine(num_frames=2 * data, device="cpu").unet
     return [{k: v for k, v in train_launches(tiny, dryrun.TRAIN_HW, tiny.use_checkpoint,
-                                             ranks=DP_NPROC, rank=r).items() if v}
-            for r in range(DP_NPROC)]
+                                             ranks=data, rank=r).items() if v}
+            for r in range(data)]
 
 
-def dryrun_sample_launches() -> list:
-    """Each dry-run rank's launches of its sampling stage: SAMPLE_STEPS
-    shares of the tiny engine's frame-parallel forward (f32)."""
+def dryrun_sample_launches(data: int = DP_NPROC) -> list:
+    """Each "data" rank's launches of the dry run's sampling stage:
+    SAMPLE_STEPS shares of the tiny engine's frame-parallel forward (f32)."""
     import torch
 
     from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.parallel import dryrun
 
-    t = max(2 * DP_NPROC, 2)
+    t = max(2 * data, 2)
     tiny = build_tiny_engine(num_frames=t, device="cpu").unet
     hw = dryrun.SAMPLE_RES // 8
     return [{k: dryrun.SAMPLE_STEPS * v for k, v in forward_launches(
-        tiny, hw, dtype=torch.float32, ranks=DP_NPROC, rank=r).items() if v}
-        for r in range(DP_NPROC)]
+        tiny, hw, dtype=torch.float32, ranks=data, rank=r).items() if v}
+        for r in range(data)]
 
 
 # ---------------------------------------------------------------------------
@@ -5539,11 +5558,270 @@ def phase_frames_dryrun(report=None) -> dict:
     return {"launches": _rank_sum(ranks, lambda r: r["sampling"]["launches"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the tensor-parallel forward over "model" (parallel/tensor.py) and
+# the dry run's (2, 2) stages
+
+TP_NPROC = 2           # 28(a): model ranks sharing this card over gloo, a (1, 2) mesh
+TP_MIN_PSNR = 30.0     # dB, the denoised latents against one process (phases 4, 9's bar)
+TP_FORWARDS = 1        # 28(a): timed forwards a side, after one warm-up forward (a forward
+#                        over gloo takes ~13 s a rank)
+TP_DRY_NPROC = 4       # 28(b): dry-run ranks on this card over gloo, a (2, 2) mesh
+TP_DRY_RUNG = "small"  # 28(b): the recon stages' rung
+
+
+def tp_inputs(engine, dev, seed: int = 7) -> tuple:
+    """(x, sigma, cond, indicator) of one CFG-doubled denoise step of the
+    engine at FRAMES_RES^2 (the sampler's shapes), from a seeded draw on
+    ``dev``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t, h, w, ch = engine.latent_shape(FRAMES_RES, FRAMES_RES)
+    rows = 2 * t
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    cond = {"crossattn": randn(rows, 1, engine.unet.context_dim),
+            "concat": randn(rows, h, w, ch), "vector": randn(rows, 768)}
+    return randn(rows, h, w, ch), torch.exp(randn(rows)), cond, torch.zeros(2, t, device=dev)
+
+
+def tp_denoise(engine, inputs):
+    """One denoise step (the Denoiser around one UNet forward), no grad."""
+    import torch
+
+    from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+
+    x, sigma, cond, indicator = inputs
+    with torch.no_grad():
+        return engine.denoiser(make_unet_network_fn(engine.unet, engine.num_frames), x,
+                               sigma, cond, image_only_indicator=indicator)
+
+
+def _timed_forwards(engine, inputs) -> dict:
+    """TP_FORWARDS denoise steps after one warm-up, each rank's launch counts
+    set to 0 just before them: the last output (on the host), seconds a
+    forward, launches, peak memory."""
+    import torch
+
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel import tensor as tp
+
+    tp_denoise(engine, inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tp.reset_traffic()
+    t0 = time.perf_counter()
+    for _ in range(TP_FORWARDS):
+        out = tp_denoise(engine, inputs)
+    torch.cuda.synchronize()
+    return {"out": out.float().cpu(), "s": (time.perf_counter() - t0) / TP_FORWARDS,
+            "launches": dict(LAUNCHES),
+            "traffic": {k: v // TP_FORWARDS for k, v in tp.TRAFFIC.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "param_bytes": tp.local_param_bytes(engine.unet)}
+
+
+def tp_k2_checks(dev) -> list:
+    """K2 at the ds1 layer on one rank's heads of a tensor-parallel forward
+    (x (2, 18, 4096, 320), bf16): 3 heads (2 ranks) and 2 heads (4 ranks), its
+    Q/K/V rows (192 / 128 of them) and a zero-padded output projection with
+    no bias, against the plain version."""
+    import torch
+
+    from v3d_tpu_torch.ops.temporal_attention import (
+        temporal_block_attention,
+        temporal_block_attention_plain,
+        temporal_block_plan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, t, s, c = 2, 18, 4096, 320
+    x32 = torch.randn(b, t, s, c, device=dev, generator=gen)
+    out = []
+    for heads in (3, 2):
+        inner = 64 * heads
+        plan = temporal_block_plan(b, t, s, c, heads, 64)
+        if plan["path"] != "wgmma":
+            raise SmokeFailure(f"K2 at {heads} heads: plan {plan}")
+        ws32 = [torch.randn(inner, c, device=dev, generator=gen) * c ** -0.5 for _ in range(3)]
+        wo32 = torch.randn(c, inner, device=dev, generator=gen) * inner ** -0.5
+        wo32[:, :32] = 0.0          # the padded half head
+        ws32 += [wo32, torch.zeros(c, device=dev)]
+        x = x32.bfloat16()
+        ws = [w.bfloat16() for w in ws32]
+        tokens = b * t * s
+        out.append(_check(
+            "temporal_block", f"ds1 TP rank {(b, t, s, c)} h{heads} (inner {inner})",
+            torch.bfloat16, lambda: temporal_block_attention(x, *ws, heads),
+            lambda: temporal_block_attention_plain(x, *ws, heads),
+            lambda: temporal_block_attention_plain(x.float(), *ws32, heads),
+            (8 * tokens * c * inner + 4 * b * s * heads * t * t * 64,
+             (2 * tokens * c + 4 * c * inner + c) * 2),
+            lambda: unfused_temporal_layer(x, *ws, heads), phase="28 tp"))
+    return out
+
+
+def phase_tp_one(engine, dev) -> dict:
+    """28(a), one process: phase 5's engine, TP_FORWARDS CFG-doubled denoise
+    steps at full width (36 frames at 64^2, bf16) after a warm-up, launches
+    exact; the reference of the ranks' forwards.  And K2 at a rank's heads
+    (``tp_k2_checks``)."""
+    phase = "28 tp"
+    t_phase = time.perf_counter()
+    checks = tp_k2_checks(dev)
+    one = _timed_forwards(engine, tp_inputs(engine, dev))
+    expect = _scaled(frames_forward_launches(engine.unet), TP_FORWARDS)
+    ok = one["launches"] == expect
+    say(phase, f"(a) one process: {TP_FORWARDS} CFG-doubled V3D-512 denoise steps "
+        f"({2 * engine.num_frames} frames at {FRAMES_RES // 8}^2 latents, bf16): "
+        f"{one['s']:.3f} s a forward, peak {one['peak_gib']:.2f} GiB, parameters "
+        f"{one['param_bytes']:,} B, launches {_nonzero(one['launches'])} (expect "
+        f"{_nonzero(expect)}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"one-process denoise launches {one['launches']} (expect {expect})")
+    say(phase, f"28(a) one process took {time.perf_counter() - t_phase:.1f} s")
+    return dict(one, checks=checks, param_sum=_param_sum(engine.unet))
+
+
+def _tp_rank(index: int, nproc: int, store: str, out_dir: str, device: str) -> None:
+    """A rank of 28(a): the full-width engine, its UNet cut over "model" of a
+    (1, nproc) mesh over gloo, ``_timed_forwards``; its numbers into
+    ``out_dir``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from v3d_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from v3d_tpu_torch.parallel.tensor import tp_shard_
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // nproc))  # they share the host
+    dev = init_distributed(device, timeout_s=300, backend="gloo",
+                           init_method=f"file://{store}", rank=index, world_size=nproc)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mesh = make_mesh(data=1, model=nproc, device=dev.type)
+        engine = build_frames_engine(dev)
+        param_sum = _param_sum(engine.unet)
+        tp_shard_(engine.unet, mesh)
+        inputs = tp_inputs(engine, dev)
+        dist.barrier()
+        got = _timed_forwards(engine, inputs)
+        torch.save(dict(got, param_sum=param_sum, backend=dist.get_backend()),
+                   os.path.join(out_dir, f"rank{index}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_ranks(one: dict, device: str = "cuda:0") -> dict:
+    """28(a), TP_NPROC ranks sharing this card over gloo: the same denoise
+    steps with the UNet tensor-parallel over "model" against the one
+    process's (``phase_tp_one``): PSNR, each rank's launches exactly one
+    process's, seconds a forward, all-reduces and bytes a forward, parameter
+    bytes per rank, peak per rank."""
+    import os
+    import tempfile
+
+    import torch
+
+    from v3d_tpu_torch.parallel.dryrun import spawn_ranks
+
+    phase = "28 tp"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(_tp_rank, TP_NPROC, (TP_NPROC, os.path.join(tmp, "store"), tmp, device),
+                    timeout_s=400)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(TP_NPROC)]
+    expect = _scaled(frames_forward_launches(build_frames_engine("meta").unet), TP_FORWARDS)
+    quality = [psnr(r["out"], one["out"]) for r in ranks]
+    max_abs = [float((r["out"] - one["out"]).abs().max()) for r in ranks]
+    ok = (all(q >= TP_MIN_PSNR for q in quality)
+          and all(torch.equal(r["out"], ranks[0]["out"]) for r in ranks)
+          and all(r["param_sum"] == one["param_sum"] and r["backend"] == "gloo"
+                  for r in ranks)
+          and all(r["launches"] == expect for r in ranks))
+    say(phase, f"(a) {TP_NPROC} ranks on this card over gloo, a (1, {TP_NPROC}) mesh, the "
+        f"full-width UNet cut over model (heads and MLP columns), {TP_FORWARDS} denoise "
+        f"steps vs one process's: PSNR {[round(q, 2) for q in quality]} dB (>= "
+        f"{TP_MIN_PSNR:g}), max abs {max_abs} | seconds a forward "
+        f"{[round(r['s'], 3) for r in ranks]} vs {one['s']:.3f} one process (host clock, "
+        f"synchronised; gloo stages every all_reduce through the host) | a forward's "
+        f"collectives per rank {[r['traffic'] for r in ranks]} | parameter bytes per rank "
+        f"{[r['param_bytes'] for r in ranks]} vs {one['param_bytes']} | peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB vs {one['peak_gib']:.2f} | launches "
+        f"per rank {[_nonzero(r['launches']) for r in ranks]} (expect one process's "
+        f"{_nonzero(expect)}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"tensor-parallel forward on {TP_NPROC} ranks: {quality} dB, "
+                           f"launches {[r['launches'] for r in ranks]} (expect {expect})")
+    say(phase, f"28(a) ranks took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": _summed(*(r["launches"] for r in ranks)), "psnr": quality,
+            "max_abs": max_abs, "seconds": [r["s"] for r in ranks],
+            "traffic": [r["traffic"] for r in ranks]}
+
+
+def phase_tp_dryrun() -> dict:
+    """28(b): the dry run on TP_DRY_NPROC ranks on this card over gloo, a (2,
+    2) mesh: the tensor-parallel fine-tune step and sampling (each within its
+    bounds, each rank's launches its "data" share's), the full-size meta
+    stage (every output shape, the gathered parameter count), the DP recon
+    stages and the refpoint at TP_DRY_RUNG (K4 / K5 once a rank)."""
+    from v3d_tpu_torch.parallel import dryrun
+
+    phase = "28 tp"
+    report, seconds = run_dryrun(phase, TP_DRY_RUNG, TP_DRY_NPROC)
+    ranks = report["ranks"]
+    data, model = dryrun.mesh_shape(TP_DRY_NPROC)
+    want_t = [dryrun_train_launches(data)[r // model] for r in range(TP_DRY_NPROC)]
+    want_s = [dryrun_sample_launches(data)[r // model] for r in range(TP_DRY_NPROC)]
+    got_t = [_nonzero(r["train"]["launches"]) for r in ranks]
+    got_s = [_nonzero(r["sampling"]["launches"]) for r in ranks]
+    render = {"gs_composite_fwd": 1, "gs_composite_bwd": 1}
+    got_r = [_nonzero(r["refpoint"]["gs"]["launches"]) for r in ranks]
+    full = [r["fullsize"] for r in ranks]
+    gs, ne = ranks[0]["refpoint"]["gs"], ranks[0]["refpoint"]["neus"]
+    ok = (report["backend"] == "gloo" and len(ranks) == TP_DRY_NPROC
+          and all(r["mesh"] == [data, model] for r in ranks)
+          and got_t == want_t and got_s == want_s and all(g == render for g in got_r)
+          and all(r["train"]["loss_rel"] <= dryrun.TRAIN_LOSS_REL
+                  and r["train"]["min_cos"] >= dryrun.TRAIN_MIN_COS
+                  and r["train"]["param_max_abs"] <= dryrun.TP_PARAM_MAX_ABS
+                  and r["sampling"]["max_abs"] <= dryrun.SAMPLE_MAX_ABS for r in ranks)
+          and all(f["out_shape"] == f["want_shape"] and f["params"] == f["params_gathered"]
+                  for f in full)
+          and gs["render_max_abs"] <= dryrun.RENDER_MAX_ABS
+          and gs["grad_rel"] <= dryrun.GS_GRAD_REL and ne["grad_rel"] <= dryrun.NEUS_GRAD_REL)
+    say(phase, f"(b) dryrun --nproc {TP_DRY_NPROC} --backend gloo --rung {TP_DRY_RUNG} on a "
+        f"{data}x{model} mesh: {seconds:.1f} s | TP fine-tune loss rel "
+        f"{[r['train']['loss_rel'] for r in ranks]} (<= {dryrun.TRAIN_LOSS_REL}), least "
+        f"cosine {[r['train']['min_cos'] for r in ranks]} (>= {dryrun.TRAIN_MIN_COS}), "
+        f"updated parameters max abs {[r['train']['param_max_abs'] for r in ranks]} (<= "
+        f"{dryrun.TP_PARAM_MAX_ABS:g}), launches {got_t} (expect {want_t}) | TP sampling max "
+        f"abs {[r['sampling']['max_abs'] for r in ranks]} (<= {dryrun.SAMPLE_MAX_ABS}), "
+        f"launches {got_s} (expect {want_s}) | full-size: {full[0]['params']:,} parameters, "
+        f"denoised {[f['out_shape'] for f in full]}, parameter bytes per rank "
+        f"{[f['local_bytes'] for f in full]} of {full[0]['full_bytes']}, a forward's "
+        f"collectives per rank {[f['traffic'] for f in full]} | refpoint render max abs "
+        f"{gs['render_max_abs']}, 3DGS gradients {gs['grad_rel']}, NeuS gradients "
+        f"{ne['grad_rel']}, K4 / K5 per rank {got_r} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"dry run on {TP_DRY_NPROC} ranks: {json.dumps(ranks)[:3000]}")
+    return {"launches": _summed(_rank_sum(ranks, lambda r: r["train"]["launches"]),
+                                _rank_sum(ranks, lambda r: r["sampling"]["launches"]),
+                                _rank_sum(ranks, lambda r: r["refpoint"]["gs"]["launches"])),
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,"
-                           "25,26,27",
+                           "25,26,27,28",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -5563,7 +5841,7 @@ def main(argv=None) -> int:
         phase_build()
     kernel_checks = phase_kernels() if 3 in phases else {}
     engine = (build_engine(dev)
-              if phases & {4, 5, 9, 10, 12, 16, 17, 27} else None)
+              if phases & {4, 5, 9, 10, 12, 16, 17, 27, 28} else None)
     if 4 in phases:
         phase_unet(engine)
     gen = phase_generate(engine) if 5 in phases else {}
@@ -5574,12 +5852,17 @@ def main(argv=None) -> int:
     gen_expect = gen_launches(engine) if 12 in phases else {}
     iter_expect = iterative_launches(engine) if 17 in phases else {}
     frames_one = phase_frames_one(engine, dev) if 27 in phases else {}
+    tp_one = phase_tp_one(engine, dev) if 28 in phases else {}
     del engine
     torch.cuda.empty_cache()
     frames = {}
     if 27 in phases:
         frames = {"frames_one": {"launches": frames_one["launches"]},
                   "frames_ranks": phase_frames_ranks(frames_one)}
+    if 28 in phases:
+        kernel_checks.setdefault("temporal_block", []).extend(tp_one["checks"])
+        frames.update(tp_one={"launches": tp_one["launches"]},
+                      tp_ranks=phase_tp_ranks(tp_one))
     image = phase_image(dev) if 21 in phases else {}
     fit, rgba = {}, None
     if phases & {6, 7, 18, 19, 20, 22, 25}:
@@ -5618,6 +5901,8 @@ def main(argv=None) -> int:
                      dp_tiny_train=dp["dp_tiny_train"])
     if 27 in phases:
         paths["frames_dryrun"] = phase_frames_dryrun(dp.get("dryrun"))
+    if 28 in phases:
+        paths["tp_dryrun"] = phase_tp_dryrun()
     paths["ae"] = phase_ae(rgba[..., :3], dev) if 19 in phases else {}
     paths["pixelnerf"] = phase_pixelnerf(rgba[..., :3], dev) if 20 in phases else {}
     neus = phase_neus() if 11 in phases else {}

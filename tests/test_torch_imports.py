@@ -450,7 +450,8 @@ from v3d_tpu_torch.parallel import dryrun, mesh
 with tempfile.TemporaryDirectory() as d:
     ranks = h.run_ranks(h.import_probe, 2, pathlib.Path(d), timeout_s=120)
 assert [r["foreign"] for r in ranks] == [[], []], [r["foreign"] for r in ranks]
-assert {"v3d_tpu_torch.parallel.dryrun", "v3d_tpu_torch.parallel.frames"} <= set(
+assert {"v3d_tpu_torch.parallel.dryrun", "v3d_tpu_torch.parallel.frames",
+        "v3d_tpu_torch.parallel.tensor"} <= set(
     ranks[0]["modules"]), ranks[0]["modules"]
 assert all(torch.equal(r["mean"], torch.full((3,), 0.5)) for r in ranks)
 assert all(torch.equal(r["replicated"], torch.zeros(2)) for r in ranks)

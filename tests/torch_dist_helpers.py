@@ -1,6 +1,6 @@
 """Rank functions of the port's multi-rank CPU tests (test_torch_parallel.py,
 test_torch_dp_train.py, test_torch_gs_sharded.py, test_torch_imports.py,
-test_torch_frames.py).
+test_torch_frames.py, test_torch_tensor_parallel.py).
 
 A spawned rank re-imports the module that holds its function, so this one
 imports torch, numpy and the port only, never jax or v3d_tpu (the parent
@@ -550,3 +550,180 @@ def import_probe(rank: int, world: int, out: str) -> dict:
     all_reduce_mean_([x], mesh)
     w = replicate({"w": torch.full((2,), float(rank))}, mesh)["w"]
     return {"modules": names, "mean": x, "replicated": w}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_tensor_parallel.py
+
+
+def _svt_run(mesh, svt_state: dict, svt_inputs: dict) -> dict:
+    """One SpatialVideoTransformer at V3D's ds1 ratio, cut over "model" of
+    ``mesh``: its output, the input's gradient and every parameter's
+    gradient made whole, for the cotangent ``svt_inputs["cot"]``; the
+    collectives of the forward."""
+    from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+    from v3d_tpu_torch.parallel import tensor as tp
+
+    i = svt_inputs
+    svt = SpatialVideoTransformer(i["c"], i["heads"], i["dh"], i["context_dim"])
+    svt.load_state_dict(svt_state)
+    tp.tp_shard_(svt, mesh)
+    x = torch.from_numpy(i["x"]).permute(0, 3, 1, 2).requires_grad_(True)
+    tp.reset_traffic()
+    y = svt(x, torch.from_numpy(i["ctx"]), i["t"], torch.from_numpy(i["ind"]))
+    traffic = dict(tp.TRAFFIC)
+    (y * torch.from_numpy(i["cot"]).permute(0, 3, 1, 2)).sum().backward()
+    grads = tp.tp_gather(svt, {n: p.grad for n, p in svt.named_parameters()})
+    plans = {name: (m.tp_plan.first, m.tp_plan.last, m.tp_plan.pad)
+             for name, m in svt.named_modules() if getattr(m, "tp_plan", None)}
+    return {"y": y.detach().permute(0, 2, 3, 1).contiguous(), "dx": x.grad.permute(0, 2, 3, 1),
+            "grads": grads, "traffic": traffic, "plans": plans}
+
+
+def _tp_checks(shard) -> dict:
+    """On the 2 ranks of ``shard``: float64 gradcheck of copy_to_model,
+    reduce_from_model and gather_columns as the TP forward uses them, each
+    a function of a tensor X that every rank holds (gradcheck perturbs it on
+    both at once): X enters through copy_to_model, each rank applies its own
+    map to its share, and reduce_from_model sums the results (the same on
+    both ranks); and the gradient reduce_from_model hands back (the
+    cotangent itself) beside that of a sum whose backward all-reduces
+    (frames.all_reduce_sum: twice it)."""
+    from v3d_tpu_torch.parallel import frames as fr
+    from v3d_tpu_torch.parallel import tensor as tp
+
+    i = shard.index
+    rs = np.random.RandomState(12)                     # the same draws on both ranks
+    a = torch.from_numpy(rs.randn(2, 3, 4))[i]          # this rank's own maps
+    m = torch.from_numpy(rs.randn(2, 4, 3))[i]
+
+    def copy(u):
+        return tp.copy_to_model(u, shard)
+
+    def reduce(u):
+        return tp.reduce_from_model(u, shard)
+
+    r = {}
+    x = torch.from_numpy(rs.randn(2, 4)).requires_grad_(True)
+    r["copy"] = torch.autograd.gradcheck(lambda u: reduce(copy(u) @ a.t()), (x,))
+    p = torch.from_numpy(rs.randn(2, 2, 3)).requires_grad_(True)
+    r["reduce"] = torch.autograd.gradcheck(lambda u: reduce(copy(u)[i]), (p,))
+    w = torch.from_numpy(rs.randn(4, 3)).requires_grad_(True)
+    r["gather"] = torch.autograd.gradcheck(
+        lambda u: reduce((tp.gather_columns(copy(u)[2 * i:2 * i + 2], shard) * m).sum(0)),
+        (w,))
+    fs = fr.FrameShard(shard.group, shard.size, i, 2 * shard.size, 2, "all_gather")
+    g = torch.from_numpy(rs.randn(3, 5))
+    for name, fn in (("reduce_from_model", reduce),
+                     ("all_reduce_sum", lambda v: fr.all_reduce_sum(v, fs))):
+        v = torch.ones(3, 5, dtype=torch.float64, requires_grad=True)
+        fn(v).backward(g)
+        r[name] = (v.grad, g)
+    return r
+
+
+def _tp_launches(engine, mesh, t: int, fwd: dict) -> tuple:
+    """Routed as on the card, one tensor-parallel UNet forward (no frame
+    split) against chip_smoke.py's count of one process's forward."""
+    from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cs = _chip_smoke()
+    _count_as_on_card()
+    reset_launch_counts()
+    with torch.no_grad():
+        make_unet_network_fn(engine.unet, t)(
+            torch.from_numpy(fwd["x"]), torch.from_numpy(fwd["c_noise"]),
+            {k: torch.from_numpy(v) for k, v in fwd["cond"].items()}, torch.zeros(2, t))
+    return dict(LAUNCHES), cs.forward_launches(engine.unet, fwd["x"].shape[1],
+                                               dtype=torch.float32)
+
+
+def tp_run(rank: int, world: int, out: str, svt_state: dict, svt_inputs: dict,
+           tiny_state: dict, step: dict, sample: dict, straddle: dict) -> dict:
+    """Four ranks.  On the (2, 2) mesh: the ds1 transformer on 2 model ranks,
+    the dry run's tensor-parallel step (``tp_train_step``, checkpointing on)
+    on ``step``'s batch and draws (and, on rank 0, one process's step), its
+    sampling stage's sample on
+    ``sample``'s noise, the straddling tiny UNet's sample and one process's,
+    the round trips of tp_shard_ / tp_gather and the local shards against
+    ``shard_params``', the collectives' checks on each model row, a trainer
+    handed a cut UNet, the launches as on the card, and the full-size meta
+    stage.  On the (1, 4) mesh: the ds1 transformer on 4 model ranks."""
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
+    from v3d_tpu_torch.parallel import dryrun
+    from v3d_tpu_torch.parallel import tensor as tp
+    from v3d_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    def tt(tree):
+        return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+    mesh = make_mesh(data=2, model=2, device="cpu")
+    shard = tp.model_shard(mesh)
+    r = {"coord": (mesh.get_local_rank("data"), shard.index)}
+    r["svt2"] = _svt_run(mesh, svt_state, svt_inputs)
+
+    def tiny(state=None, **kw):
+        engine = build_tiny_engine(num_frames=T, device="cpu", **kw)
+        if state is not None:
+            engine.unet.load_state_dict(state)
+        return engine
+
+    draws = dict(sigmas=torch.from_numpy(step["sigmas"]), noise=torch.from_numpy(step["noise"]))
+    engine = tiny(tiny_state)
+    engine.unet.use_checkpoint = True    # the recompute runs the collectives again
+    r["step"] = dryrun.tp_train_step(engine, torch.from_numpy(step["latents"]),
+                                     tt(step["cond"]), T, mesh=mesh, **draws)
+    if rank == 0:
+        r["step_one"] = dryrun.tp_train_step(tiny(tiny_state), torch.from_numpy(
+            step["latents"]), tt(step["cond"]), T, **draws)
+
+    engine = tiny(tiny_state, num_steps=dryrun.SAMPLE_STEPS)
+    tp.tp_shard_(engine.unet, mesh)
+    r["sample"] = engine.sample_latents(tt(sample["c"]), tt(sample["uc"]), dryrun.SAMPLE_RES,
+                                        dryrun.SAMPLE_RES,
+                                        noise=torch.from_numpy(sample["noise"]), mesh=mesh)
+
+    # the tiny UNet at 96 channels, heads of 32: 3 at ds1 (straddling 2
+    # ranks), 6 at ds2
+    kw = dict(num_steps=2, unet_overrides=straddle["overrides"])
+    engine = tiny(straddle["state"], **kw)
+    args = (tt(sample["c"]), tt(sample["uc"]), 64, 64)
+    r["straddle_one"] = engine.sample_latents(*args, noise=torch.from_numpy(sample["noise"]))
+    state = {k: v.clone() for k, v in engine.unet.state_dict().items()}
+    placed = shard_params(engine.unet, mesh)
+    tp.tp_shard_(engine.unet, mesh)
+    r["plans"] = {name: (m.tp_plan.first, m.tp_plan.last, m.tp_plan.pad)
+                  for name, m in engine.unet.named_modules() if getattr(m, "tp_plan", None)}
+    r["straddle"] = engine.sample_latents(*args, noise=torch.from_numpy(sample["noise"]),
+                                          mesh=mesh)
+    local = engine.unet.state_dict()
+    r["local_vs_placed"] = {
+        k: torch.equal(local[k], placed[k].to_local()) for k in state
+        if k.endswith(("to_q.weight", "to_k.weight", "to_v.weight", "to_out.0.weight",
+                       "net.2.weight"))}
+    r["geglu"] = {k: (local[k], state[k]) for k in state if k.endswith(tp.GEGLU_CUT)}
+    r["local_bytes"] = (tp.local_param_bytes(engine.unet),
+                        sum(v.to_local().numel() * 4 for v in placed.values()),
+                        sum(state[k].numel() * 4 for k in state if k.endswith(tp.GEGLU_CUT[1])))
+    gathered = tp.tp_gather(engine.unet)
+    r["round_trip"] = (gathered.keys() == state.keys()
+                       and all(torch.equal(gathered[k], state[k]) for k in state))
+    try:       # CLIP's c_fc / c_proj / in_proj match the rules: no TP forward here
+        tp.tp_shard_(engine.clip, mesh)
+        r["clip_refused"] = None
+    except ValueError as e:
+        r["clip_refused"] = str(e)
+
+    r["checks"] = _tp_checks(shard)
+    r["fullsize"] = dryrun.fullsize_forward(mesh)
+    row = make_mesh(data=1, model=4, device="cpu")
+    r["svt4"] = _svt_run(row, svt_state, svt_inputs)
+
+    # last: routed as on the card from here on in this process
+    r["launches"] = _tp_launches(engine, mesh, T, straddle["forward"])
+    trainer = DiffusionTrainer(engine, TrainConfig(), num_frames=T, mesh=mesh)
+    r["trainer_whole"] = (engine.unet.tp is None and all(
+        torch.equal(p, state[n]) for n, p in zip(trainer.names, trainer.params)))
+    return r

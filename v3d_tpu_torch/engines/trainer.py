@@ -22,7 +22,10 @@ one all_reduce on a flat buffer averages the gradients (and the loss) over
 frame-parallel (``parallel/frames.py``): the collectives inside it have
 differentiable backwards, so the averaged gradients are one process's.
 Every rank then clips, steps and updates its EMA exactly as one process
-would on the global batch.  No
+would on the global batch.  The parameters are replicated over "model" as
+well, as the JAX trainer replicates them (trainer.py:66-67): handed a UNet
+that ``parallel.tensor.tp_shard_`` cut, the trainer makes it whole again
+(``tp_unshard_``, the counterpart of ``device_put(..., P())``).  No
 DDP wrapper: the parameters keep the names that checkpoints and the key
 maps use.  With no mesh the same step runs as on a (1, 1) mesh, with no
 collective.
@@ -51,6 +54,7 @@ from v3d_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from v3d_tpu_torch.parallel.tensor import tp_unshard_
 
 _CKPT = re.compile(r"step_(\d+)\.pt$")
 
@@ -106,7 +110,7 @@ class DiffusionTrainer:
         self.t = num_frames or engine.num_frames
         self.seed = seed
         self.mesh = mesh
-        self.unet = engine.unet.train().requires_grad_(True)
+        self.unet = tp_unshard_(engine.unet).train().requires_grad_(True)
         self.names, self.params = zip(*self.unet.named_parameters())
         if mesh is not None:
             dev = mesh_device(mesh)

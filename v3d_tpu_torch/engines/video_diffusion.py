@@ -134,10 +134,12 @@ class VideoDiffusionEngine:
         uc; the sampler's state stays replicated (the noise is the first
         rank's: one broadcast) and each UNet forward is frame-parallel, the
         ranks taking the CFG-doubled 2t frames in blocks (the ranks must
-        divide 2t; ``make_unet_network_fn``).  A sampler that draws needs
-        the same ``generator`` state on every rank.  The latents returned
-        are the same on every rank (v3d_tpu/engines/video_diffusion.py
-        :110-126 jitted on frame-sharded inputs)."""
+        divide 2t; ``make_unet_network_fn``).  A UNet cut over "model"
+        (``parallel.tensor.tp_shard_``) runs tensor-parallel inside each
+        forward.  A sampler that draws needs the same ``generator`` state on
+        every rank.  The latents returned are the same on every rank of the
+        mesh (v3d_tpu/engines/video_diffusion.py:110-126 jitted on
+        frame-sharded inputs and TP-placed parameters)."""
         dev = self.device
         noise = _draw(noise, self.latent_shape(height, width), dev, generator)
         if mesh is not None:
@@ -224,7 +226,9 @@ class VideoDiffusionEngine:
         the loss's ``block`` says.  ``mesh``: the rank's rows are its block
         of the batch along "data" (``block``); where they are not whole
         videos, the UNet forward is frame-parallel (``make_unet_network_fn``
-        with ``rows_local``), else each rank's videos run alone."""
+        with ``rows_local``), else each rank's videos run alone.  A UNet cut
+        over "model" runs tensor-parallel; the ranks of a model row then
+        return the same loss."""
         t = num_frames or self.num_frames
         n = latents.shape[0]
         videos = global_rows(n, block)[0] // t

@@ -5,7 +5,10 @@ UNet takes NCHW, and channels_last memory makes the permutes free.
 
 With a ``mesh`` the UNet forward is frame-parallel over its "data" axis
 (``parallel/frames.py``), the counterpart of the JAX package's sampling
-jitted on frame-sharded inputs (v3d_tpu/parallel/mesh.py:7-10).
+jitted on frame-sharded inputs (v3d_tpu/parallel/mesh.py:7-10).  On a
+(data, model) mesh a UNet that ``parallel.tensor.tp_shard_`` cut runs each
+rank's block of rows tensor-parallel over "model" as well (the UNet carries
+that binding); rows are split and gathered over the "data" group only.
 """
 
 from __future__ import annotations

@@ -1,6 +1,12 @@
 """Transformer blocks (counterpart of v3d_tpu/models/attention_blocks.py;
 sgm modules/attention.py).  Tokens are (batch, seq, channels); LayerNorms and
 softmax run in float32, products in the module dtype.
+
+``CrossAttention`` and ``FeedForward`` have a tensor-parallel forward: once
+``parallel.tensor.tp_shard_`` has cut their parameters and bound a model row
+(``tp``), Q/K/V and the GEGLU projection are column-parallel on this rank's
+heads and columns and the projections back row-parallel, their outputs
+all-reduced over "model".  Every other layer is replicated.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from v3d_tpu_torch.ops.attention import (
     attention_bhsd_route,
     attention_route,
 )
+from v3d_tpu_torch.parallel.tensor import column_weights, copy_to_model, row_output
 
 # The self-attention projection layout (attention_blocks.py:19-35): "bhsd",
 # the JAX package's default since r5, or "bshd", the r4 routing.  The
@@ -43,7 +50,14 @@ class CrossAttention(nn.Module):
     ``attention_bhsd`` on (b, h, s, d) views of the projection output (by
     default K1, with K8/K7 for its gradient); every other call to
     ``attention`` on (b, s, h, d).  The projections and ``state_dict`` are
-    the same on both routes."""
+    the same on both routes.
+
+    Bound to a model row (``tp``), it runs the heads of ``tp_plan`` (the
+    route is the whole layer's: the same kernels on fewer heads) and
+    all-reduces the output projection's partial sums."""
+
+    tp_kind = "attention"
+    tp = tp_plan = None
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64):
@@ -72,20 +86,29 @@ class CrossAttention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         b, sq, _ = x.shape
-        h, d = self.heads, self.dim_head
+        d = self.dim_head
         ctx = x if context is None else context
         sk = ctx.shape[1]
         layout, backend = self.route(sq, None if context is None else sk,
                                      x.dtype, not use_plain(x))
-        q = self.to_q(x).view(b, sq, h, d)
-        k = self.to_k(ctx).view(b, sk, h, d)
-        v = self.to_v(ctx).view(b, sk, h, d)
+        if self.tp is None:
+            h = self.heads
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        else:
+            x = copy_to_model(x, self.tp)
+            ctx = x if context is None else copy_to_model(context, self.tp)
+            (wq, wk, wv, wo), h = column_weights(self, x.dtype)
+            q, k, v = F.linear(x, wq), F.linear(ctx, wk), F.linear(ctx, wv)
+        q, k, v = q.view(b, sq, h, d), k.view(b, sk, h, d), v.view(b, sk, h, d)
         if layout == "bhsd":
             o = attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), backend).transpose(1, 2)
         else:
             o = attention(q, k, v, backend)
-        return self.to_out(o.reshape(b, sq, h * d))
+        o = o.reshape(b, sq, h * d)
+        if self.tp is None:
+            return self.to_out(o)
+        return row_output(F.linear(o, wo), self.to_out[0].bias, self.tp)
 
 
 class GEGLU(nn.Module):
@@ -103,7 +126,15 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """attention.py:102-118: GEGLU MLP, 4x expansion (net.0.proj, net.2)."""
+    """attention.py:102-118: GEGLU MLP, 4x expansion (net.0.proj, net.2).
+
+    Bound to a model row (``tp``), ``net.0.proj`` holds this rank's value and
+    gate rows (``parallel.tensor``'s half-wise cut), so the GEGLU forms this
+    rank's columns, and ``net.2``'s matching input columns give a partial
+    sum, all-reduced before the bias."""
+
+    tp_kind = "geglu_mlp"
+    tp = None
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4):
         super().__init__()
@@ -112,7 +143,11 @@ class FeedForward(nn.Module):
                                  Linear(inner, dim_out or dim))
 
     def forward(self, x):
-        return self.net(x)
+        if self.tp is None:
+            return self.net(x)
+        y = self.net[0](copy_to_model(x, self.tp))
+        out = self.net[2]
+        return row_output(F.linear(y, out.weight.to(y.dtype)), out.bias, self.tp)
 
 
 class BasicTransformerBlock(nn.Module):

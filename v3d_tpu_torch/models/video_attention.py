@@ -7,6 +7,12 @@ orbit frames with no transposes around the attention (kernels K2 and K3
 read that layout directly), and the temporal cross-attention context stays
 ``(b, s_ctx, c)``, unrepeated (video_attention.py:244-253 repeats it per
 pixel).  Parameter names follow the sgm checkpoint.
+
+The attention layers and feed-forwards have the tensor-parallel forward of
+``parallel.tensor`` (bound by ``tp_shard_``): a ``VideoTransformerBlock``
+all-reduces four times over "model" (``ff_in``, ``attn1``, ``attn2``,
+``ff``), a ``SpatialVideoTransformer`` seven times; the norms, the
+AlphaBlender and the projections in and out stay replicated.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from v3d_tpu_torch.models.attention_blocks import (
@@ -34,10 +41,15 @@ from v3d_tpu_torch.ops.temporal_attention import (
     temporal_core,
 )
 from v3d_tpu_torch.parallel.frames import frames_to_pixels, pixels_to_frames
+from v3d_tpu_torch.parallel.tensor import column_weights, copy_to_model, row_output
 
 
 class _QKVOut(nn.Module):
-    """to_q/to_k/to_v (no bias) + to_out.0, named as CrossAttention's."""
+    """to_q/to_k/to_v (no bias) + to_out.0, named as CrossAttention's, and
+    its tensor-parallel binding (``tp``, ``tp_plan``: ``parallel.tensor``)."""
+
+    tp_kind = "attention"
+    tp = tp_plan = None
 
     def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
         super().__init__()
@@ -57,7 +69,10 @@ class TemporalSelfAttention(_QKVOut):
     its fused Pallas block there (video_attention.py:96), with the weights
     cast to the activations' dtype as ``_pallas_block`` casts them.
     Elsewhere the projections are matmuls and K3 does the attention on
-    their output."""
+    their output.  Bound to a model row, K2 or K3 (chosen by the whole
+    layer's heads) runs on this rank's heads, K2 with this rank's Q/K/V rows,
+    its slice of the output projection and no bias, added after the
+    all_reduce."""
 
     def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__(dim, dim, heads, dim_head)
@@ -68,6 +83,16 @@ class TemporalSelfAttention(_QKVOut):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.to_out[0]
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+            (wq, wk, wv, wo), h = column_weights(self, x.dtype)
+            if self.takes_block(x.shape[2]):
+                y = temporal_block_attention(
+                    x, wq, wk, wv, wo.contiguous(), x.new_zeros(x.shape[-1]), h)
+            else:
+                y = F.linear(temporal_core(F.linear(x, wq), F.linear(x, wk),
+                                           F.linear(x, wv), h), wo)
+            return row_output(y, out.bias, self.tp)
         if self.takes_block(x.shape[2]):
             return temporal_block_attention(
                 x, *(w.to(x.dtype) for w in (
@@ -83,14 +108,22 @@ class TemporalCrossAttention(_QKVOut):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, t, s, _ = x.shape
-        h, d = self.heads, self.dim_head
-        q = self.to_q(x).view(b, t, s, h, d)
-        k = self.to_k(context).view(b, -1, h, d)
-        v = self.to_v(context).view(b, -1, h, d)
+        d = self.dim_head
+        if self.tp is None:
+            h = self.heads
+            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        else:
+            x, context = copy_to_model(x, self.tp), copy_to_model(context, self.tp)
+            (wq, wk, wv, wo), h = column_weights(self, x.dtype)
+            q, k, v = F.linear(x, wq), F.linear(context, wk), F.linear(context, wv)
+        q = q.view(b, t, s, h, d)
+        k, v = k.view(b, -1, h, d), v.view(b, -1, h, d)
         logits = torch.einsum("btshd,bkhd->btshk", q.float(), k.float())
         probs = torch.softmax(logits / math.sqrt(d), dim=-1).to(x.dtype)
-        o = torch.einsum("btshk,bkhd->btshd", probs, v)
-        return self.to_out(o.reshape(b, t, s, h * d))
+        o = torch.einsum("btshk,bkhd->btshd", probs, v).reshape(b, t, s, h * d)
+        if self.tp is None:
+            return self.to_out(o)
+        return row_output(F.linear(o, wo), self.to_out[0].bias, self.tp)
 
 
 class VideoTransformerBlock(nn.Module):

@@ -17,6 +17,12 @@ rank's share of a frame-parallel forward: its inputs are this rank's block
 of the batch's rows, spatial layers run on them alone, and each temporal
 sub-block runs on this rank's strip of pixels of every frame
 (``parallel/frames.py``).
+
+``parallel.tensor.tp_shard_`` binds a model row (``tp``) to the UNet and
+cuts its attention and MLP layers' parameters: the forward is then one
+rank's share of a tensor-parallel forward over "model" (each layer on this
+rank's heads and columns, its outputs all-reduced), with or without
+``frames`` (over "data").
 """
 
 from __future__ import annotations
@@ -138,9 +144,13 @@ class VideoUNet(nn.Module):
     y are then this rank's rows of the batch (``image_only_indicator`` the
     whole (b, t)), and the result is this rank's rows.
 
+    ``tp``: the model row ``parallel.tensor.tp_shard_`` bound, or None.
+
     The JAX module's other fields are taken only at V3D's values
     (``VIDEO_UNET_FIXED``); any other value raises.
     """
+
+    tp = None
 
     def __init__(self, in_channels: int = 8, model_channels: int = 320,
                  out_channels: int = 4, num_res_blocks: int = 2,
@@ -235,7 +245,7 @@ class VideoUNet(nn.Module):
                 return layer(*args)
             # the recompute re-issues a layer's collectives: all of them,
             # on every rank, so it must not stop early
-            with set_checkpoint_early_stop(frames is None):
+            with set_checkpoint_early_stop(frames is None and self.tp is None):
                 return checkpoint(layer, *args, use_reentrant=False)
 
         def run(block, h):

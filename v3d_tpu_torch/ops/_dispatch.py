@@ -2,7 +2,9 @@
 
 A wrapper takes its plain PyTorch version only because the tensors it was
 given lie on the CPU, or inside an explicit ``reference_mode()`` (comparison
-runs and tests only; nothing on the main path enters it).  For a CUDA tensor
+runs and tests only; nothing on the main path enters it).  Inside
+``meta_shapes()`` meta tensors take it too: shapes only, no value computed
+(the dry run's full-size stage); elsewhere a meta tensor raises.  For a CUDA tensor
 it launches its kernel or raises: there is no fallback.  Each wrapper counts
 its launches in ``LAUNCHES``, where it launches and nowhere else.
 """
@@ -27,6 +29,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # and the forward recomputed by activation checkpointing, on threads of its
 # own, which do not see the context of the thread that entered the block.
 _REFERENCE = False
+_META = False
+
+
+@contextlib.contextmanager
+def meta_shapes():
+    """Route meta tensors to the plain versions inside the block (a forward
+    on the meta device: its shapes, no values, no launch)."""
+    global _META
+    saved, _META = _META, True
+    try:
+        yield
+    finally:
+        _META = saved
 
 
 @contextlib.contextmanager
@@ -47,12 +62,13 @@ def reset_launch_counts() -> None:
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:
-    """True where the plain version runs: CPU tensors, or reference mode."""
+    """True where the plain version runs: CPU tensors, reference mode, and
+    meta tensors inside ``meta_shapes()``."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (dev.type == "meta" and _META):
         return True
     if dev.type == "cuda":
         return _REFERENCE

@@ -4,26 +4,41 @@ process on the same inputs.
 
     python -m v3d_tpu_torch.parallel.dryrun --nproc 2                  # 2 cards, NCCL
     python -m v3d_tpu_torch.parallel.dryrun --nproc 2 --backend gloo   # ranks sharing a card
-    python -m v3d_tpu_torch.parallel.dryrun --nproc 2 --device cpu --rung small
+    python -m v3d_tpu_torch.parallel.dryrun --nproc 4 --device cpu --rung small
 
 The launcher spawns ``--nproc`` ranks (rank r on ``cuda:r % cards``, or on
-the CPU over gloo) joined on a ("data", "model") mesh of (nproc, 1):
+the CPU over gloo) joined on a ("data", "model") mesh at the graft's rule
+(:166-169): model = 2 where nproc is even and at least 4, else 1; data =
+nproc / model.  Every stage splits over "data" as the graft does:
 
-(a) one fine-tune step of the tiny engine at the graft's shape (:150-206):
-    one video of t = 2 nproc frames, 2 frames a rank (the UNet forward
-    frame-parallel, ``parallel/frames.py``), against one process's step on
-    the whole video: the loss, and each gradient's cosine with the single
-    process's;
+(a) the fine-tune step at the graft's shape (:171-207).  At model = 1, one
+    step of the tiny engine's ``DiffusionTrainer``: one video of t = 2 data
+    frames, 2 frames a rank (the UNet forward frame-parallel,
+    ``parallel/frames.py``), against one process's step on the whole
+    video: the loss, and each gradient's cosine with the single process's.
+    At model = 2, the tensor-parallel step (``tp_train_step``): the tiny
+    engine with t = max(2 data, 2) frames over "data", its UNet cut by
+    ``parallel.tensor.tp_shard_``, one ``training_loss`` and one AdamW
+    step (optax.adamw's defaults at 1e-4) on the local shards, gradients
+    averaged over "data" only, against one process's step: the loss, each
+    gathered gradient's cosine, the gathered updated parameters;
 (s) the sampling parity stage (graft :217-254): the tiny engine with t =
-    max(2 nproc, 2) frames, 3 Euler steps at 64^2, c ones and uc zeros,
+    max(2 data, 2) frames, 3 Euler steps at 64^2, c ones and uc zeros,
     seeded noise, sampled with the CFG-doubled 2t frames over "data"
-    (``sample_latents(mesh=)``) against one process's sample: max abs
-    <= 1e-2, the JAX dry run's bound;
+    (``sample_latents(mesh=)``; at model = 2 the UNet tensor-parallel)
+    against one process's sample: max abs <= 1e-2, the JAX dry run's bound;
 (b) the data-parallel recon stage (graft :257-363): one 3DGS step with the
     cameras over "data" (each rank's mean loss, gradients averaged; the
     gaussians made anisotropic and rotated, as in (c)) and one
     NeuS step with the rays over "data" (frequency SDF, 32 samples, the
     graft's loss), each against the single-process step;
+(f) the full-size stage (graft :531-587): on every rank the V3D-512 UNet
+    built on the meta device and cut at its mesh coordinate, and the
+    denoise step's forward on meta tensors of the graft's shapes (36 CFG
+    frames at 64^2 latents, bf16, x's rows over "data"): every output
+    shape, the global parameter count, each rank's local parameter bytes,
+    and the collectives a forward would run, with their bytes (the JAX stage
+    compiles the step; nothing here is compiled, and no value computed);
 (c) the refpoint stage (graft :366-): one tile-sharded 3DGS step
     (``gs.render.rasterize_sharded``, DSSIM on the gathered image) and one
     ray-parallel NeuS step at the rung asked for ("full": 300k gaussians at
@@ -34,8 +49,7 @@ the CPU over gloo) joined on a ("data", "model") mesh of (nproc, 1):
 
 Each stage prints one OK line on rank 0, or fails its rank; any failed or
 hung rank makes the launcher exit non-zero.  ``--out`` writes every rank's
-numbers as JSON.  The tensor-parallel step and the full-size AOT compile
-of the JAX dry run are not ported yet.
+numbers as JSON.
 """
 
 from __future__ import annotations
@@ -73,6 +87,12 @@ NEUS_GRAD_REL = 1e-4      # NeuS gradients: max abs <= 1e-4 max |single| per
 RENDER_MAX_ABS = 2e-5     # (c) tile-sharded image / alpha against one render
 
 SAMPLE_MAX_ABS = 1e-2     # (s) the graft's bound (__graft_entry__.py:251)
+TP_LR = 1e-4              # (a) at model 2: optax.adamw(1e-4) (graft :178)
+TP_WEIGHT_DECAY = 1e-4    # ... and optax.adamw's default decay
+TP_PARAM_MAX_ABS = 2 * TP_LR   # (a) gathered updated parameters against one
+#                           process: Adam's first step moves an element by
+#                           about lr, a misplaced shard by its weight's size
+TP_SEED = 2               # (a) the draws' generator (the graft's PRNGKey(2))
 
 TRAIN_HW = 8              # (a) the tiny engine's latents are TRAIN_HW^2
 SAMPLE_RES = 64           # (s) pixels (8^2 latents)
@@ -139,10 +159,16 @@ def _check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def mesh_shape(nproc: int) -> tuple:
+    """(data, model) of the graft's mesh over ``nproc`` devices (:166-169)."""
+    model = 2 if nproc % 2 == 0 and nproc >= 4 else 1
+    return nproc // model, model
+
+
 def stage_train(mesh, dev, n: int) -> Dict:
-    """(a): the step on each rank's 2 frames of one video of 2n against one
-    process's step on the whole video; both draw from step 0's generator
-    at the global shape."""
+    """(a) at model 1: the step on each rank's 2 frames of one video of 2n
+    against one process's step on the whole video; both draw from step 0's
+    generator at the global shape."""
     from v3d_tpu_torch.data.objaverse import SyntheticOrbitDataset
     from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.engines.trainer import DiffusionTrainer, TrainConfig
@@ -189,14 +215,182 @@ def stage_train(mesh, dev, n: int) -> Dict:
             "launches": counts}
 
 
-def stage_sampling(mesh, dev, n: int) -> Dict:
-    """(s): the tiny engine's sample with the CFG-doubled 2t frames over
-    "data" against one process's sample on the same noise (every rank
-    makes both: the one-process sample is tiny)."""
+def tp_train_step(engine, latents: torch.Tensor, cond: Dict, num_frames: int,
+                  mesh=None, sigmas=None, noise=None, generator=None) -> Dict:
+    """One ``training_loss`` and one AdamW step (lr TP_LR, optax.adamw's
+    betas, eps and decay) of ``engine``'s UNet on the whole batch
+    ``latents`` / ``cond`` ((b t) rows).  With ``mesh``: the UNet cut over
+    "model" (``tp_shard_``), this rank's rows of the batch over "data", the
+    loss and the local gradients averaged over "data" only; the gradients
+    and updated parameters returned are gathered whole.  The draws are
+    ``sigmas`` / ``noise`` (the whole batch's) or ``generator``'s at the
+    whole batch's shape."""
+    from v3d_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_mean_, data_block, shard_batch
+    from v3d_tpu_torch.parallel.tensor import tp_gather, tp_shard_
+
+    unet = engine.unet.train().requires_grad_(True)
+    batch = {"latents": latents, "cond": cond}
+    if mesh is not None:
+        tp_shard_(unet, mesh)
+        batch = shard_batch(batch, mesh)
+    names, params = zip(*unet.named_parameters())
+    opt = torch.optim.AdamW(params, lr=TP_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=TP_WEIGHT_DECAY)
+    loss = engine.training_loss(batch["latents"], batch["cond"], num_frames=num_frames,
+                                sigmas=sigmas, noise=noise, generator=generator,
+                                block=data_block(mesh), mesh=mesh)
+    loss.backward()
+    grads = [p.grad for p in params]
+    loss = loss.detach().reshape(1).clone()
+    if mesh is not None:
+        all_reduce_mean_(grads + [loss], mesh, DATA_AXIS)
+    grads = dict(zip(names, (g.clone() for g in grads)))
+    opt.step()
+    whole = lambda named: named if mesh is None else tp_gather(unet, named)  # noqa: E731
+    return {"loss": float(loss), "grads": whole(grads),
+            "params": whole({k: v.detach().clone() for k, v in unet.state_dict().items()})}
+
+
+def stage_tp_train(mesh, dev, n: int) -> Dict:
+    """(a) at model 2: the tensor-parallel step of the tiny engine on t =
+    max(2n, 2) frames over the n ranks of "data" against one process's step
+    on the whole batch, both drawing from one generator at the batch's
+    shape: the loss, each gathered gradient's cosine, the gathered updated
+    parameters."""
+    from v3d_tpu_torch.data.objaverse import SyntheticOrbitDataset
     from v3d_tpu_torch.engines.builder import build_tiny_engine
     from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
 
     t = max(2 * n, 2)
+    model = axis_size(mesh, MODEL_AXIS)
+    engine = build_tiny_engine(num_frames=t, device=dev)
+    ds = SyntheticOrbitDataset(1, t, TRAIN_HW, clip_dim=engine.unet.context_dim)
+    host = next(ds.iter_batches(1))
+    latents = torch.as_tensor(host["latents"], device=dev)
+    cond = engine.training_cond(host, num_frames=t)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(TP_SEED)
+
+    reset_launch_counts()
+    got = tp_train_step(engine, latents, cond, t, mesh=mesh, generator=gen())
+    _sync(dev)
+    counts = dict(LAUNCHES)
+    ref = tp_train_step(build_tiny_engine(num_frames=t, device=dev), latents, cond, t,
+                        generator=gen())
+    grads = ref["grads"]
+    top = max(float(g.norm()) for g in grads.values())
+    held = [k for k, g in grads.items() if float(g.norm()) >= ZERO_GRAD_REL * top]
+    cos = min(_cosine(got["grads"][k], grads[k]) for k in held)
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    param_diff = max(float((got["params"][k] - v).abs().max()) for k, v in ref["params"].items())
+    _check(math.isfinite(got["loss"]) and loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_MIN_COS
+           and param_diff <= TP_PARAM_MAX_ABS,
+           f"TP fine-tune step: loss {got['loss']} vs single {ref['loss']} (rel "
+           f"{loss_rel:.2e}), least gradient cosine {cos:.6f}, updated parameters max abs "
+           f"{param_diff:.2e}")
+    launches = _gather_counts(counts, dev)
+    _say(f"dryrun TP fine-tune: mesh {n}x{model}, t={t} at {TRAIN_HW}^2 latents over "
+         f"data={n}, UNet tensor-parallel over model={model}, AdamW {TP_LR:g}: loss "
+         f"{got['loss']:.6f} vs single {ref['loss']:.6f} (rel {loss_rel:.2e} <= "
+         f"{TRAIN_LOSS_REL}), least gathered gradient cosine {cos:.6f} (>= {TRAIN_MIN_COS}; "
+         f"{len(grads) - len(held)} of {len(grads)} tensors with no gradient), updated "
+         f"parameters max abs {param_diff:.2e} (<= {TP_PARAM_MAX_ABS:g}), launches per rank "
+         f"{[{k: v for k, v in c.items() if v} for c in launches]} OK")
+    return {"loss": got["loss"], "loss_single": ref["loss"], "loss_rel": loss_rel,
+            "min_cos": cos, "no_grad_tensors": len(grads) - len(held),
+            "param_max_abs": param_diff, "launches": counts}
+
+
+def fullsize_forward(mesh, frames: int = 18, hw: int = 64) -> Dict:
+    """The full-size V3D-512 denoise step on meta tensors (bf16 UNet, x's
+    2 ``frames`` CFG rows at hw^2 latents over "data", the UNet cut over
+    "model" at this rank's coordinate): the output's shape, the global
+    parameter count (before the cut, and of the gathered state), this
+    rank's parameter bytes, and the collectives of one forward."""
+    from v3d_tpu_torch.engines.builder import build_v3d_engine
+    from v3d_tpu_torch.engines.wrappers import make_unet_network_fn
+    from v3d_tpu_torch.ops._dispatch import meta_shapes
+    from v3d_tpu_torch.parallel import frames as fr
+    from v3d_tpu_torch.parallel import tensor as tp
+    from v3d_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+
+    engine = build_v3d_engine(num_frames=frames, device="meta", dtype=torch.bfloat16)
+    unet = engine.unet
+    n_params = sum(p.numel() for p in unet.parameters())
+    full_bytes = tp.local_param_bytes(unet)
+    tp.tp_shard_(unet, mesh)
+    rows = 2 * frames // axis_size(mesh, DATA_AXIS)
+
+    def meta(*shape):
+        return torch.zeros(shape, device="meta")
+
+    x = meta(rows, hw, hw, 4)
+    cond = {"crossattn": meta(rows, 1, unet.context_dim), "concat": meta(rows, hw, hw, 4),
+            "vector": meta(rows, 768)}
+    network = make_unet_network_fn(unet, frames, mesh=mesh, rows_local=True)
+    tp.reset_traffic()
+    fr.reset_traffic()
+    with torch.no_grad(), meta_shapes():
+        out = engine.denoiser(network, x, meta(rows), cond,
+                              image_only_indicator=meta(2, frames))
+    traffic = {"model": dict(tp.TRAFFIC), "frames": dict(fr.TRAFFIC)}
+    names = dict(unet.named_parameters())
+    gathered = sum(v.numel() for k, v in tp.tp_gather(unet).items() if k in names)
+    return {"out_shape": list(out.shape), "want_shape": [rows, hw, hw, 4],
+            "out_device": out.device.type, "params": n_params, "params_gathered": gathered,
+            "full_bytes": full_bytes, "local_bytes": tp.local_param_bytes(unet),
+            "traffic": traffic}
+
+
+def stage_fullsize(mesh, dev, data: int, model: int) -> Dict:
+    """(f): ``fullsize_forward`` on every rank; the graft's skip where the
+    ranks of "data" do not divide the 36 CFG frames."""
+    import torch.distributed as dist
+
+    frames = 18
+    if (2 * frames) % data:
+        _say(f"dryrun AOT full-size: skipped (36 frames % data={data} != 0)")
+        return {"skipped": True}
+    t0 = time.perf_counter()
+    r = fullsize_forward(mesh, frames)
+    seconds = time.perf_counter() - t0
+    _check(r["out_shape"] == r["want_shape"] and r["out_device"] == "meta"
+           and r["params_gathered"] == r["params"],
+           f"full-size stage: output {r['out_shape']} (want {r['want_shape']}), "
+           f"{r['params_gathered']} gathered parameters of {r['params']}")
+    mine = torch.tensor([r["local_bytes"], r["traffic"]["model"]["all_reduce"],
+                         r["traffic"]["model"]["all_gather"], r["traffic"]["model"]["bytes"],
+                         r["traffic"]["frames"]["exchanges"],
+                         r["traffic"]["frames"]["bytes"]], dtype=torch.int64, device=dev)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    every = [e.tolist() for e in every]
+    _say(f"dryrun AOT full-size: V3D-512 UNet ({r['params'] / 1e9:.2f}B params, "
+         f"{r['params']:,}; the gathered state {r['params_gathered']:,}) on the meta device "
+         f"on a {data}x{model} mesh, bf16, x {r['want_shape']} a rank of the 36 CFG frames: "
+         f"denoised {r['out_shape']}; parameter bytes per rank {[e[0] for e in every]} of "
+         f"{r['full_bytes']} whole; a forward's collectives per rank over model "
+         f"{[(e[1], e[2]) for e in every]} (all_reduce, all_gather) of "
+         f"{[e[3] for e in every]} bytes, frame exchanges over data "
+         f"{[e[4] for e in every]} of {[e[5] for e in every]} bytes; {seconds:.1f} s OK")
+    r["seconds"] = seconds
+    return r
+
+
+def stage_sampling(mesh, dev, n: int) -> Dict:
+    """(s): the tiny engine's sample with the CFG-doubled 2t frames over the
+    n ranks of "data" (the UNet cut over "model" where it has 2 ranks)
+    against one process's sample on the same noise (every rank makes both:
+    the one-process sample is tiny)."""
+    from v3d_tpu_torch.engines.builder import build_tiny_engine
+    from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from v3d_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+    from v3d_tpu_torch.parallel.tensor import tp_shard_
+
+    t = max(2 * n, 2)
+    model = axis_size(mesh, MODEL_AXIS)
     engine = build_tiny_engine(num_frames=t, num_steps=SAMPLE_STEPS, device=dev)
     hw = SAMPLE_RES // engine.downscale
     ctx = engine.unet.context_dim
@@ -206,19 +400,21 @@ def stage_sampling(mesh, dev, n: int) -> Dict:
     uc = {k: torch.zeros_like(v) for k, v in c.items()}
     noise = torch.from_numpy(np.random.RandomState(3).randn(t, hw, hw, 4)
                              .astype(np.float32)).to(dev)
+    ref = engine.sample_latents(c, uc, SAMPLE_RES, SAMPLE_RES, noise=noise)
+    tp_shard_(engine.unet, mesh)
     reset_launch_counts()
     t0 = time.perf_counter()
     out = engine.sample_latents(c, uc, SAMPLE_RES, SAMPLE_RES, noise=noise, mesh=mesh)
     _sync(dev)
     seconds = time.perf_counter() - t0
     counts = dict(LAUNCHES)
-    ref = engine.sample_latents(c, uc, SAMPLE_RES, SAMPLE_RES, noise=noise)
     diff = float((out - ref).abs().max())
     _check(bool(torch.isfinite(out).all()) and diff <= SAMPLE_MAX_ABS,
-           f"frame-sharded sampling: max|diff| {diff:.2e} from one process")
+           f"sharded sampling: max|diff| {diff:.2e} from one process")
     launches = _gather_counts(counts, dev)
+    how = "frame-sharded" if model == 1 else f"frame-sharded and tensor-parallel over model={model}"
     _say(f"dryrun sampling parity: t={t}, {2 * t} CFG frames over data={n} "
-         f"({2 * t // n} a rank), {SAMPLE_STEPS} steps at {SAMPLE_RES}^2, frame-sharded vs "
+         f"({2 * t // n} a rank), {SAMPLE_STEPS} steps at {SAMPLE_RES}^2, {how} vs "
          f"one process max|diff|={diff:.2e} (<= {SAMPLE_MAX_ABS}), {seconds:.2f} s, launches "
          f"per rank {[{k: v for k, v in c_.items() if v} for c_ in launches]} OK")
     return {"t": t, "max_abs": diff, "seconds": seconds, "launches": counts}
@@ -464,14 +660,17 @@ def _rank(index: int, nproc: int, store: str, opts: Dict, out_dir: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
-        mesh = make_mesh(device=dev.type)
+        data, model = mesh_shape(nproc)
+        mesh = make_mesh(data=data, model=model, device=dev.type)
         t0 = time.perf_counter()
-        result = {"rank": index, "device": str(dev),
+        result = {"rank": index, "device": str(dev), "mesh": [data, model],
                   "backend": dist.get_backend()}
-        result["train"] = stage_train(mesh, dev, nproc)
-        result["sampling"] = stage_sampling(mesh, dev, nproc)
-        result["recon_dp"] = stage_recon_dp(mesh, dev, nproc)
-        result["refpoint"] = stage_refpoint(mesh, dev, nproc, opts["rung"])
+        result["train"] = (stage_train(mesh, dev, data) if model == 1
+                           else stage_tp_train(mesh, dev, data))
+        result["sampling"] = stage_sampling(mesh, dev, data)
+        result["recon_dp"] = stage_recon_dp(mesh, dev, data)
+        result["fullsize"] = stage_fullsize(mesh, dev, data, model)
+        result["refpoint"] = stage_refpoint(mesh, dev, data, opts["rung"])
         result["seconds"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"rank{index}.json"), "w") as f:
             json.dump(result, f)

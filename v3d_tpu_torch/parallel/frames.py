@@ -26,6 +26,11 @@ On NCCL an exchange is one ``all_to_all_single``.  Gloo (two ranks sharing
 a card) takes CUDA tensors in all_reduce / broadcast / all_gather only, so
 there it is an all_gather and a slice.  The group's backend decides
 (``EXCHANGE``); an unknown backend raises.
+
+On the meta device (the dry run's full-size stage) an exchange, an
+all_reduce or a gather moves nothing and returns its result's shape; an
+exchange counts in ``TRAFFIC`` the bytes its all_to_all would receive.  CPU
+and CUDA tensors always communicate.
 """
 
 from __future__ import annotations
@@ -134,14 +139,26 @@ def _count(*received: torch.Tensor) -> None:
 
 def _gather(x: torch.Tensor, fs: FrameShard) -> List[torch.Tensor]:
     parts = [torch.empty_like(x) for _ in range(fs.size)]
-    dist.all_gather(parts, x.contiguous(), group=fs.group)
+    if x.device.type != "meta":
+        dist.all_gather(parts, x.contiguous(), group=fs.group)
     return parts
+
+
+def _all_reduce(x: torch.Tensor, fs: FrameShard) -> torch.Tensor:
+    y = x.contiguous().clone()
+    if y.device.type != "meta":
+        dist.all_reduce(y, group=fs.group)
+    return y
 
 
 def _to_pixels(x: torch.Tensor, fs: FrameShard) -> torch.Tensor:
     """(R, s, c) rows of this rank -> (rows, s_r, c), every row of its strip."""
     strips = pixel_strips(x.shape[1], fs.size)
     a, b = strips[fs.index]
+    if x.device.type == "meta":
+        out = x.new_empty((fs.rows, b - a, x.shape[2]))
+        _count(out)
+        return out
     if fs.mode == "all_gather":
         full = torch.cat(_gather(x, fs))
         _count(full)
@@ -161,6 +178,10 @@ def _to_frames(x: torch.Tensor, s: int, fs: FrameShard) -> torch.Tensor:
     strips = pixel_strips(s, fs.size)
     R, c = fs.rows // fs.size, x.shape[2]
     blk = fs.block
+    if x.device.type == "meta":
+        out = x.new_empty((R, s, c))
+        _count(out)
+        return out
     if fs.mode == "all_gather":
         widest = max(j - i for i, j in strips)
         padded = torch.nn.functional.pad(x, (0, 0, 0, widest - x.shape[1]))
@@ -202,15 +223,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fs):
         ctx.fs = fs
-        y = x.clone()
-        dist.all_reduce(y, group=fs.group)
-        return y
+        return _all_reduce(x, fs)
 
     @staticmethod
     def backward(ctx, grad):
-        g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.fs.group)
-        return g, None
+        return _all_reduce(grad, ctx.fs), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -221,8 +238,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.fs.group)
+        g = _all_reduce(grad, ctx.fs)
         i = ctx.fs.index * ctx.n
         return g[i:i + ctx.n], None
 

@@ -13,8 +13,13 @@ and the collectives are placed by hand:
   forward is then frame-parallel (``parallel/frames.py``, which also
   exchanges blocks by all_to_all on NCCL).
 - "model": tensor parallelism.  ``param_specs`` / ``shard_params`` give the
-  placements of ``DEFAULT_TP_RULES``; the tensor-parallel forward is not
-  ported yet, so the ranks of one model row compute the same step.
+  placements of ``DEFAULT_TP_RULES``; ``parallel/tensor.py`` cuts a UNet's
+  parameters to them (``tp_shard_``) and runs its attention heads and MLP
+  columns over the ranks of a model row, all-reducing the row-parallel
+  outputs.  As in the JAX package, the fine-tune trainer keeps the
+  parameters replicated over "model" (its ranks then compute the same
+  step); the dry run's stages and a caller's ``sample_latents`` /
+  ``training_loss`` on a cut UNet run tensor-parallel.
 
 Only ``all_reduce``, ``broadcast`` and ``all_gather`` are used: gloo, which
 carries two ranks that share one card, takes CUDA tensors for those three
@@ -275,7 +280,8 @@ def shard_params(module_or_state, mesh, rules=DEFAULT_TP_RULES) -> Dict:
     """name -> DTensor of each parameter on ``mesh``: replicated over
     "data", placed over "model" by ``param_specs``.  Each rank keeps the
     slice of its model coordinate of the (replicated) tensor it holds; no
-    data moves.  Placement only: no forward reads these yet."""
+    data moves.  Placement only: the tensor-parallel forward runs on the
+    module that ``parallel.tensor.tp_shard_`` cuts to these slices."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if isinstance(mesh, LocalMesh):
