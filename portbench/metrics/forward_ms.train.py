@@ -1,0 +1,16 @@
+"""forward_ms.train (ms): the device time a step of the work launched under
+the port's ``trainer.forward`` span (``engines/trainer.py``), in the traced
+steps (``bench/spans.py``).  Silent unless each traced step holds one
+``trainer.step``, ``trainer.forward``, ``trainer.backward`` and
+``trainer.update``.  Moves train_step_ms."""
+
+from portbench.bench import spans
+
+
+def read(rec):
+    s = spans.training(rec)
+    return None if s is None else s["forward_ms"]
+
+
+def lines(rec):
+    return spans.lines(rec)

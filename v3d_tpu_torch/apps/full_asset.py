@@ -1,7 +1,9 @@
 """Image -> asset in one process (counterpart of v3d_tpu/apps/full_asset.py):
 the 18-view 512^2 orbit generation, the 3DGS fit and, with ``--mesh``, the
 NeuS fit and its mesh, with each stage's wall-clock (the number behind the
-paper's ~3 minutes per asset on one GPU).
+paper's ~3 minutes per asset on one GPU), each stage a span
+(``utils/trace.py``: ``full_asset.run`` > ``full_asset.asset`` >
+``full_asset.generate``, ``full_asset.gs_fit``, ``full_asset.neus_fit_mesh``).
 
     python -m v3d_tpu_torch.apps.full_asset --input img.png --output asset/
     python -m v3d_tpu_torch.apps.full_asset --input img.png --output assets/ \\
@@ -23,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -34,6 +35,7 @@ from v3d_tpu_torch.apps.recon_gs import train_from_video
 from v3d_tpu_torch.apps.recon_neus import reconstruct
 from v3d_tpu_torch.data.video_io import read_video, write_video
 from v3d_tpu_torch.ops import LAUNCHES
+from v3d_tpu_torch.utils.trace import stage
 
 
 def _launched(before: Dict[str, int]) -> Dict[str, int]:
@@ -61,50 +63,48 @@ def run(image: Union[str, np.ndarray], output: str,
               "device": (torch.cuda.get_device_name(torch.device(device))
                          if torch.device(device).type == "cuda" else "cpu"),
               "assets": []}
-    t_all = time.perf_counter()
-    for i in range(assets):
-        stages: Dict = {"launches": {}}
-        t_asset = time.perf_counter()
-        a_out = output if assets == 1 else os.path.join(output, f"a{i}")
-        os.makedirs(a_out, exist_ok=True)
+    with stage("full_asset.run", report, "total_s"):
+        for i in range(assets):
+            stages: Dict = {"launches": {}}
+            with stage("full_asset.asset", stages, "asset_total_s", asset=i):
+                a_out = output if assets == 1 else os.path.join(output, f"a{i}")
+                os.makedirs(a_out, exist_ok=True)
 
-        before, t0 = dict(LAUNCHES), time.perf_counter()
-        frames, engine, _ = sample_one(image, engine=engine, num_steps=num_steps,
-                                       seed=23 + i, device=device,
-                                       resolution=resolution,
-                                       checkpoint=checkpoint)
-        stages["generate_18view_512"] = time.perf_counter() - t0
-        stages["launches"]["generate"] = _launched(before)
-        video_path = os.path.join(a_out, "000000.mp4")
-        write_video(video_path, frames, fps=3)
-        print(f"[full_asset] a{i} generate: {stages['generate_18view_512']:.1f} s "
-              f"-> {video_path}", flush=True)
+                before = dict(LAUNCHES)
+                with stage("full_asset.generate", stages, "generate_18view_512"):
+                    frames, engine, _ = sample_one(
+                        image, engine=engine, num_steps=num_steps, seed=23 + i,
+                        device=device, resolution=resolution, checkpoint=checkpoint)
+                stages["launches"]["generate"] = _launched(before)
+                video_path = os.path.join(a_out, "000000.mp4")
+                write_video(video_path, frames, fps=3)
+                print(f"[full_asset] a{i} generate: {stages['generate_18view_512']:.1f} s "
+                      f"-> {video_path}", flush=True)
 
-        before, t0 = dict(LAUNCHES), time.perf_counter()
-        train_from_video(video_path, os.path.join(a_out, "gs"), iterations=gs_iters,
-                         seed=i, device=device, **(gs_kwargs or {}))
-        stages[f"gs_fit_{gs_iters}"] = time.perf_counter() - t0
-        stages["launches"]["gs_fit"] = _launched(before)
-        print(f"[full_asset] a{i} 3DGS fit: {stages[f'gs_fit_{gs_iters}']:.1f} s",
-              flush=True)
+                before = dict(LAUNCHES)
+                with stage("full_asset.gs_fit", stages, f"gs_fit_{gs_iters}"):
+                    train_from_video(video_path, os.path.join(a_out, "gs"),
+                                     iterations=gs_iters, seed=i, device=device,
+                                     **(gs_kwargs or {}))
+                stages["launches"]["gs_fit"] = _launched(before)
+                print(f"[full_asset] a{i} 3DGS fit: {stages[f'gs_fit_{gs_iters}']:.1f} s",
+                      flush=True)
 
-        if mesh:
-            before, t0 = dict(LAUNCHES), time.perf_counter()
-            _, m, _ = reconstruct(read_video(video_path), os.path.join(a_out, "mesh"),
-                                  max_steps=neus_steps,
-                                  mc_resolution=mc_resolution, seed=i,
-                                  device=device, **(neus_kwargs or {}))
-            stages["neus_fit_mesh"] = time.perf_counter() - t0
-            stages["launches"]["neus"] = _launched(before)
-            stages["mesh"] = ({"vertices": len(m.vertices), "faces": len(m.faces)}
-                              if len(m.vertices) else None)
-            print(f"[full_asset] a{i} NeuS fit + mesh: "
-                  f"{stages['neus_fit_mesh']:.1f} s, mesh {stages['mesh']}",
-                  flush=True)
-        stages["asset_total_s"] = time.perf_counter() - t_asset
-        report["assets"].append(stages)
-
-    report["total_s"] = time.perf_counter() - t_all
+                if mesh:
+                    before = dict(LAUNCHES)
+                    with stage("full_asset.neus_fit_mesh", stages, "neus_fit_mesh"):
+                        _, m, _ = reconstruct(read_video(video_path),
+                                              os.path.join(a_out, "mesh"),
+                                              max_steps=neus_steps,
+                                              mc_resolution=mc_resolution, seed=i,
+                                              device=device, **(neus_kwargs or {}))
+                    stages["launches"]["neus"] = _launched(before)
+                    stages["mesh"] = ({"vertices": len(m.vertices), "faces": len(m.faces)}
+                                      if len(m.vertices) else None)
+                    print(f"[full_asset] a{i} NeuS fit + mesh: "
+                          f"{stages['neus_fit_mesh']:.1f} s, mesh {stages['mesh']}",
+                          flush=True)
+            report["assets"].append(stages)
     report["per_asset_amortized_s"] = report["assets"][-1]["asset_total_s"]
     report["reference_claim_s"] = 180.0
     with open(os.path.join(output, "full_asset.json"), "w") as f:

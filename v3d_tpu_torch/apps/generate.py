@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
+
 import numpy as np
 import torch
 
@@ -24,11 +24,7 @@ from v3d_tpu_torch.core.checkpoint import load_v3d_params
 from v3d_tpu_torch.data.preprocess import preprocess_image
 from v3d_tpu_torch.data.video_io import write_video
 from v3d_tpu_torch.engines.builder import build_tiny_engine, build_v3d_engine
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from v3d_tpu_torch.utils.trace import UNET_FORWARD, span, stage
 
 
 def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
@@ -49,7 +45,11 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
     bf16-resident when ``bf16``, and loads ``checkpoint`` into it when one
     is given.  The noise comes from a generator seeded
     with ``seed`` (latent sample, cond aug, initial latent, in that order)
-    unless given explicitly."""
+    unless given explicitly.  The timings are the durations of the
+    request's stage spans (``generate.cond``, ``generate.sample``,
+    ``generate.decode``, inside ``generate.request``; ``utils/trace.py``),
+    each ending on the device: the first two synchronise, the decode's
+    frames come to the host."""
     if engine is None:
         engine = build_v3d_engine(
             num_frames=num_frames, num_steps=num_steps,
@@ -59,27 +59,24 @@ def sample_one(image: np.ndarray, engine=None, num_frames: int = 18,
         if checkpoint:
             load_v3d_params(checkpoint, engine)
     dev = engine.device
-    img = preprocess_image(image, border_ratio=border_ratio,
-                           resolution=resolution, ignore_alpha=ignore_alpha,
-                           device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    t0 = time.perf_counter()
-    clip_emb, cond_frames = engine.encode_image(
-        torch.from_numpy(img)[None], cond_aug, enc_noise, aug_noise, gen)
-    c, uc = engine.build_cond(clip_emb, cond_frames, fps_id,
-                              motion_bucket_id, cond_aug)
-    _sync(dev)
-    t1 = time.perf_counter()
-    z = engine.sample_latents(c, uc, resolution, resolution, noise, gen)
-    _sync(dev)
-    t2 = time.perf_counter()
-    frames = engine.decode_latents(z, decoding_t=decoding_t)
-    if not torch.isfinite(frames).all():
-        raise FloatingPointError("generation produced non-finite frames")
-    frames_u8 = torch.round(frames * 255.0).to(torch.uint8).cpu().numpy()
-    t3 = time.perf_counter()
-    timings = {"cond_s": t1 - t0, "sample_s": t2 - t1, "decode_s": t3 - t2}
+    timings = {}
+    with span("generate.request"):
+        img = preprocess_image(image, border_ratio=border_ratio,
+                               resolution=resolution, ignore_alpha=ignore_alpha,
+                               device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with stage("generate.cond", timings, "cond_s", dev):
+            clip_emb, cond_frames = engine.encode_image(
+                torch.from_numpy(img)[None], cond_aug, enc_noise, aug_noise, gen)
+            c, uc = engine.build_cond(clip_emb, cond_frames, fps_id,
+                                      motion_bucket_id, cond_aug)
+        with stage("generate.sample", timings, "sample_s", dev):
+            z = engine.sample_latents(c, uc, resolution, resolution, noise, gen)
+        with stage("generate.decode", timings, "decode_s"):
+            frames = engine.decode_latents(z, decoding_t=decoding_t)
+            if not torch.isfinite(frames).all():
+                raise FloatingPointError("generation produced non-finite frames")
+            frames_u8 = torch.round(frames * 255.0).to(torch.uint8).cpu().numpy()
     return frames_u8, engine, timings
 
 
@@ -139,7 +136,8 @@ def main(argv=None):
     write_video(out_dir + ".mp4", frames, fps=3)
     print(f"generated {len(frames)} frames (cond {timings['cond_s']:.2f} s, "
           f"sample {timings['sample_s']:.2f} s, decode {timings['decode_s']:.2f}"
-          f" s) -> {out_dir}.mp4 and {out_dir}/")
+          f" s; {UNET_FORWARD['forwards']} UNet forwards of {UNET_FORWARD['rows']}"
+          f" rows) -> {out_dir}.mp4 and {out_dir}/")
 
 
 if __name__ == "__main__":

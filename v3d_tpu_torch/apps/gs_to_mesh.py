@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,6 +37,7 @@ from v3d_tpu_torch.meshops.mcubes import isosurface
 from v3d_tpu_torch.meshops.mesh import Mesh
 from v3d_tpu_torch.meshops.refine import RefineConfig, TextureRefiner
 from v3d_tpu_torch.nerf.nerf_model import NerfField, NerfRenderer
+from v3d_tpu_torch.utils.trace import stage
 
 
 class DistillDraws(NamedTuple):
@@ -78,88 +78,82 @@ def distill(ply_path: str, output: str, n_views: int = 36,
             refine_iters: int = 500, seed: int = 0, device="cuda",
             draws: Optional[Iterable[DistillDraws]] = None
             ) -> Tuple[Mesh, Dict[str, float]]:
-    """The distillation; returns (mesh, seconds per stage)."""
+    """The distillation; returns (mesh, seconds per stage).  Each stage is
+    a span (``utils/trace.py``) under ``gs_to_mesh.distill`` that ends on
+    the device."""
     dev = torch.device(device)
     timings: Dict[str, float] = {}
+    with stage("gs_to_mesh.distill", timings, "total_s"):
+        # 1. render a dense orbit of supervision views (fit_nerf data)
+        with stage("gs_to_mesh.render", timings, "render_s", dev):
+            g = load_gaussians(ply_path, dev)
+            bg = torch.ones(3, device=dev)
+            with torch.no_grad():
+                images = torch.stack([
+                    render(g, Camera.from_c2w(p, 60.0, resolution, resolution), bg,
+                           active_sh_degree=sh_degree(g)).image
+                    for p in get_uniform_poses(n_views, cam_radius, 0.0)]).clamp(0, 1)
 
-    def stamp(name, t0):
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        timings[name] = time.perf_counter() - t0
-        return time.perf_counter()
+        # 2. fit the density NeRF on random rays
+        with stage("gs_to_mesh.fit", timings, "fit_s", dev):
+            poses = torch.tensor(get_uniform_poses(n_views, cam_radius, 0.0, opengl=True),
+                                 device=dev)
+            focal = fov2focal(np.deg2rad(60.0), resolution)
+            dirs = torch.tensor(get_ray_directions(resolution, resolution, focal), device=dev)
+            field = NerfField(radius=radius).to(dev)
+            field.init_(torch.Generator(device=dev).manual_seed(seed))
+            renderer = NerfRenderer(radius=radius, num_samples=192)
+            opt = torch.optim.Adam(field.parameters(), lr=5e-3, eps=1e-8)
+            if draws is None:
+                draws = generator_draws(torch.Generator(device=dev).manual_seed(seed + 1),
+                                        n_views, resolution, rays_per_step,
+                                        renderer.num_samples)
+            for i, d in zip(range(fit_steps), draws):
+                idx, x, y = d.idx.to(dev), d.xy[:, 0].to(dev), d.xy[:, 1].to(dev)
+                c2w = poses[idx]
+                rd = torch.einsum("nij,nj->ni", c2w[:, :3, :3], dirs[y, x])
+                rd = rd / (torch.linalg.norm(rd, dim=-1, keepdim=True) + 1e-12)
+                out = renderer(c2w[:, :3, 3], rd, field, background_color=bg,
+                               jitter=d.jitter.to(dev))
+                loss = torch.mean((out.comp_rgb - images[idx, y, x]) ** 2)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                if (i + 1) % 300 == 0:
+                    print(f"distill step {i + 1} loss {float(loss):.5f}", flush=True)
 
-    t_start = t0 = time.perf_counter()
-    g = load_gaussians(ply_path, dev)
-    # 1. render a dense orbit of supervision views (fit_nerf data)
-    bg = torch.ones(3, device=dev)
-    with torch.no_grad():
-        images = torch.stack([
-            render(g, Camera.from_c2w(p, 60.0, resolution, resolution), bg,
-                   active_sh_degree=sh_degree(g)).image
-            for p in get_uniform_poses(n_views, cam_radius, 0.0)]).clamp(0, 1)
-    t0 = stamp("render_s", t0)
+        # 3. isosurface on density (threshold at sigma*step ~ alpha 0.5)
+        with stage("gs_to_mesh.isosurface", timings, "isosurface_s", dev):
+            @torch.no_grad()
+            def density_fn(pts):
+                out = [field.density_feature(torch.tensor(pts[s:s + 262144], device=dev))[0]
+                       for s in range(0, len(pts), 262144)]
+                # level set: inside = high density -> negative "sdf"
+                return 5.0 - torch.cat(out).cpu().numpy()
 
-    # 2. fit the density NeRF on random rays
-    poses = torch.tensor(get_uniform_poses(n_views, cam_radius, 0.0, opengl=True),
-                         device=dev)
-    focal = fov2focal(np.deg2rad(60.0), resolution)
-    dirs = torch.tensor(get_ray_directions(resolution, resolution, focal), device=dev)
-    field = NerfField(radius=radius).to(dev)
-    field.init_(torch.Generator(device=dev).manual_seed(seed))
-    renderer = NerfRenderer(radius=radius, num_samples=192)
-    opt = torch.optim.Adam(field.parameters(), lr=5e-3, eps=1e-8)
-    if draws is None:
-        draws = generator_draws(torch.Generator(device=dev).manual_seed(seed + 1),
-                                n_views, resolution, rays_per_step, renderer.num_samples)
-    for i, d in zip(range(fit_steps), draws):
-        idx, x, y = d.idx.to(dev), d.xy[:, 0].to(dev), d.xy[:, 1].to(dev)
-        c2w = poses[idx]
-        rd = torch.einsum("nij,nj->ni", c2w[:, :3, :3], dirs[y, x])
-        rd = rd / (torch.linalg.norm(rd, dim=-1, keepdim=True) + 1e-12)
-        out = renderer(c2w[:, :3, 3], rd, field, background_color=bg,
-                       jitter=d.jitter.to(dev))
-        loss = torch.mean((out.comp_rgb - images[idx, y, x]) ** 2)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        if (i + 1) % 300 == 0:
-            print(f"distill step {i + 1} loss {float(loss):.5f}", flush=True)
-    t0 = stamp("fit_s", t0)
+            verts, faces = isosurface(density_fn, radius=radius, resolution=mc_resolution)
+            mesh = Mesh(verts, faces)
+            print(f"extracted mesh: {len(verts)} verts, {len(faces)} faces", flush=True)
+        if len(verts) == 0:
+            print("WARNING: the isosurface is empty (no density above 5); no mesh "
+                  "written", flush=True)
+            return mesh, timings
+        mesh.auto_normal()
 
-    # 3. isosurface on density (threshold at sigma*step ~ alpha 0.5)
-    @torch.no_grad()
-    def density_fn(pts):
-        out = [field.density_feature(torch.tensor(pts[s:s + 262144], device=dev))[0]
-               for s in range(0, len(pts), 262144)]
-        # level set: inside = high density -> negative "sdf"
-        return 5.0 - torch.cat(out).cpu().numpy()
+        # 4. bake colours by refining against the rendered orbit
+        with stage("gs_to_mesh.refine", timings, "refine_s", dev):
+            if refine_iters > 0:
+                refiner = TextureRefiner(
+                    mesh, images.cpu().numpy(),
+                    RefineConfig(iters=refine_iters, lr=0.05, num_opt_views=min(16, n_views),
+                                 radius=cam_radius), device=dev)
+                refiner.run()
+                mesh = refiner.export()
 
-    verts, faces = isosurface(density_fn, radius=radius, resolution=mc_resolution)
-    mesh = Mesh(verts, faces)
-    print(f"extracted mesh: {len(verts)} verts, {len(faces)} faces", flush=True)
-    t0 = stamp("isosurface_s", t0)
-    if len(verts) == 0:
-        print("WARNING: the isosurface is empty (no density above 5); no mesh "
-              "written", flush=True)
-        timings["total_s"] = time.perf_counter() - t_start
-        return mesh, timings
-    mesh.auto_normal()
-
-    # 4. bake colours by refining against the rendered orbit
-    if refine_iters > 0:
-        refiner = TextureRefiner(
-            mesh, images.cpu().numpy(),
-            RefineConfig(iters=refine_iters, lr=0.05, num_opt_views=min(16, n_views),
-                         radius=cam_radius), device=dev)
-        refiner.run()
-        mesh = refiner.export()
-    t0 = stamp("refine_s", t0)
-
-    os.makedirs(output, exist_ok=True)
-    mesh.write_glb(os.path.join(output, "mesh.glb"))
-    mesh.write_obj(os.path.join(output, "mesh.obj"))
-    stamp("write_s", t0)
-    timings["total_s"] = time.perf_counter() - t_start
+        with stage("gs_to_mesh.write", timings, "write_s", dev):
+            os.makedirs(output, exist_ok=True)
+            mesh.write_glb(os.path.join(output, "mesh.glb"))
+            mesh.write_obj(os.path.join(output, "mesh.obj"))
     print(f"saved {output}/mesh.glb", flush=True)
     return mesh, timings
 

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import math
 import os
-import time
 from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,6 +32,7 @@ from v3d_tpu_torch.apps.generate import sample_one
 from v3d_tpu_torch.data.cameras import orbit_cameras
 from v3d_tpu_torch.gs.ply import save_ply
 from v3d_tpu_torch.gs.trainer import GSTrainConfig, GSTrainer
+from v3d_tpu_torch.utils.trace import span, stage
 
 
 class ResampleDraws(NamedTuple):
@@ -67,14 +67,16 @@ def train_iterative(input_image: str, output: str, checkpoint: str = None,
     """The refinement on ``device`` (the card unless the caller asks for
     the CPU); returns the trainer and the seconds of each stage
     (``generate_s``, ``fit_s`` for the fit steps alone, ``resample_s`` one
-    per resample)."""
+    per resample), each a span (``utils/trace.py``) that ends on the
+    device."""
     from PIL import Image
 
     dev = torch.device(device)
-    t0 = time.perf_counter()
-    frames, engine, _ = sample_one(np.asarray(Image.open(input_image)),
-                                   checkpoint=checkpoint, device=dev)
-    timings: Dict = {"generate_s": time.perf_counter() - t0, "resample_s": []}
+    timings: Dict = {}
+    with stage("recon_gs_iterative.generate", timings, "generate_s"):
+        frames, engine, _ = sample_one(np.asarray(Image.open(input_image)),
+                                       checkpoint=checkpoint, device=dev)
+    timings["resample_s"] = []
     frames_f = frames.astype(np.float32) / 255.0
     t, h = frames.shape[0], frames.shape[1]
     cams = orbit_cameras(t, resolution=h, images=list(frames_f))
@@ -93,27 +95,27 @@ def train_iterative(input_image: str, output: str, checkpoint: str = None,
     draws = iter(draws)
     image = torch.from_numpy(frames_f[0:1] * 2 - 1)
 
-    t_fit = time.perf_counter()
-    for i in range(iterations):
-        trainer.train_iter()
-        if i > resample_start and i % resample_period == 0:
-            _sync(dev)
-            t_res = time.perf_counter()
-            d = next(draws)
-            views = torch.stack([trainer.render_view(k).image for k in range(t)])
-            z = engine.encode_first_stage(views * 2 - 1, noise=d.enc) / engine.scale_factor
-            noisy = (math.sqrt(1 - resample_sigma**2) * z
-                     + d.eps.to(z.device) * resample_sigma)
-            clip_emb, cond_frames = engine.encode_image(
-                image, 0.02, d.cond_enc, d.cond_aug)
-            c, uc = engine.build_cond(clip_emb, cond_frames, 1, 300, 0.02)
-            z_new = engine.sample_latents(c, uc, h, h, noise=noisy)
-            trainer.images = engine.decode_latents(z_new, decoding_t=6).to(dev)
-            _sync(dev)
-            timings["resample_s"].append(time.perf_counter() - t_res)
-            print(f"iter {i}: resampled {t} views via diffusion", flush=True)
-    _sync(dev)
-    timings["fit_s"] = time.perf_counter() - t_fit - sum(timings["resample_s"])
+    with stage("recon_gs_iterative.fit", timings, "fit_s", dev):
+        for i in range(iterations):
+            trainer.train_iter()
+            if i > resample_start and i % resample_period == 0:
+                _sync(dev)
+                with span("recon_gs_iterative.resample", iteration=i) as resample:
+                    d = next(draws)
+                    views = torch.stack([trainer.render_view(k).image for k in range(t)])
+                    z = engine.encode_first_stage(
+                        views * 2 - 1, noise=d.enc) / engine.scale_factor
+                    noisy = (math.sqrt(1 - resample_sigma**2) * z
+                             + d.eps.to(z.device) * resample_sigma)
+                    clip_emb, cond_frames = engine.encode_image(
+                        image, 0.02, d.cond_enc, d.cond_aug)
+                    c, uc = engine.build_cond(clip_emb, cond_frames, 1, 300, 0.02)
+                    z_new = engine.sample_latents(c, uc, h, h, noise=noisy)
+                    trainer.images = engine.decode_latents(z_new, decoding_t=6).to(dev)
+                    _sync(dev)
+                timings["resample_s"].append(resample.seconds)
+                print(f"iter {i}: resampled {t} views via diffusion", flush=True)
+    timings["fit_s"] -= sum(timings["resample_s"])
 
     os.makedirs(output, exist_ok=True)
     save_ply(os.path.join(output, "point_cloud.ply"), trainer.gaussians_np())

@@ -31,7 +31,6 @@ import argparse
 import dataclasses
 import json
 import os
-import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -43,6 +42,7 @@ from v3d_tpu_torch.meshops.mcubes import isosurface
 from v3d_tpu_torch.meshops.mesh import Mesh
 from v3d_tpu_torch.nerf.system import NeusConfig, NeusTrainer
 from v3d_tpu_torch.utils.snapshot import snapshot_run
+from v3d_tpu_torch.utils.trace import stage
 
 
 def foreground_masks(frames: np.ndarray, threshold: float = 0.95) -> np.ndarray:
@@ -134,36 +134,30 @@ def reconstruct(frames: np.ndarray, output: str, max_steps: int = 3000,
             flush=True)
 
     timings = {}
-    t0 = time.perf_counter()
-    trainer.train(max_steps if train_steps is None else train_steps,
-                  log_every=log_every, log_fn=log_fn or print_stats)
-    if trainer.device.type == "cuda":
-        torch.cuda.synchronize()
-    timings["train_s"] = time.perf_counter() - t0
+    with stage("recon_neus.train", timings, "train_s", trainer.device):
+        trainer.train(max_steps if train_steps is None else train_steps,
+                      log_every=log_every, log_fn=log_fn or print_stats)
 
     os.makedirs(output, exist_ok=True)
     with open(os.path.join(output, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
     # run-reproducibility snapshot (reference utils/callbacks.py:52-95)
     snapshot_run(output, config=cfg)
-    t0 = time.perf_counter()
-    verts, faces = isosurface(None, radius=radius, resolution=mc_resolution,
-                              grid_fn=trainer.sdf_grid)
-    timings["export_s"] = time.perf_counter() - t0
+    with stage("recon_neus.export", timings, "export_s"):
+        verts, faces = isosurface(None, radius=radius, resolution=mc_resolution,
+                                  grid_fn=trainer.sdf_grid)
     if len(verts) == 0:
         # a degenerate fit: the SDF has no zero crossing; no mesh is written
         print("WARNING: the isosurface is empty (no SDF zero crossing); "
               "no mesh written", flush=True)
         return trainer, Mesh(verts, faces), timings
-    t0 = time.perf_counter()
-    mesh = Mesh(verts, faces).auto_normal()
-    mesh.vertex_colors = trainer.vertex_colors(verts)
-    timings["colors_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    obj_path = os.path.join(output, "mesh.obj")
-    mesh.write_obj(obj_path)
-    mesh.write_glb(os.path.join(output, "mesh.glb"))
-    timings["write_s"] = time.perf_counter() - t0
+    with stage("recon_neus.colors", timings, "colors_s"):
+        mesh = Mesh(verts, faces).auto_normal()
+        mesh.vertex_colors = trainer.vertex_colors(verts)
+    with stage("recon_neus.write", timings, "write_s"):
+        obj_path = os.path.join(output, "mesh.obj")
+        mesh.write_obj(obj_path)
+        mesh.write_glb(os.path.join(output, "mesh.glb"))
     print(f"saved {obj_path} ({len(verts)} verts, {len(faces)} faces)", flush=True)
     return trainer, mesh, timings
 

@@ -25,8 +25,10 @@ seeded CLIP embeddings.  ``--checkpoint`` loads a V3D / SVD checkpoint (sgm
 key names) into the engine; without it the weights are seeded random.  The
 data's host side (decode, collate) runs in a background thread one batch
 ahead.  One JSON line of stats per logged step, with ``launches``: this
-process's launches of the hand-written kernels so far, by kernel; the same
-rows, without the launches, in ``<log-dir>/metrics.csv``.
+process's launches of the hand-written kernels so far, by kernel, and
+``unet_forward``: its UNet forwards and their rows so far
+(``utils.trace.UNET_FORWARD``); the same rows, without the launches and the
+forwards, in ``<log-dir>/metrics.csv``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from v3d_tpu_torch.parallel.mesh import (
 )
 from v3d_tpu_torch.utils.logging import ExperimentLogger
 from v3d_tpu_torch.utils.snapshot import snapshot_run
+from v3d_tpu_torch.utils.trace import UNET_FORWARD, span
 
 
 def build_train_engine(num_frames: int = 18, device="cuda",
@@ -93,27 +96,30 @@ def prepare_batch(engine, batch: Dict, num_frames: int,
     noise drawn from ``generator`` in that order; a front view given as
     pixels becomes its CLIP embedding.  Under ``mesh`` the batch is this
     rank's slice along "data" and each noise its block of the draw at the
-    global batch's shape.  -> ``{"latents", "cond"}``."""
-    dev = engine.device
-    batch = dict(batch)
-    block = {} if mesh is None else {"block": data_block(mesh)}
-    if "latents" in batch:
-        latents = torch.as_tensor(batch["latents"], device=dev)
-    else:
-        latents = engine.encode_first_stage(
-            torch.as_tensor(batch["frames"], device=dev), generator=generator, **block)
-        batch["cond_frames"] = engine.encode_first_stage(
-            torch.as_tensor(batch["cond_frames"], device=dev), generator=generator,
-            **block)
-    front = torch.as_tensor(batch["cond_frames_without_noise"], device=dev)
-    if front.dim() == 4:
-        if front.shape[-1] != 3:
-            raise ValueError("a latent front view has no CLIP embedding: the "
-                             "item needs clip_emb.npy")
-        emb = engine.clip(clip_preprocess(front.float()).permute(0, 3, 1, 2)).float()
-        batch["cond_frames_without_noise"] = emb[:, None] if emb.dim() == 2 else emb
-    return {"latents": latents,
-            "cond": engine.training_cond(batch, num_frames=num_frames)}
+    global batch's shape.  A ``train.prepare_batch`` span.
+    -> ``{"latents", "cond"}``."""
+    with span("train.prepare_batch"):
+        dev = engine.device
+        batch = dict(batch)
+        block = {} if mesh is None else {"block": data_block(mesh)}
+        if "latents" in batch:
+            latents = torch.as_tensor(batch["latents"], device=dev)
+        else:
+            latents = engine.encode_first_stage(
+                torch.as_tensor(batch["frames"], device=dev), generator=generator, **block)
+            batch["cond_frames"] = engine.encode_first_stage(
+                torch.as_tensor(batch["cond_frames"], device=dev), generator=generator,
+                **block)
+        front = torch.as_tensor(batch["cond_frames_without_noise"], device=dev)
+        if front.dim() == 4:
+            if front.shape[-1] != 3:
+                raise ValueError("a latent front view has no CLIP embedding: the "
+                                 "item needs clip_emb.npy")
+            with span("clip.forward"):
+                emb = engine.clip(clip_preprocess(front.float()).permute(0, 3, 1, 2)).float()
+            batch["cond_frames_without_noise"] = emb[:, None] if emb.dim() == 2 else emb
+        return {"latents": latents,
+                "cond": engine.training_cond(batch, num_frames=num_frames)}
 
 
 def batches(engine, dataset, batch_size: int, num_frames: int,
@@ -214,7 +220,8 @@ def main(argv=None) -> None:
         train(args.data, args.batch_size, args.num_frames, args.max_steps, args.lr,
               args.ckpt_dir, args.ckpt_every, log_every=args.log_every, device=device,
               log_fn=lambda s: print(json.dumps(dict(s, launches={
-                  k: v for k, v in LAUNCHES.items() if v})), flush=True),
+                  k: v for k, v in LAUNCHES.items() if v}, unet_forward=UNET_FORWARD)),
+                  flush=True),
               checkpoint=args.checkpoint, log_dir=args.log_dir,
               snapshot_config=vars(args), mesh=mesh)
     finally:

@@ -13,7 +13,9 @@ A sampler is called as ``sampler(denoiser, x, cond, uc, generator=...,
 num_steps=..., noises=...)`` with ``denoiser(x, sigma, cond)``.  Noise is
 drawn only by the ancestral samplers and by Euler's churn: draw ``i`` is
 ``noises[i]`` when a list of n tensors is given (the JAX package draws one
-per step, the last unused), else it comes from ``generator``.
+per step, the last unused), else it comes from ``generator``.  Each
+sampler's ``sample`` runs inside a ``sampler.run`` span and each step's
+body inside a ``sampler.step`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from v3d_tpu_torch.core.registry import register
 from v3d_tpu_torch.diffusion.denoise import append_dims
 from v3d_tpu_torch.diffusion.guidance import IdentityGuider
+from v3d_tpu_torch.utils.trace import span
 
 Cond = Dict[str, torch.Tensor]
 
@@ -54,6 +57,24 @@ class BaseDiffusionSampler:
     discretization: object = None
     num_steps: Optional[int] = None
     guider: object = dataclasses.field(default_factory=IdentityGuider)
+
+    def __call__(self, denoiser: Callable, x: torch.Tensor, cond: Cond,
+                 uc: Optional[Cond] = None,
+                 generator: Optional[torch.Generator] = None,
+                 num_steps: Optional[int] = None,
+                 noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The sampler's run (``sample``) inside a ``sampler.run`` span."""
+        with span("sampler.run"):
+            return self.sample(denoiser, x, cond, uc, generator=generator,
+                               num_steps=num_steps, noises=noises)
+
+    @staticmethod
+    def steps(n: int):
+        """Step indices 0 .. n - 1, the loop body of each inside a
+        ``sampler.step`` span (attribute ``step``)."""
+        for i in range(n):
+            with span("sampler.step", step=i):
+                yield i
 
     def schedule(self, num_steps: Optional[int] = None) -> np.ndarray:
         n = num_steps if num_steps is not None else self.num_steps
@@ -108,15 +129,15 @@ class EulerEDMSampler(BaseDiffusionSampler):
                 cond, uc):
         return euler
 
-    def __call__(self, denoiser: Callable, x: torch.Tensor, cond: Cond,
-                 uc: Optional[Cond] = None,
-                 generator: Optional[torch.Generator] = None,
-                 num_steps: Optional[int] = None,
-                 noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    def sample(self, denoiser: Callable, x: torch.Tensor, cond: Cond,
+               uc: Optional[Cond] = None,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         uc = cond if uc is None else uc
         x, sigmas_np, sigmas = self.prepare(x, num_steps)
         gammas = self.gammas(sigmas_np)
-        for i in range(len(sigmas_np) - 1):
+        for i in self.steps(len(sigmas_np) - 1):
             sigma, next_sigma = sigmas[i], sigmas[i + 1]
             sigma_hat = sigma * (float(gammas[i]) + 1.0)
             if gammas[i] > 0:
@@ -153,13 +174,13 @@ class EulerAncestralSampler(BaseDiffusionSampler):
     eta: float = 1.0
     s_noise: float = 1.0
 
-    def __call__(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
-                 generator: Optional[torch.Generator] = None,
-                 num_steps: Optional[int] = None,
-                 noises: Optional[Sequence[torch.Tensor]] = None):
+    def sample(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None):
         uc = cond if uc is None else uc
         x, sigmas_np, sigmas = self.prepare(x, num_steps)
-        for i in range(len(sigmas_np) - 1):
+        for i in self.steps(len(sigmas_np) - 1):
             sigma, next_sigma = sigmas[i], sigmas[i + 1]
             sigma_down, sigma_up = get_ancestral_step(sigma, next_sigma, self.eta)
             denoised = self.denoise(x, denoiser, sigma, cond, uc)
@@ -181,13 +202,13 @@ class DPMPP2SAncestralSampler(BaseDiffusionSampler):
     eta: float = 1.0
     s_noise: float = 1.0
 
-    def __call__(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
-                 generator: Optional[torch.Generator] = None,
-                 num_steps: Optional[int] = None,
-                 noises: Optional[Sequence[torch.Tensor]] = None):
+    def sample(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None):
         uc = cond if uc is None else uc
         x, sigmas_np, sigmas = self.prepare(x, num_steps)
-        for i in range(len(sigmas_np) - 1):
+        for i in self.steps(len(sigmas_np) - 1):
             sigma, next_sigma = sigmas[i], sigmas[i + 1]
             sigma_down, sigma_up = get_ancestral_step(sigma, next_sigma, self.eta)
             down_np, _ = get_ancestral_step(sigmas_np[i], sigmas_np[i + 1], self.eta)
@@ -220,14 +241,14 @@ class DPMPP2MSampler(BaseDiffusionSampler):
     reduces to the denoised estimate) take the first-order update, the
     others the correction by the previous denoised estimate."""
 
-    def __call__(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
-                 generator: Optional[torch.Generator] = None,
-                 num_steps: Optional[int] = None,
-                 noises: Optional[Sequence[torch.Tensor]] = None):
+    def sample(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None):
         uc = cond if uc is None else uc
         x, sigmas_np, sigmas = self.prepare(x, num_steps)
         old_denoised = None
-        for i in range(len(sigmas_np) - 1):
+        for i in self.steps(len(sigmas_np) - 1):
             sigma, next_sigma = sigmas[i], sigmas[i + 1]
             denoised = self.denoise(x, denoiser, sigma, cond, uc)
             t, t_next = -torch.log(sigma), -torch.log(next_sigma)
@@ -277,17 +298,17 @@ class LinearMultistepSampler(BaseDiffusionSampler):
                 table[i, j] = integrate.quad(fn, t[i], t[i + 1], epsrel=1e-4)[0]
         return table
 
-    def __call__(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
-                 generator: Optional[torch.Generator] = None,
-                 num_steps: Optional[int] = None,
-                 noises: Optional[Sequence[torch.Tensor]] = None):
+    def sample(self, denoiser, x, cond: Cond, uc: Optional[Cond] = None,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None):
         uc = cond if uc is None else uc
         x, sigmas_np, sigmas = self.prepare(x, num_steps)
         coeffs = torch.as_tensor(self.coeff_table(sigmas_np), dtype=sigmas.dtype,
                                  device=x.device)
         ds = torch.zeros((self.order,) + tuple(x.shape), dtype=x.dtype,
                          device=x.device)
-        for i in range(len(sigmas_np) - 1):
+        for i in self.steps(len(sigmas_np) - 1):
             denoised = self.denoise(x, denoiser, sigmas[i], cond, uc)
             d = to_d(x, sigmas[i], denoised)
             ds = torch.cat([d[None], ds[:-1]], dim=0)

@@ -23,6 +23,7 @@ from v3d_tpu_torch.diffusion.denoise import Denoiser
 from v3d_tpu_torch.diffusion.discretize import SlicedDiscretization
 from v3d_tpu_torch.engines.video_diffusion import _draw
 from v3d_tpu_torch.models.vae import gaussian_sample
+from v3d_tpu_torch.utils.trace import span, unet_forward
 
 
 @dataclasses.dataclass
@@ -42,11 +43,12 @@ class ImageDiffusionEngine:
 
     def _denoiser_fn(self):
         def network(x, c_noise, cond):
-            if "concat" in cond:
-                x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
-            out = self.unet(x.permute(0, 3, 1, 2), c_noise,
-                            context=cond.get("crossattn"), y=cond.get("vector"))
-            return out.permute(0, 2, 3, 1)
+            with unet_forward(x.shape[0]):
+                if "concat" in cond:
+                    x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
+                out = self.unet(x.permute(0, 3, 1, 2), c_noise,
+                                context=cond.get("crossattn"), y=cond.get("vector"))
+                return out.permute(0, 2, 3, 1)
 
         def denoiser_fn(x, sigma, cond):
             return self.denoiser(network, x, sigma, cond)
@@ -87,10 +89,12 @@ class ImageDiffusionEngine:
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """latents (n, h, w, c) -> images (n, H, W, 3) in [0, 1], float32."""
-        z = z.to(self.device) / self.scale_factor
-        x = self.vae_decoder(z.permute(0, 3, 1, 2)).float()
-        return ((x + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        """latents (n, h, w, c) -> images (n, H, W, 3) in [0, 1], float32
+        (a ``vae.decode`` span)."""
+        with span("vae.decode", frames=z.shape[0]):
+            z = z.to(self.device) / self.scale_factor
+            x = self.vae_decoder(z.permute(0, 3, 1, 2)).float()
+            return ((x + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def encode(self, images: torch.Tensor, noise: Optional[torch.Tensor] = None,

@@ -55,6 +55,7 @@ from v3d_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from v3d_tpu_torch.parallel.tensor import tp_unshard_
+from v3d_tpu_torch.utils.trace import span
 
 _CKPT = re.compile(r"step_(\d+)\.pt$")
 
@@ -139,25 +140,34 @@ class DiffusionTrainer:
         global batch's shape unless ``sigmas`` / ``noise`` (the global
         batch's) are given.  The loss and gradient norm returned are the
         global batch's."""
-        for group in self.opt.param_groups:
-            group["lr"] = self.cfg.base_learning_rate * self.schedule(self.step)
-        self.opt.zero_grad(set_to_none=True)
-        loss = self.engine.training_loss(
-            latents, cond, num_frames=self.t, sigmas=sigmas, noise=noise,
-            generator=step_generator(self.seed, self.step, latents.device),
-            block=data_block(self.mesh), mesh=self.mesh)
-        loss.backward()
-        grads = [p.grad for p in self.params if p.grad is not None]
-        loss = loss.detach().reshape(1).clone()
-        all_reduce_mean_(grads + [loss], self.mesh)
-        gnorm = torch.nn.utils.get_total_norm(grads)
-        if self.cfg.grad_clip and float(gnorm) >= self.cfg.grad_clip:
-            torch._foreach_mul_(grads, self.cfg.grad_clip / gnorm)
-        self.opt.step()
-        if self.ema is not None:
-            ema_update_(self.ema, self.params, self.step, self.cfg.ema_decay)
-        self.step += 1
-        return {"loss": float(loss), "grad_norm": float(gnorm), "step": self.step}
+        with span("trainer.step", step=self.step):
+            for group in self.opt.param_groups:
+                group["lr"] = self.cfg.base_learning_rate * self.schedule(self.step)
+            self.opt.zero_grad(set_to_none=True)
+            with span("trainer.forward"):
+                loss = self.engine.training_loss(
+                    latents, cond, num_frames=self.t, sigmas=sigmas, noise=noise,
+                    generator=step_generator(self.seed, self.step, latents.device),
+                    block=data_block(self.mesh), mesh=self.mesh)
+            with span("trainer.backward"):
+                loss.backward()
+            with span("trainer.update"):
+                grads = [p.grad for p in self.params if p.grad is not None]
+                loss = loss.detach().reshape(1).clone()
+                if self.mesh is not None:
+                    with span("trainer.all_reduce"):
+                        all_reduce_mean_(grads + [loss], self.mesh)
+                gnorm = torch.nn.utils.get_total_norm(grads)
+                if self.cfg.grad_clip and float(gnorm) >= self.cfg.grad_clip:
+                    torch._foreach_mul_(grads, self.cfg.grad_clip / gnorm)
+                with span("trainer.optimizer"):
+                    self.opt.step()
+                if self.ema is not None:
+                    with span("trainer.ema"):
+                        ema_update_(self.ema, self.params, self.step, self.cfg.ema_decay)
+            self.step += 1
+            with span("trainer.sync"):
+                return {"loss": float(loss), "grad_norm": float(gnorm), "step": self.step}
 
     def shard_batch(self, batch: Dict) -> Dict:
         """This rank's slice of a global batch along "data" (the batch as

@@ -31,6 +31,7 @@ from v3d_tpu_torch.models.conditioner import (
 )
 from v3d_tpu_torch.models.vae import gaussian_sample
 from v3d_tpu_torch.parallel.mesh import replicate
+from v3d_tpu_torch.utils.trace import span
 
 
 def _draw(noise: Optional[torch.Tensor], shape, device,
@@ -89,10 +90,12 @@ class VideoDiffusionEngine:
         the cond-aug noise ``aug_noise``."""
         dev = self.device
         image = image.to(dev, torch.float32)
-        clip_emb = self.clip(clip_preprocess(image).permute(0, 3, 1, 2)).float()
+        with span("clip.forward"):
+            clip_emb = self.clip(clip_preprocess(image).permute(0, 3, 1, 2)).float()
         if clip_emb.dim() == 2:
             clip_emb = clip_emb[:, None, :]
-        moments = self.vae_encoder(image.permute(0, 3, 1, 2))
+        with span("vae.encode", frames=image.shape[0]):
+            moments = self.vae_encoder(image.permute(0, 3, 1, 2))
         moments = moments.permute(0, 2, 3, 1).float()
         shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
         z = gaussian_sample(moments, _draw(enc_noise, shape, dev, generator))
@@ -158,15 +161,18 @@ class VideoDiffusionEngine:
     def decode_latents(self, z: torch.Tensor,
                        decoding_t: Optional[int] = None) -> torch.Tensor:
         """Chunked temporal VAE decode (video_diffusion.py:183-211):
-        (t, h, w, 4) -> frames (t, H, W, 3) in [0, 1], float32."""
+        (t, h, w, 4) -> frames (t, H, W, 3) in [0, 1], float32; a
+        ``vae.decode`` span a chunk."""
         t = z.shape[0]
         decoding_t = min(decoding_t or t, t)
         outs = []
         for i in range(0, t, decoding_t):
-            chunk = z[i:i + decoding_t].to(self.device) / self.scale_factor
-            x = self.vae_decoder(chunk.permute(0, 3, 1, 2), chunk.shape[0])
-            outs.append(((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
-                        .permute(0, 2, 3, 1))
+            chunk = z[i:i + decoding_t]
+            with span("vae.decode", frames=chunk.shape[0]):
+                chunk = chunk.to(self.device) / self.scale_factor
+                x = self.vae_decoder(chunk.permute(0, 3, 1, 2), chunk.shape[0])
+                outs.append(((x.float() + 1.0) / 2.0).clamp(0.0, 1.0)
+                            .permute(0, 2, 3, 1))
         return torch.cat(outs, dim=0)
 
     @torch.no_grad()
@@ -180,7 +186,8 @@ class VideoDiffusionEngine:
         Under ``block`` (index, count) the frames are a data-parallel
         rank's rows of the global batch, and the noise drawn is their rows
         of the draw at the global batch's shape (``global_rows``)."""
-        moments = self.vae_encoder(frames.to(self.device).permute(0, 3, 1, 2))
+        with span("vae.encode", frames=frames.shape[0]):
+            moments = self.vae_encoder(frames.to(self.device).permute(0, 3, 1, 2))
         moments = moments.permute(0, 2, 3, 1).float()
         shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
         if noise is None:
