@@ -23,7 +23,10 @@ Phases, each printing lines before the last:
    bound counts the pairs of the exact 1/255 boxes (``gs_pairs``), not
    every pair a cell-wide sweep tests; K8 + K7 (the flash backward) also
    as a pair through ``flash_attn_bwd`` against SDPA's backward and the
-   bounds of the pair (seven products) and of the function (five);
+   bounds of the pair (seven products) and of the function (five); K10 at
+   every (rows, C) of both UNets' forwards and CLIP's
+   (``K10_FORWARD_SHAPES``, ``K10_IMAGE_SHAPES``), against LayerNormF32's
+   chain and, as the library call, ``F.layer_norm`` on the f32 copy;
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
    kernels against the same forward in ``reference_mode()`` (plain versions),
    and a ``torch.profiler`` trace of two forwards (device time by kernel
@@ -332,7 +335,22 @@ KERNELS = {
         label="K6 split apply", source="v3d_tpu_torch/csrc/group_norm.cu",
         replaces="v3d_tpu/ops/fused_groupnorm.py:126 (_pallas_group_norm's "
                  "_norm_kernel call, T9)"),
+    "layer_norm": dict(
+        label="K10", source="v3d_tpu_torch/csrc/layer_norm.cu",
+        replaces="none: v3d_tpu/models/layers.py LayerNormF32 is left to XLA's "
+                 "fusion (K10 is the eager upcast + f32 F.layer_norm + downcast "
+                 "as one pass)"),
 }
+# K10's calls in one no-grad forward of each full-width UNet (bf16): (rows,
+# C) of the LayerNorm input and calls.  V3D-512 (the CFG-doubled 36 frames
+# at 64^2 latents): 7 a SpatialVideoTransformer (3 in its spatial block, 4
+# in its temporal one), 16 of them, 112 calls; SD 2.1's UNet2D (8 CFG rows
+# at 96^2): 3 a transformer block, 16 of them, 48 calls.  The lists a
+# meta-device forward gives (tests/test_torch_kernel_plans.py holds them so).
+K10_FORWARD_SHAPES = (((147456, 320), 35), ((36864, 640), 35), ((9216, 1280), 35),
+                      ((2304, 1280), 7))
+K10_IMAGE_SHAPES = (((73728, 320), 15), ((18432, 640), 15), ((4608, 1280), 15),
+                    ((1152, 1280), 3))
 # K6's calls in one full-width V3D-512 UNet forward (bf16, the CFG-doubled
 # video of 36 frames at 64^2 latents): (B, C, *spatial) of the GroupNorm
 # input, fused SiLU, calls.  105 calls, 18 shapes; the list a meta-device
@@ -655,6 +673,7 @@ def phase_kernels() -> dict:
         results[name] += checks
     results["group_norm"] = group_norm_checks(randn) + group_norm_unet2d_checks(randn)
     results["group_norm_stats"], results["group_norm_apply"] = group_norm_split_checks(randn)
+    results["layer_norm"] = layer_norm_checks(randn)
     results.update(flash_bwd_checks(randn))
     results.update(phase_gs_kernels())
     return results
@@ -1023,6 +1042,50 @@ def group_norm_work(shape, silu: bool, elem: int, param_elem: int):
     and bias read once."""
     n = math.prod(shape)
     return (8 if silu else 5) * n, 2 * n * elem + 2 * shape[1] * param_elem
+
+
+def layer_norm_work(rows: int, C: int, elem: int, param_elem: int):
+    """(FLOPs, bytes) of one K10 call on ``rows`` rows of C: the two
+    statistics and the normalise-and-affine (8 an element); x read once, y
+    written once, weight and bias read once."""
+    n = rows * C
+    return 8 * n, 2 * n * elem + 2 * C * param_elem
+
+
+def layer_norm_checks(randn) -> list:
+    """K10 at every (rows, C) of the two UNets' forwards
+    (``K10_FORWARD_SHAPES``, ``K10_IMAGE_SHAPES``) and CLIP ViT-H's (257,
+    1280), bf16 x with bf16 weight and bias (as the engines hold them);
+    V3D's ds1 also in f32 x and f32 parameters.  Plain: LayerNormF32's
+    chain (upcast, f32 ``F.layer_norm``, downcast); library:
+    ``F.layer_norm`` on the f32 copy alone; bound: one read of x, one
+    write of y."""
+    import torch
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32, layer_norm_f32_plain
+
+    out = []
+    sites = ([("v3d", s, torch.bfloat16) for s, _ in K10_FORWARD_SHAPES]
+             + [("sd", s, torch.bfloat16) for s, _ in K10_IMAGE_SHAPES]
+             + [("clip", (257, 1280), torch.bfloat16),
+                ("v3d", K10_FORWARD_SHAPES[0][0], torch.float32)])
+    for tag, (rows, C), dtype in sites:
+        x = (randn(rows, C) + 0.3).to(dtype)
+        w, b = (1 + randn(C, scale=0.1)).to(dtype), randn(C, scale=0.1).to(dtype)
+        up, wf, bf = x.float(), w.float(), b.float()
+
+        def library():
+            return F.layer_norm(up, (C,), wf, bf, 1e-5)
+
+        # the library call is also the f32 result the bf16 kernel is held to
+        out.append(_check(
+            "layer_norm", f"{tag} {(rows, C)}", dtype,
+            lambda: layer_norm_f32(x, w, b, 1e-5),
+            lambda: layer_norm_f32_plain(x, w, b, 1e-5), library,
+            layer_norm_work(rows, C, x.element_size(), w.element_size()), library))
+        del x, up
+    return out
 
 
 def group_norm_checks(randn) -> list:
@@ -1656,9 +1719,11 @@ def vae_sites(vae, tokens: int, dtype=None) -> dict:
 
 
 def clip_sites(clip) -> dict:
-    """Attention launches of one CLIP ViT forward: every residual block's
-    self-attention over the patches and the class token."""
+    """Launches of one no-grad CLIP ViT forward: every residual block's
+    self-attention over the patches and the class token, and K10 at each
+    LayerNorm (two a block, ``ln_pre``, ``ln_post``)."""
     out = dict.fromkeys(ATTENTION_KERNELS, 0)
+    out["layer_norm"] = count_layer_norms(clip)
     tokens = (clip.image_size // clip.conv1.kernel_size[0]) ** 2 + 1
     for blk in clip.transformer.resblocks:
         kernel = _attention_kernel(tokens, clip.conv1.out_channels // blk.attn.heads)
@@ -1673,6 +1738,15 @@ def count_group_norms(module) -> int:
     return sum(isinstance(m, GroupNorm32) for m in module.modules())
 
 
+def count_layer_norms(module) -> int:
+    """K10's launches in one no-grad forward of ``module``: each
+    LayerNormF32 runs once (none under a gradient: training's take the
+    plain formula)."""
+    from v3d_tpu_torch.models.layers import LayerNormF32
+
+    return sum(isinstance(m, LayerNormF32) for m in module.modules())
+
+
 def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
     """Launches of one generation under the routing set now: ``steps`` UNet
     forwards, one CLIP forward and one VAE encode of the image and one
@@ -1683,6 +1757,7 @@ def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
     out = {name: 0 for name in KERNELS}
     for name in ATTENTION_KERNELS:
         out[name] = steps * u[name] + sum(c[name] for c in cond)
+    out["layer_norm"] = steps * count_layer_norms(engine.unet) + cond[0]["layer_norm"]
     out.update(temporal_block=steps * u["temporal_block"],
                temporal_core=steps * u["temporal_core"],
                group_norm=steps * (u["gn_blocks"] + u["gn_other"])
@@ -1692,13 +1767,15 @@ def gen_launches(engine, steps: int = 25, hw: int = 64) -> dict:
 
 
 def forward_launches(unet, hw: int = 64, dtype=None, ranks=None, rank: int = 0) -> dict:
-    """Launches of one UNet forward under the routing set now (with
-    ``ranks``: rank ``rank``'s share of a frame-parallel forward)."""
+    """Launches of one no-grad UNet forward under the routing set now, K10
+    at every LayerNorm (with ``ranks``: rank ``rank``'s share of a
+    frame-parallel forward)."""
     u = unet_sites(unet, hw, dtype=dtype, ranks=ranks, rank=rank)
     out = {name: 0 for name in KERNELS}
     out.update({k: u[k] for k in ATTENTION_KERNELS + ("temporal_block", "temporal_core")},
                group_norm=u["gn_blocks"] + u["gn_other"],
-               group_norm_stats=u["gn_split"], group_norm_apply=u["gn_split"])
+               group_norm_stats=u["gn_split"], group_norm_apply=u["gn_split"],
+               layer_norm=count_layer_norms(unet))
     return out
 
 
@@ -1707,7 +1784,8 @@ def train_launches(unet, hw: int = 64, use_checkpoint: bool = True, ranks=None,
     """Launches of one fine-tune step: the forward, the blocks' forwards
     once more when checkpointing recomputes them, K8 and K7 once per K1
     site of the "flash_jax" route; K2/K3/K6 and the other attention routes'
-    backwards recompute through plain formulas.  With ``ranks``: rank
+    backwards recompute through plain formulas; the LayerNorms want a
+    gradient, so none takes K10.  With ``ranks``: rank
     ``rank``'s share of a frame-split step (``unet_sites``)."""
     u = unet_sites(unet, hw, dtype=dtype, ranks=ranks, rank=rank)
     r = 2 if use_checkpoint else 1
@@ -3771,7 +3849,8 @@ def image_forward_launches(unet) -> dict:
     77 context tokens, under the routing set now."""
     u = unet2d_sites(unet, IMAGE_LATENT, 77)
     out = {name: 0 for name in KERNELS}
-    out.update({k: u[k] for k in ATTENTION_KERNELS}, group_norm=u["group_norm"])
+    out.update({k: u[k] for k in ATTENTION_KERNELS}, group_norm=u["group_norm"],
+               layer_norm=count_layer_norms(unet))
     return out
 
 

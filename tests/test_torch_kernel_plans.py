@@ -5,6 +5,9 @@ made of the others, each kernel's launch plan at the main path's shapes,
 the phase-3 work and bound formulas of chip_smoke.py, and CPU tensors
 reaching the plain versions with no launch (against the JAX package's
 Pallas kernels in interpret mode, or jax.vjp of its attention formula).
+K10 (LayerNorm): its plan at the UNets' and CLIP's widths, what its
+wrapper hands the kernel (a stand-in launch) and refuses, and the
+LayerNorm calls of both full-width UNet forwards on the meta device.
 
 Tolerances: the plans and bounds are exact integers or closed formulas
 (bounds to 1e-3 ms); the plain versions as tests/test_torch_ops.py holds
@@ -25,7 +28,7 @@ from torch_port_helpers import rand, t
 from v3d_tpu.ops import flash_attention as jfa
 from v3d_tpu.ops.attention import attention_bhsd
 from v3d_tpu.ops.temporal_attention import _pallas_core
-from v3d_tpu_torch.ops import LAUNCHES
+from v3d_tpu_torch.ops import LAUNCHES, reset_launch_counts
 from v3d_tpu_torch.ops import attention as tattn
 from v3d_tpu_torch.ops import temporal_attention as ttemp
 
@@ -257,3 +260,211 @@ def test_cpu_flash_bwd_takes_plain_with_no_launch_or_copy(pad, monkeypatch):
     assert dict(LAUNCHES) == before and calls == []
     assert all(g.dtype == torch.bfloat16 and g.shape == x.shape
                for g, x in zip(got_bf, bf[:3]))
+
+
+# K10's (rows, C) at the main path: both UNets' levels and CLIP ViT-H at batch 1
+K10_SITES = [(rows, C) for (rows, C), _ in chip_smoke.K10_FORWARD_SHAPES
+             + chip_smoke.K10_IMAGE_SHAPES] + [(257, 1280), (257, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows,C", K10_SITES)
+def test_layer_norm_plan(rows, C, dtype):
+    """The widths the models use take the fixed-width instances: lanes the
+    largest power of two <= 32 that divides a row's 16-byte packs; a warp
+    takes 32 / lanes rows, a block of 256 threads 8 times that, and the
+    grid covers every row once."""
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_plan
+
+    plan = layer_norm_plan(rows, C, dtype)
+    elem = 4 if dtype == torch.float32 else 2
+    packs = C * elem // 16
+    lanes = plan["lanes"]
+    assert plan["path"] == "fixed" and plan["vec"] == 16 // elem
+    assert packs % lanes == 0 and (lanes == 32 or packs % (2 * lanes))
+    assert plan["slots"] * lanes * plan["vec"] == C
+    assert plan["threads"] == 256 and plan["rows_per_task"] == 32 // lanes
+    assert plan["rows_per_block"] == 8 * plan["rows_per_task"]
+    grid = plan["grid"][0]
+    assert (grid - 1) * plan["rows_per_block"] < rows <= grid * plan["rows_per_block"]
+    assert plan["smem"] == 8 * C
+
+
+@pytest.mark.parametrize("C,lanes,slots,f32_lanes,f32_slots", [
+    (320, 8, 5, 16, 5), (640, 16, 5, 32, 5), (1024, 32, 4, 32, 8), (1280, 32, 5, 32, 10)])
+def test_layer_norm_plan_widths(C, lanes, slots, f32_lanes, f32_slots):
+    """The eight compiled instances (csrc/layer_norm.cu dispatch): bf16 4-5
+    packs of 16 bytes a lane, f32 5-10; V3D's ds1 (147,456 rows of 320) in
+    4,608 blocks of 32 rows."""
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_plan
+
+    plan = layer_norm_plan(147456, C)
+    assert (plan["lanes"], plan["slots"]) == (lanes, slots)
+    plan32 = layer_norm_plan(147456, C, torch.float32)
+    assert (plan32["lanes"], plan32["slots"]) == (f32_lanes, f32_slots)
+    if C == 320:
+        assert (plan["grid"], plan["rows_per_block"]) == ((4608,), 32)
+
+
+def test_layer_norm_plan_generic_and_above_the_maximum():
+    """Another C takes the generic instance (a warp a row), with 16-byte
+    packs where C and the layout allow, else one element; C above 4096
+    raises."""
+    from v3d_tpu_torch.ops.layer_norm import LN_MAX_C, layer_norm_plan
+
+    assert LN_MAX_C == 4096
+    plan = layer_norm_plan(100, 1000)
+    assert (plan["path"], plan["lanes"], plan["vec"], plan["grid"]) == ("generic", 32, 8, (13,))
+    assert layer_norm_plan(100, 1001)["vec"] == 1
+    assert layer_norm_plan(100, 320, vec_ok=False)["path"] == "generic"
+    assert layer_norm_plan(5, 4096, torch.float32)["slots"] == 32
+    with pytest.raises(ValueError, match="4096"):
+        layer_norm_plan(10, 4097)
+
+
+@pytest.fixture
+def ln_launches(monkeypatch):
+    """K10's wrapper driven on CPU tensors: its card branch, with a
+    stand-in launch that records the arguments and counts as the real one."""
+    from v3d_tpu_torch.ops import layer_norm as ln
+
+    seen = []
+
+    def record(name, fn_name, device, *args):
+        seen.append((name, fn_name, args))
+        LAUNCHES[name] += 1
+
+    monkeypatch.setattr(ln, "use_plain", lambda *tensors: False)
+    monkeypatch.setattr(ln, "launch", record)
+    return seen
+
+
+@pytest.mark.parametrize("dtype,pdtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.float32)])
+def test_layer_norm_wrapper_hands_the_plan(ln_launches, dtype, pdtype):
+    """(b t, s, c) tokens as the transformers hand them: one launch a call
+    with the row count, C, the row stride and the plan; y contiguous in
+    x's dtype; a strided (rows, C) view passes its own row stride."""
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32, layer_norm_plan
+
+    x = torch.randn(6, 64, 320).to(dtype)
+    w, b = torch.ones(320, dtype=pdtype), torch.zeros(320, dtype=pdtype)
+    before = LAUNCHES["layer_norm"]
+    y = layer_norm_f32(x, w, b, 1e-5)
+    assert LAUNCHES["layer_norm"] == before + 1 and len(ln_launches) == 1
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous()
+    name, fn_name, args = ln_launches[0]
+    plan = layer_norm_plan(384, 320, dtype)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    assert (name, fn_name) == ("layer_norm", "v3d_layer_norm")
+    assert args[:2] == (codes[dtype], codes[pdtype])
+    assert args[2:6] == (x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr())
+    assert args[6:] == (384, 320, 320, 1e-5, plan["lanes"], plan["vec"], 1,
+                        plan["grid"][0])
+    wide = torch.randn(48, 400).to(dtype)
+    layer_norm_f32(wide[:, :320], w, b)
+    assert ln_launches[1][2][6:9] == (48, 320, 400)
+
+
+def test_layer_norm_wrapper_refuses(ln_launches):
+    """K10 raises rather than fall back: C above its maximum, a non-unit
+    stride on C, leading dims that do not collapse to one row stride,
+    parameters of another shape; no launch counted.  Mixed devices raise in
+    the dispatch (``use_plain``), before any route."""
+    from v3d_tpu_torch.ops import layer_norm as ln
+
+    w = torch.ones(320)
+    before = LAUNCHES["layer_norm"]
+    with pytest.raises(ValueError, match="above"):
+        ln.layer_norm_f32(torch.randn(4, 4097), torch.ones(4097), torch.ones(4097))
+    with pytest.raises(ValueError, match="unit stride"):
+        ln.layer_norm_f32(torch.randn(320, 4).t(), w, w)
+    with pytest.raises(ValueError, match="unit stride"):
+        ln.layer_norm_f32(torch.randn(5, 4, 320).transpose(0, 1), w, w)
+    with pytest.raises(TypeError, match="weight"):
+        ln.layer_norm_f32(torch.randn(4, 320), torch.ones(321), w)
+    assert LAUNCHES["layer_norm"] == before and ln_launches == []
+    from v3d_tpu_torch.ops._dispatch import use_plain
+
+    with pytest.raises(ValueError, match="several devices"):
+        use_plain(torch.randn(4, 320), w.to("meta"), w)
+
+
+def test_cpu_layer_norm_takes_plain_with_no_launch():
+    """On CPU tensors K10's wrapper is its plain version, LayerNormF32's
+    formula bit for bit, and counts nothing; ``reset_launch_counts`` clears
+    the new key."""
+    import torch.nn.functional as F
+
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32
+
+    x = torch.randn(3, 7, 320).to(torch.bfloat16)
+    w, b = torch.randn(320).to(torch.bfloat16), torch.randn(320).to(torch.bfloat16)
+    before = dict(LAUNCHES)
+    got = layer_norm_f32(x, w, b, 1e-5)
+    assert dict(LAUNCHES) == before
+    assert torch.equal(got, F.layer_norm(x.float(), (320,), w.float(), b.float(),
+                                         1e-5).to(x.dtype))
+    LAUNCHES["layer_norm"] += 3
+    reset_launch_counts()
+    assert LAUNCHES["layer_norm"] == 0
+
+
+def _meta_layer_norm_calls(unet, *inputs):
+    import collections
+
+    from v3d_tpu_torch.models.layers import LayerNormF32
+    from v3d_tpu_torch.ops._dispatch import meta_shapes
+
+    seen = collections.Counter()
+    for m in unet.modules():
+        if isinstance(m, LayerNormF32):
+            m.register_forward_hook(lambda mod, inp, out: seen.update(
+                [(inp[0].numel() // inp[0].shape[-1], inp[0].shape[-1])]))
+    with torch.no_grad(), meta_shapes():
+        unet(*inputs)
+    return dict(seen)
+
+
+def test_layer_norm_calls_of_the_full_width_unets():
+    """On the meta device (plain versions, shapes only) a full-width V3D-512
+    VideoUNet forward on the CFG-doubled 36 frames at 64^2 calls
+    LayerNormF32 112 times, at chip_smoke.K10_FORWARD_SHAPES; SD 2.1's
+    UNet2D on 8 CFG rows at 96^2, 48 times, at K10_IMAGE_SHAPES: each
+    module once, the counts the launches must match
+    (``chip_smoke.count_layer_norms``)."""
+    from v3d_tpu_torch.models.unet2d import UNetModel
+    from v3d_tpu_torch.models.video_unet import VideoUNet
+
+    dev, bf16 = torch.device("meta"), torch.bfloat16
+    with torch.device("meta"):
+        unet = VideoUNet(in_channels=8, model_channels=320, out_channels=4,
+                         num_res_blocks=2, attention_resolutions=(4, 2, 1),
+                         channel_mult=(1, 2, 4, 4), num_head_channels=64,
+                         context_dim=1024, adm_in_channels=768).to(bf16)
+    got = _meta_layer_norm_calls(
+        unet, torch.empty(36, 8, 64, 64, device=dev, dtype=bf16),
+        torch.empty(36, device=dev), torch.empty(36, 1, 1024, device=dev, dtype=bf16),
+        torch.empty(36, 768, device=dev, dtype=bf16), 18, torch.empty(2, 18, device=dev))
+    assert got == dict(chip_smoke.K10_FORWARD_SHAPES)
+    assert sum(got.values()) == 112 == chip_smoke.count_layer_norms(unet)
+    with torch.device("meta"):
+        sd = UNetModel(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
+                       attention_resolutions=(4, 2, 1), channel_mult=(1, 2, 4, 4),
+                       num_head_channels=64, context_dim=1024).to(bf16)
+    got = _meta_layer_norm_calls(
+        sd, torch.empty(8, 4, 96, 96, device=dev, dtype=bf16), torch.empty(8, device=dev),
+        torch.empty(8, 77, 1024, device=dev, dtype=bf16))
+    assert got == dict(chip_smoke.K10_IMAGE_SHAPES)
+    assert sum(got.values()) == 48 == chip_smoke.count_layer_norms(sd)
+
+
+def test_k10_bound_is_the_byte_bound():
+    """Phase 3's K10 bound: one bf16 read of x and one write of y over
+    3.35 TB/s: 0.0563 ms at V3D's ds1, 0.0282 at SD's."""
+    for (rows, C), ms in (((147456, 320), 0.0563), ((73728, 320), 0.0282),
+                          ((36864, 640), 0.0282), ((9216, 1280), 0.0141)):
+        bound, by = chip_smoke.bound_ms(*chip_smoke.layer_norm_work(rows, C, 2, 2),
+                                        chip_smoke.PEAK_BF16)
+        assert by == "bytes" and math.isclose(bound, ms, abs_tol=1e-4)

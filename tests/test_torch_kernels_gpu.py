@@ -23,7 +23,17 @@ and two-launch paths.  Tolerances:
   (T11 divides T back and sums with atomics, in another order); T10's
   checkpoints against ``composite_checkpoints_plain``: ts within rtol 1e-5,
   last and k_stop equal except at pixels whose T at the stop lies within
-  1e-5 relative of 1e-4 (``chip_smoke.gs_checkpoints_mismatch``).
+  1e-5 relative of 1e-4 (``chip_smoke.gs_checkpoints_mismatch``);
+- K10 (LayerNorm) against LayerNormF32's chain (upcast, PyTorch's f32
+  LayerNorm, downcast): in bf16 every element within one bf16 ulp of the
+  larger of the two values, that ulp taken at 2^-10 or above, and < 0.1%
+  of elements differing.  The f32 values before the rounding differ by
+  ~1e-7 of the row's scale (Welford against two passes over the
+  registers, another summation order), so a bf16 rounding flips only where
+  that lands on a rounding boundary; an output within ~1e-4 of zero (x
+  near the row's mean, or cancelled by the bias) has a bf16 ulp below that
+  absolute difference, hence the floor.  In f32 max |kernel - plain| <=
+  1e-5 x max |plain| (the same f32 differences, on outputs of order 1).
 """
 
 import dataclasses
@@ -723,3 +733,115 @@ def test_every_groupnorm_input_on_the_paths_is_channels_last(dev, monkeypatch):
     assert n_gen > 50 and len(seen) > n_gen
     assert [s for s, ok in seen if not ok] == []
     assert any(len(s) == 5 for s, _ in seen)
+
+
+# K10's shapes: both UNets' levels and CLIP ViT-H's rows (chip_smoke's
+# tables), an odd row count, widths that take the generic instance (16-byte
+# packs at 1000, single elements at 333), rows at a wider pitch
+K10_SHAPES = ([s for s, _ in chip_smoke.K10_FORWARD_SHAPES + chip_smoke.K10_IMAGE_SHAPES]
+              + [(257, 1280), (1001, 320), (300, 1000), (77, 333), (500, 4096)])
+K10_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _bf16_ulp(a, b):
+    """One bf16 ulp at the larger magnitude of a and b and 2^-10,
+    elementwise (8 significant bits: 2^(e - 8) for |v| = m 2^e, m in [0.5,
+    1)); the floor: module docstring."""
+    big = torch.maximum(a.float().abs(), b.float().abs()).clamp(min=2.0 ** -10)
+    _, e = torch.frexp(big)
+    return torch.ldexp(torch.ones_like(big), e - 8)
+
+
+def _hold_k10(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape and torch.isfinite(out).all()
+    if out.dtype == torch.float32:
+        err = float((out - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err
+    else:
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= _bf16_ulp(out, ref)).all()), float(diff.max())
+        assert float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("dtype,pdtype", K10_DTYPES,
+                         ids=["bf16", "bf16_f32params", "f32", "f32_bf16params"])
+@pytest.mark.parametrize("rows,C", K10_SHAPES)
+def test_layer_norm_kernel(dev, rows, C, dtype, pdtype):
+    """K10 against its plain version (LayerNormF32's chain), one launch
+    counted a call."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32, layer_norm_f32_plain
+
+    gen = torch.Generator(device=dev).manual_seed(rows + C)
+    x = (torch.randn(rows, C, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    w = (1 + 0.1 * torch.randn(C, device=dev, generator=gen)).to(pdtype)
+    b = (0.1 * torch.randn(C, device=dev, generator=gen)).to(pdtype)
+    before = LAUNCHES["layer_norm"]
+    out = layer_norm_f32(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layer_norm"] == before + 1
+    _hold_k10(out, layer_norm_f32_plain(x, w, b, 1e-5))
+
+
+def test_layer_norm_kernel_strided_rows(dev):
+    """Rows at a pitch wider than C: 16-byte packs at a pitch of 400 bf16,
+    single elements at 321; 3-D tokens whose leading dims collapse."""
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32, layer_norm_f32_plain
+
+    w = torch.rand(320, device=dev).to(torch.bfloat16)
+    b = torch.rand(320, device=dev).to(torch.bfloat16)
+    for pitch in (400, 321):
+        x = torch.randn(999, pitch, device=dev).to(torch.bfloat16)[:, :320]
+        _hold_k10(layer_norm_f32(x, w, b), layer_norm_f32_plain(x, w, b))
+    x = torch.randn(4, 18, 70, 400, device=dev).to(torch.bfloat16)[..., 40:360]
+    _hold_k10(layer_norm_f32(x, w, b), layer_norm_f32_plain(x, w, b))
+
+
+def test_layer_norm_kernel_refuses(dev):
+    """C above K10's maximum, a non-unit stride on C, and parameters on
+    another device raise; nothing launches."""
+    from v3d_tpu_torch.ops import LAUNCHES
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32
+
+    w = torch.ones(320, device=dev)
+    before = LAUNCHES["layer_norm"]
+    with pytest.raises(ValueError, match="above"):
+        layer_norm_f32(torch.randn(4, 4097, device=dev), torch.ones(4097, device=dev),
+                       torch.ones(4097, device=dev))
+    with pytest.raises(ValueError, match="unit stride"):
+        layer_norm_f32(torch.randn(320, 4, device=dev).t(), w, w)
+    with pytest.raises(ValueError, match="several devices"):
+        layer_norm_f32(torch.randn(4, 320, device=dev), w.cpu(), w)
+    assert LAUNCHES["layer_norm"] == before
+
+
+def test_layer_norm_in_a_ds1_spatial_video_transformer(dev):
+    """V3D's ds1 SpatialVideoTransformer (320 channels, 5 heads of 64, the
+    CFG-doubled 36 frames at 64^2) under no_grad: its 7 LayerNorms take K10,
+    and the block agrees with the same forward in ``reference_mode()``
+    (PSNR >= 40 dB, this file's bf16 bound)."""
+    from v3d_tpu_torch.models.layers import LayerNormF32
+    from v3d_tpu_torch.models.video_attention import SpatialVideoTransformer
+    from v3d_tpu_torch.ops import LAUNCHES, reference_mode
+
+    torch.manual_seed(0)
+    block = SpatialVideoTransformer(320, 5, 64, context_dim=1024).to(dev)
+    for m in block.modules():
+        if isinstance(m, LayerNormF32):
+            torch.nn.init.normal_(m.weight, 1.0, 0.1)
+            torch.nn.init.normal_(m.bias, 0.0, 0.1)
+    block = block.to(torch.bfloat16)
+    x = torch.randn(36, 320, 64, 64, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(36, 1, 1024, device=dev).to(torch.bfloat16)
+    ind = torch.zeros(2, 18, device=dev)
+    with torch.no_grad():
+        before = LAUNCHES["layer_norm"]
+        out = block(x, ctx, 18, ind)
+        torch.cuda.synchronize()
+        assert LAUNCHES["layer_norm"] == before + 7
+        with reference_mode():
+            ref = block(x, ctx, 18, ind)
+    assert torch.isfinite(out).all()
+    assert _psnr(out, ref) >= BF16_MIN_PSNR, _psnr(out, ref)

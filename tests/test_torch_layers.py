@@ -68,6 +68,60 @@ def test_layer_norm_f32_keeps_dtype():
     assert port.to(torch.bfloat16)(t(x).bfloat16()).dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_layer_norm_f32_on_the_cpu_is_the_f32_formula(dtype, grad):
+    """On the CPU, with or without a gradient wanted, LayerNormF32 gives the
+    f32 formula's result bit for bit (the upcast, F.layer_norm in f32 on
+    the f32 parameters, the cast back), and with one its gradients."""
+    x = t(rand((2, 9, 48), 42)).to(dtype)
+    port = numpy_init_(PL.LayerNormF32(48), 43).to(dtype)
+
+    def formula(x, w, b):
+        return torch.nn.functional.layer_norm(x.float(), (48,), w.float(), b.float(),
+                                              1e-5).to(x.dtype)
+
+    want = formula(x, port.weight, port.bias)
+    with torch.set_grad_enabled(grad):
+        got = port(x)
+    assert torch.equal(got, want) and got.dtype == dtype and got.requires_grad == grad
+    if grad:
+        got.float().square().sum().backward()
+        w = port.weight.detach().requires_grad_()
+        formula(x, w, port.bias.detach()).float().square().sum().backward()
+        assert torch.equal(port.weight.grad, w.grad)
+
+
+@pytest.mark.parametrize("on_card,grad_enabled,trainable,route", [
+    (True, False, True, "k10"),      # sampling, conditioning: torch.no_grad()
+    (True, True, False, "k10"),      # frozen weights on a constant input
+    (True, True, True, "plain"),     # training's forward and its recompute
+    (False, False, True, "plain"),   # CPU tensors, reference_mode()
+    (False, True, True, "plain")])
+def test_layer_norm_routes(monkeypatch, on_card, grad_enabled, trainable, route):
+    """K10 only for card tensors with no gradient wanted: the pure route
+    function, and LayerNormF32 calling the kernel's wrapper exactly there
+    (the card told by ``use_plain``, as the attention routes' tests do;
+    the stand-in wrapper runs the plain version)."""
+    from v3d_tpu_torch.ops.layer_norm import layer_norm_f32_plain, layer_norm_route
+
+    assert layer_norm_route(on_card, grad_enabled and trainable) == route
+    calls = []
+
+    def kernel(x, w, b, eps):
+        calls.append(tuple(x.shape))
+        return layer_norm_f32_plain(x, w, b, eps)
+
+    monkeypatch.setattr(PL, "use_plain", lambda *tensors: not on_card)
+    monkeypatch.setattr(PL, "layer_norm_f32", kernel)
+    port = numpy_init_(PL.LayerNormF32(48), 44).requires_grad_(trainable)
+    x = t(rand((2, 5, 48), 45))
+    with torch.set_grad_enabled(grad_enabled):
+        got = port(x)
+    assert calls == ([(2, 5, 48)] if route == "k10" else [])
+    assert torch.equal(got, layer_norm_f32_plain(x, port.weight, port.bias))
+
+
 @pytest.mark.parametrize("shape", ["btc", "bcthw"])
 def test_alpha_blender(shape):
     b, tt = 2, 3

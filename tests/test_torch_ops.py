@@ -22,7 +22,7 @@ from v3d_tpu.ops.temporal_attention import _block_xla, _pallas_block, _pallas_co
 from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
 from v3d_tpu_torch.ops import _dispatch
 from v3d_tpu_torch.ops import attention as tattn
-from v3d_tpu_torch.ops import group_norm
+from v3d_tpu_torch.ops import group_norm, layer_norm
 from v3d_tpu_torch.ops import temporal_attention as ttemp
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -118,11 +118,12 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     w = torch.ones(64)
     group_norm.group_norm_apply_fwd(g, group_norm.group_norm_stats_fwd(g, 32), w, w, 32,
                                     3 * 4 * 2)
+    layer_norm.layer_norm_f32(x, torch.ones(32), torch.zeros(32))
     assert LAUNCHES == {"flash_attn_fwd": 0, "temporal_block": 0, "temporal_core": 0,
                         "gs_composite_fwd": 0, "gs_composite_bwd": 0,
                         "group_norm": 0, "group_norm_stats": 0, "group_norm_apply": 0,
                         "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-                        "flash_attn_fwd_wide": 0}
+                        "flash_attn_fwd_wide": 0, "layer_norm": 0}
 
 
 def test_reference_mode_is_scoped():

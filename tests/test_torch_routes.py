@@ -47,6 +47,7 @@ from v3d_tpu.models.video_unet import VideoUNet as JUNet
 from v3d_tpu.ops import attention as jattn
 from v3d_tpu.ops import flash_attention as jfa
 from v3d_tpu_torch.models import attention_blocks as pblocks
+from v3d_tpu_torch.models import layers as players
 from v3d_tpu_torch.models import vae as PVAE
 from v3d_tpu_torch.models.video_unet import VideoUNet as PUNet
 from v3d_tpu_torch.ops import LAUNCHES, group_norm, reset_launch_counts
@@ -95,12 +96,14 @@ def accelerators(monkeypatch):
     monkeypatch.setattr(jattn, "jax", TPUJax())
     monkeypatch.setattr(pattn, "_on_card", lambda *tensors: True)
     monkeypatch.setattr(pblocks, "use_plain", lambda *tensors: False)
+    monkeypatch.setattr(players, "use_plain", lambda *tensors: False)
     for mod, name, key in ((pattn, "flash_attn_fwd", "flash_attn_fwd"),
                            (pfa, "flash_attn_fwd", "flash_attn_fwd"),
                            (pfa, "flash_attn_fwd_wide", "flash_attn_fwd_wide"),
                            (pta, "temporal_core_fwd", "temporal_core"),
                            (pta, "temporal_block_fwd", "temporal_block"),
-                           (group_norm, "group_norm_fwd", "group_norm")):
+                           (group_norm, "group_norm_fwd", "group_norm"),
+                           (players, "layer_norm_f32", "layer_norm")):
         def counted(*args, _orig=getattr(mod, name), _key=key, **kw):
             LAUNCHES[_key] += 1
             return _orig(*args, **kw)

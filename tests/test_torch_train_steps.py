@@ -50,7 +50,7 @@ from v3d_tpu_torch.engines.trainer import (
     prune_checkpoints,
 )
 from v3d_tpu_torch.engines.video_diffusion import VideoDiffusionEngine
-from v3d_tpu_torch.models import attention_blocks
+from v3d_tpu_torch.models import attention_blocks, layers
 from v3d_tpu_torch.models.video_unet import VideoUNet
 from v3d_tpu_torch.ops import attention, group_norm, temporal_attention
 
@@ -161,9 +161,10 @@ def test_latest_and_prune(tmp_path):
 @pytest.mark.parametrize("use_checkpoint", [False, True])
 def test_chip_smoke_launch_counts(monkeypatch, hw, use_checkpoint):
     """At 32^2 the ds1 attention has 1024 tokens (K1, K7, K8; K2 at both
-    levels); at 40^2, 1600 tokens (no K1) and 400 at ds2 (K3)."""
+    levels); at 40^2, 1600 tokens (no K1) and 400 at ds2 (K3).  No
+    LayerNorm takes K10: each wants a gradient."""
     calls = {k: 0 for k in ("flash_attn_fwd", "flash_attn_bwd", "temporal_block",
-                            "temporal_core", "group_norm")}
+                            "temporal_core", "group_norm", "layer_norm")}
 
     def counting(mod, fn_name, key):
         fn = getattr(mod, fn_name)
@@ -177,11 +178,13 @@ def test_chip_smoke_launch_counts(monkeypatch, hw, use_checkpoint):
     # route as on the card: CPU tensors take the pickers' "xla" route
     monkeypatch.setattr(attention, "_on_card", lambda *tensors: True)
     monkeypatch.setattr(attention_blocks, "use_plain", lambda *tensors: False)
+    monkeypatch.setattr(layers, "use_plain", lambda *tensors: False)
     counting(attention, "flash_attn_fwd", "flash_attn_fwd")
     counting(attention, "flash_attn_bwd", "flash_attn_bwd")
     counting(temporal_attention, "temporal_block_fwd", "temporal_block")
     counting(temporal_attention, "temporal_core_fwd", "temporal_core")
     counting(group_norm, "group_norm_fwd", "group_norm")
+    counting(layers, "layer_norm_f32", "layer_norm")   # K10: none under a gradient
     t = 2
     torch.manual_seed(0)
     unet = VideoUNet(in_channels=8, model_channels=64, num_res_blocks=1,
@@ -201,7 +204,9 @@ def test_chip_smoke_launch_counts(monkeypatch, hw, use_checkpoint):
                      "flash_attn_bwd": want["flash_attn_bwd_dq"],
                      "temporal_block": want["temporal_block"],
                      "temporal_core": want["temporal_core"],
-                     "group_norm": want["group_norm"]}
+                     "group_norm": want["group_norm"],
+                     "layer_norm": want["layer_norm"]}
+    assert want["layer_norm"] == 0
     assert want["flash_attn_bwd_dq"] == want["flash_attn_bwd_dkv"]
     assert (want["flash_attn_fwd"] > 0) == (hw == 32)
     assert (want["temporal_core"] > 0) == (hw == 40)

@@ -308,6 +308,7 @@ def _count_as_on_card() -> None:
     running its plain version (test_torch_routes.py's ``accelerators``, in
     this rank's process only)."""
     from v3d_tpu_torch.models import attention_blocks as pblocks
+    from v3d_tpu_torch.models import layers as players
     from v3d_tpu_torch.ops import LAUNCHES, group_norm
     from v3d_tpu_torch.ops import attention as pattn
     from v3d_tpu_torch.ops import flash_attention as pfa
@@ -315,6 +316,7 @@ def _count_as_on_card() -> None:
 
     pattn._on_card = lambda *tensors: True
     pblocks.use_plain = lambda *tensors: False
+    players.use_plain = lambda *tensors: False
     for mod, name, key in ((pattn, "flash_attn_fwd", "flash_attn_fwd"),
                            (pfa, "flash_attn_fwd", "flash_attn_fwd"),
                            (pfa, "flash_attn_fwd_wide", "flash_attn_fwd_wide"),
@@ -322,7 +324,8 @@ def _count_as_on_card() -> None:
                            (pta, "temporal_block_fwd", "temporal_block"),
                            (group_norm, "group_norm_fwd", "group_norm"),
                            (group_norm, "group_norm_stats_fwd", "group_norm_stats"),
-                           (group_norm, "group_norm_apply_fwd", "group_norm_apply")):
+                           (group_norm, "group_norm_apply_fwd", "group_norm_apply"),
+                           (players, "layer_norm_f32", "layer_norm")):
         def counted(*args, _orig=getattr(mod, name), _key=key, **kw):
             LAUNCHES[_key] += 1
             return _orig(*args, **kw)

@@ -19,7 +19,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v3d_tpu_torch.ops._dispatch import needs_grad, use_plain
 from v3d_tpu_torch.ops.group_norm import group_norm_act, group_norm_act_split
+from v3d_tpu_torch.ops.layer_norm import (
+    layer_norm_f32,
+    layer_norm_f32_plain,
+    layer_norm_route,
+)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -63,12 +69,16 @@ class GroupNorm32(nn.GroupNorm):
 
 
 class LayerNormF32(nn.LayerNorm):
-    """LayerNorm evaluated in float32 (eps 1e-5)."""
+    """LayerNorm evaluated in float32 (eps 1e-5), output in the input's
+    dtype.  Where no gradient is wanted, on the card, one launch of K10
+    (``ops.layer_norm.layer_norm_f32``); otherwise the plain formula, whose
+    backward is PyTorch's (``layer_norm_route``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(x.dtype)
+        w, b = self.weight, self.bias
+        if layer_norm_route(not use_plain(x, w, b), needs_grad(x, w, b)) == "k10":
+            return layer_norm_f32(x, w, b, self.eps)
+        return layer_norm_f32_plain(x, w, b, self.eps)
 
 
 def _cast(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:

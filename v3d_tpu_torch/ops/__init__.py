@@ -13,6 +13,7 @@
 | K7 | attention.flash_attn_bwd (dk, dv; flash_attention's backward) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dkv |
 | K8 | attention.flash_attn_bwd (dq, first) | attention.flash_attn_bwd_plain | stock Pallas flash _flash_attention_bwd_dq |
 | K9 | flash_attention.flash_attn_fwd_wide (d = 80, 128, 512) | flash_attention.flash_attn_fwd_wide_plain | ops/flash_attention.py _flash_forward / _flash_packed_forward |
+| K10 | layer_norm.layer_norm_f32 (via models/layers.py LayerNormF32, where no gradient is wanted) | layer_norm.layer_norm_f32_plain | none: XLA fuses models/layers.py LayerNormF32 |
 
 The JAX package's other attention kernels are routes onto these:
 ``flash_attention.flash_attention`` (T2, and T3 with ``heads_resident``) and
@@ -22,6 +23,9 @@ The JAX package's other attention kernels are routes onto these:
 
 K6's split entries run where a GroupNorm's samples are spread over ranks
 (``parallel.frames``), with the sums all-reduced between them.
+
+K10 has no backward: a LayerNorm that wants a gradient takes the plain
+formula (``layer_norm.layer_norm_route``).
 
 The backwards of K2, K3, K6 and of the T2-T4 routes recompute through their
 plain versions (``_dispatch.plain_vjp``), as the JAX package's custom VJPs

@@ -21,7 +21,7 @@ LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "temporal_block": 0,
                             "gs_composite_bwd": 0, "group_norm": 0,
                             "group_norm_stats": 0, "group_norm_apply": 0,
                             "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-                            "flash_attn_fwd_wide": 0}
+                            "flash_attn_fwd_wide": 0, "layer_norm": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
