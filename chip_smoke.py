@@ -26,7 +26,10 @@ Phases, each printing lines before the last:
    bounds of the pair (seven products) and of the function (five); K10 at
    every (rows, C) of both UNets' forwards and CLIP's
    (``K10_FORWARD_SHAPES``, ``K10_IMAGE_SHAPES``), against LayerNormF32's
-   chain and, as the library call, ``F.layer_norm`` on the f32 copy;
+   chain and, as the library call, ``F.layer_norm`` on the f32 copy, and
+   affine-free (eps 1e-6) at FLUX.1-dev's (``K10_FLUX_SHAPES``); K9 also at
+   FLUX.1-dev's joint attention (1, 4608, 24, 128), q scaled so that the
+   softmax is peaked;
 4. one full-width V3D-512 UNet forward (bf16, batch 36 at 64^2) with the
    kernels against the same forward in ``reference_mode()`` (plain versions),
    and a ``torch.profiler`` trace of two forwards (device time by kernel
@@ -220,13 +223,19 @@ Phases, each printing lines before the last:
     tensor-parallel (max abs <= 1e-2), the full-size meta stage (shapes, the
     parameter count), the DP recon stages and the refpoint, each rank's
     launches exact.
+29. FLUX.1-dev's transformer (``models/flux.py``) at its published widths
+    and depth, seeded bf16: its parameter count, one forward at 1024^2
+    (4,096 image + 512 text tokens, guidance 3.5) with the kernels against
+    the same forward in ``reference_mode()`` (PSNR >= 30 dB), its launches
+    exact: K9 57 and K10 115 a forward (``FLUX_LAUNCHES``, also counted
+    from the modules), ms a forward, peak memory.
 
 Each path (phases 5, 6, 8, each run of 9, 11, 14, each run of 16, 17, 18,
 19, 20, 21, 22's fit and renders, 23's fits, 24's ``full_eval``, each
 run of 25 and 26(a)'s, in each rank of 26(c) its steps, each run of 27(a)
 and in each rank of 27(b) and (c) its sample and step, 28(a)'s denoise
 steps in the one process and in each rank, and in each rank of 28(b) its
-step, sample and tile-sharded render) is run with
+step, sample and tile-sharded render, 29's forward) is run with
 the launch counts set to 0 just before it and read just after (phase 12:
 each stage's launches, the counters read before and after it; 26(b): the
 counts of the torchrun child, which start at 0 with its process and which
@@ -351,6 +360,17 @@ K10_FORWARD_SHAPES = (((147456, 320), 35), ((36864, 640), 35), ((9216, 1280), 35
                       ((2304, 1280), 7))
 K10_IMAGE_SHAPES = (((73728, 320), 15), ((18432, 640), 15), ((4608, 1280), 15),
                     ((1152, 1280), 3))
+# FLUX.1-dev's affine-free LayerNorms (eps 1e-6) in one forward at 1024^2:
+# 4 a double block (2 on the 4,096 image tokens, 2 on the 512 text ones), 1
+# a single block on the joined 4,608, the final layer's on the image tokens:
+# 19 x 4 + 38 + 1 = 115 calls (tests/test_torch_kernel_plans.py holds them so)
+K10_FLUX_SHAPES = (((4096, 3072), 39), ((512, 3072), 38), ((4608, 3072), 38))
+# phase 29: FLUX.1-dev's transformer (models/flux.py's defaults are its
+# published widths), its parameter count and the kernels' launches in one
+# forward: K9 once a block (19 + 38 joint attentions), K10 as above
+FLUX_PARAMS = 11_901_408_320
+FLUX_LAUNCHES = {"flash_attn_fwd_wide": 57, "layer_norm": 115}
+FLUX_TOKENS = (512, 64)       # text tokens; the latent's side at 1024^2
 # K6's calls in one full-width V3D-512 UNet forward (bf16, the CFG-doubled
 # video of 36 frames at 64^2 latents): (B, C, *spatial) of the GroupNorm
 # input, fused SiLU, calls.  105 calls, 18 shapes; the list a meta-device
@@ -767,11 +787,15 @@ def flash_main_checks(randn) -> list:
 
 
 # K9's shapes in phase 3, (b, sq, sk, h, d): T2's VAE decode under "flash",
-# CLIP ViT-H under "packed", d = 128, one key
+# CLIP ViT-H under "packed", d = 128, one key, FLUX.1-dev's joint attention
 WIDE_SHAPES = (("T2 VAE decode", (18, 4096, 4096, 1, 512)),
                ("T4 CLIP", (1, 257, 257, 16, 80)),
                ("d128", (4, 1024, 1024, 4, 128)),
-               ("sk=1", (18, 4096, 1, 1, 512)))
+               ("sk=1", (18, 4096, 1, 1, 512)),
+               ("FLUX.1 joint", (1, 4608, 4608, 24, 128)))
+# q's scale where random unit q and k would give a near-uniform softmax over
+# thousands of keys and an output near zero: scores of std 4 pick a few keys
+WIDE_Q_SCALE = {"FLUX.1 joint": 4.0}
 
 
 def wide_checks(randn) -> list:
@@ -818,7 +842,8 @@ def wide_checks(randn) -> list:
                                    f"flash_wide_plan says {plan['smem']}")
     out = []
     for tag, (b, sq, sk, h, d) in WIDE_SHAPES:
-        x32 = [randn(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk)]
+        scale = (WIDE_Q_SCALE.get(tag, 1.0), 1.0, 1.0)
+        x32 = [(randn(b, s, h, d) * c).transpose(1, 2) for s, c in zip((sq, sk, sk), scale)]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t_.to(dtype) for t_ in x32)
             up = [t_.float() for t_ in (q, k, v)]
@@ -1047,7 +1072,7 @@ def group_norm_work(shape, silu: bool, elem: int, param_elem: int):
 def layer_norm_work(rows: int, C: int, elem: int, param_elem: int):
     """(FLOPs, bytes) of one K10 call on ``rows`` rows of C: the two
     statistics and the normalise-and-affine (8 an element); x read once, y
-    written once, weight and bias read once."""
+    written once, weight and bias read once (``param_elem`` 0: none)."""
     n = rows * C
     return 8 * n, 2 * n * elem + 2 * C * param_elem
 
@@ -1055,35 +1080,42 @@ def layer_norm_work(rows: int, C: int, elem: int, param_elem: int):
 def layer_norm_checks(randn) -> list:
     """K10 at every (rows, C) of the two UNets' forwards
     (``K10_FORWARD_SHAPES``, ``K10_IMAGE_SHAPES``) and CLIP ViT-H's (257,
-    1280), bf16 x with bf16 weight and bias (as the engines hold them);
-    V3D's ds1 also in f32 x and f32 parameters.  Plain: LayerNormF32's
-    chain (upcast, f32 ``F.layer_norm``, downcast); library:
-    ``F.layer_norm`` on the f32 copy alone; bound: one read of x, one
-    write of y."""
+    1280), bf16 x with bf16 weight and bias (as the engines hold them),
+    eps 1e-5; V3D's ds1 also in f32 x and f32 parameters; FLUX.1-dev's
+    (``K10_FLUX_SHAPES``) affine-free with eps 1e-6, through the generic
+    path at C = 3072.  Plain: LayerNormF32's chain (upcast, f32
+    ``F.layer_norm``, downcast); library: ``F.layer_norm`` on the f32 copy
+    alone; bound: one read of x, one write of y."""
     import torch
     import torch.nn.functional as F
 
     from v3d_tpu_torch.ops.layer_norm import layer_norm_f32, layer_norm_f32_plain
 
     out = []
-    sites = ([("v3d", s, torch.bfloat16) for s, _ in K10_FORWARD_SHAPES]
-             + [("sd", s, torch.bfloat16) for s, _ in K10_IMAGE_SHAPES]
-             + [("clip", (257, 1280), torch.bfloat16),
-                ("v3d", K10_FORWARD_SHAPES[0][0], torch.float32)])
-    for tag, (rows, C), dtype in sites:
+    sites = ([("v3d", s, torch.bfloat16, True) for s, _ in K10_FORWARD_SHAPES]
+             + [("sd", s, torch.bfloat16, True) for s, _ in K10_IMAGE_SHAPES]
+             + [("clip", (257, 1280), torch.bfloat16, True),
+                ("v3d", K10_FORWARD_SHAPES[0][0], torch.float32, True)]
+             + [("flux", s, torch.bfloat16, False) for s, _ in K10_FLUX_SHAPES])
+    for tag, (rows, C), dtype, affine in sites:
         x = (randn(rows, C) + 0.3).to(dtype)
-        w, b = (1 + randn(C, scale=0.1)).to(dtype), randn(C, scale=0.1).to(dtype)
-        up, wf, bf = x.float(), w.float(), b.float()
+        w = b = wf = bf = None
+        if affine:
+            w, b = (1 + randn(C, scale=0.1)).to(dtype), randn(C, scale=0.1).to(dtype)
+            wf, bf = w.float(), b.float()
+        eps = 1e-5 if affine else 1e-6
+        up = x.float()
 
         def library():
-            return F.layer_norm(up, (C,), wf, bf, 1e-5)
+            return F.layer_norm(up, (C,), wf, bf, eps)
 
         # the library call is also the f32 result the bf16 kernel is held to
         out.append(_check(
-            "layer_norm", f"{tag} {(rows, C)}", dtype,
-            lambda: layer_norm_f32(x, w, b, 1e-5),
-            lambda: layer_norm_f32_plain(x, w, b, 1e-5), library,
-            layer_norm_work(rows, C, x.element_size(), w.element_size()), library))
+            "layer_norm", f"{tag} {(rows, C)}{'' if affine else ' no affine'}", dtype,
+            lambda: layer_norm_f32(x, w, b, eps),
+            lambda: layer_norm_f32_plain(x, w, b, eps), library,
+            layer_norm_work(rows, C, x.element_size(), w.element_size() if affine else 0),
+            library))
         del x, up
     return out
 
@@ -3902,6 +3934,82 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
+def flux_launches(net) -> dict:
+    """Launches of one no-grad FLUX.1 forward, counted from its modules: K9
+    once a double or single block (the joint attention), K10 once an
+    affine-free LayerNorm."""
+    from v3d_tpu_torch.models.flux import DoubleStreamBlock, LayerNormNoAffine, SingleStreamBlock
+
+    out = {name: 0 for name in KERNELS}
+    out.update(
+        flash_attn_fwd_wide=sum(isinstance(m, (DoubleStreamBlock, SingleStreamBlock))
+                                for m in net.modules()),
+        layer_norm=sum(isinstance(m, LayerNormNoAffine) for m in net.modules()))
+    return out
+
+
+def phase_flux(dev) -> dict:
+    """FLUX.1-dev's transformer at its published widths and depth, seeded
+    bf16 weights: the parameter count, one forward at 1024^2 with the
+    kernels against the same forward in ``reference_mode()``, its launches
+    (set to 0 just before it) against ``FLUX_LAUNCHES`` and the count from
+    the modules; ms a forward (CUDA events), peak memory."""
+    import torch
+
+    from v3d_tpu_torch.engines.builder import materialise
+    from v3d_tpu_torch.models.flux import Flux
+    from v3d_tpu_torch.ops import LAUNCHES, reference_mode, reset_launch_counts
+
+    phase = "29 flux"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("meta"):
+        net = Flux().to(torch.bfloat16)
+    net = materialise(net, dev, torch.bfloat16, 29)
+    n = sum(p.numel() for p in net.parameters())
+    say(phase, f"FLUX.1-dev transformer (19 + 38 blocks, hidden 3072, 24 heads of 128), "
+        f"seeded bf16, built in {time.perf_counter() - t0:.1f} s | {n:,} parameters "
+        f"(expect {FLUX_PARAMS:,}) | {'ok' if n == FLUX_PARAMS else 'FAIL'}")
+    if n != FLUX_PARAMS:
+        raise SmokeFailure(f"Flux has {n} parameters, FLUX.1-dev {FLUX_PARAMS}")
+    tokens, hw = FLUX_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(1, 16, 2 * hw, 2 * hw, device=dev, generator=gen)
+    t = torch.full((1,), 0.75, device=dev)
+    ctx = torch.randn(1, tokens, 4096, device=dev, generator=gen)
+    y = torch.randn(1, 768, device=dev, generator=gen)
+    g = torch.full((1,), 3.5, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return net(x, t, ctx, y, g)
+
+    reset_launch_counts()
+    out = fwd()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    with reference_mode():
+        ref = fwd()
+    quality = psnr(out, ref)
+    del ref
+    expect = flux_launches(net)
+    ms = cuda_ms(fwd, iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = (bool(torch.isfinite(out).all()) and out.shape == x.shape
+          and out.dtype == torch.float32 and quality >= UNET_MIN_PSNR and counts == expect
+          and all(expect[k] == v for k, v in FLUX_LAUNCHES.items()))
+    say(phase, f"forward {tuple(out.shape)} at 1024^2 ({hw * hw} image + {tokens} text "
+        f"tokens): kernels vs plain PSNR {quality:.2f} dB (>= {UNET_MIN_PSNR:g}) | "
+        f"{ms:.3f} ms a forward (CUDA events) | launches {_nonzero(counts)} (expect "
+        f"{_nonzero(expect)}, FLUX.1-dev {FLUX_LAUNCHES}) | peak {peak:.2f} GiB | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"FLUX.1 forward: {quality} dB, launches {counts}")
+    del net, out
+    torch.cuda.empty_cache()
+    return {"launches": counts, "psnr": quality, "ms": ms, "peak_gib": peak}
+
+
 def phase_image(dev) -> dict:
     """The image-diffusion path at SD 2.1's width: the parameter count
     against the JAX UNetModel's, one forward against ``reference_mode()``
@@ -5900,7 +6008,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,"
-                           "25,26,27,28",
+                           "25,26,27,28,29",
                    help="comma-separated subset of phases to run")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -5943,6 +6051,7 @@ def main(argv=None) -> int:
         frames.update(tp_one={"launches": tp_one["launches"]},
                       tp_ranks=phase_tp_ranks(tp_one))
     image = phase_image(dev) if 21 in phases else {}
+    flux = phase_flux(dev) if 29 in phases else {}
     fit, rgba = {}, None
     if phases & {6, 7, 18, 19, 20, 22, 25}:
         t0 = time.perf_counter()
@@ -5955,7 +6064,7 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_profile(fit["trainer"], fit["step_ms"])
     paths = {"gen": gen, "routes": routes, "fit": {"launches": fit.get("launches", {})},
-             "image": image, **frames}
+             "image": image, "flux": flux, **frames}
     if 22 in phases:
         paths.update(phase_lpips(rgba, dev, fit.get("step_ms")))
     if 25 in phases:

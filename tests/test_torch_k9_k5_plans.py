@@ -36,6 +36,8 @@ WIDE_PLANS = {
     ((4, 1024, 1024, 4, 128), torch.float32): ((16, 16), 256, 103424, 16),
     ((18, 4096, 1, 1, 512), torch.bfloat16): ((64, 18), 384, 208968, 1),
     ((18, 4096, 1, 1, 512), torch.float32): ((64, 18), 256, 201728, 1),
+    ((1, 4608, 4608, 24, 128), torch.bfloat16): ((36, 24), 384, 164936, 36),
+    ((1, 4608, 4608, 24, 128), torch.float32): ((72, 24), 256, 103424, 72),
 }
 
 

@@ -460,6 +460,36 @@ def test_layer_norm_calls_of_the_full_width_unets():
     assert sum(got.values()) == 48 == chip_smoke.count_layer_norms(sd)
 
 
+def test_layer_norm_calls_and_launches_of_the_full_width_flux():
+    """On the meta device a FLUX.1-dev forward at 1024^2 (4,096 image + 512
+    text tokens) calls its affine-free LayerNorm 115 times, at
+    chip_smoke.K10_FLUX_SHAPES, and its joint attention 57 times: phase
+    29's launches (``chip_smoke.flux_launches``, ``FLUX_LAUNCHES``)."""
+    import collections
+
+    from v3d_tpu_torch.models.flux import Flux, LayerNormNoAffine
+    from v3d_tpu_torch.ops._dispatch import meta_shapes
+
+    dev, bf16 = torch.device("meta"), torch.bfloat16
+    with torch.device("meta"):
+        net = Flux().to(bf16)
+    assert sum(p.numel() for p in net.parameters()) == chip_smoke.FLUX_PARAMS
+    seen = collections.Counter()
+    for m in net.modules():
+        if isinstance(m, LayerNormNoAffine):
+            m.register_forward_hook(lambda mod, inp, out: seen.update(
+                [(inp[0].numel() // inp[0].shape[-1], inp[0].shape[-1])]))
+    tokens, hw = chip_smoke.FLUX_TOKENS
+    with torch.no_grad(), meta_shapes():
+        net(torch.empty(1, 16, 2 * hw, 2 * hw, device=dev), torch.empty(1, device=dev),
+            torch.empty(1, tokens, 4096, device=dev), torch.empty(1, 768, device=dev),
+            torch.empty(1, device=dev))
+    assert dict(seen) == dict(chip_smoke.K10_FLUX_SHAPES)
+    launches = chip_smoke.flux_launches(net)
+    assert sum(seen.values()) == 115 == launches["layer_norm"]
+    assert {k: v for k, v in launches.items() if v} == chip_smoke.FLUX_LAUNCHES
+
+
 def test_k10_bound_is_the_byte_bound():
     """Phase 3's K10 bound: one bf16 read of x and one write of y over
     3.35 TB/s: 0.0563 ms at V3D's ds1, 0.0282 at SD's."""

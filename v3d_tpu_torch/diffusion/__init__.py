@@ -1,15 +1,19 @@
 """EDM diffusion math (counterpart of v3d_tpu/diffusion): discretizations,
-scalings, guiders, sigma samplers, weightings, denoisers and samplers."""
+scalings, guiders, sigma samplers, weightings, denoisers and samplers; and
+rectified flow's scaling and shifted schedule (FLUX.1), which the same
+denoiser and Euler sampler run."""
 
 from v3d_tpu_torch.diffusion.scaling import (
     EDMScaling,
     EpsScaling,
     VScaling,
     VScalingWithEDMcNoise,
+    FlowScaling,
 )
 from v3d_tpu_torch.diffusion.discretize import (
     EDMDiscretization,
     LegacyDDPMDiscretization,
+    ShiftedFlowDiscretization,
 )
 from v3d_tpu_torch.diffusion.guidance import (
     IdentityGuider,
@@ -37,7 +41,8 @@ from v3d_tpu_torch.diffusion.sampling import (
 
 __all__ = [
     "EDMScaling", "EpsScaling", "VScaling", "VScalingWithEDMcNoise",
-    "EDMDiscretization", "LegacyDDPMDiscretization", "IdentityGuider",
+    "FlowScaling", "EDMDiscretization", "LegacyDDPMDiscretization",
+    "ShiftedFlowDiscretization", "IdentityGuider",
     "VanillaCFG", "LinearPredictionGuider", "TrianglePredictionGuider",
     "EDMSampling", "DiscreteSampling", "UnitWeighting", "EDMWeighting",
     "VWeighting", "EpsWeighting", "Denoiser", "DiscreteDenoiser",

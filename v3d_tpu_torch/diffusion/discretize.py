@@ -3,14 +3,19 @@ sgm discretizer.py:28-69).
 
 Computed on the host in float64 numpy and handed out as float32, as the
 JAX package does.  V3D runs ``EDMDiscretization(sigma_max=700, rho=7)``;
-``SlicedDiscretization`` is the truncated schedule of img2img.
+``SlicedDiscretization`` is the truncated schedule of img2img;
+``ShiftedFlowDiscretization`` is FLUX.1's rectified-flow time schedule
+(no registry name: the JAX package has none).  A schedule also says how
+the samplers scale standard-normal noise to its top (``start``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 from v3d_tpu_torch.core.registry import register
 
@@ -25,6 +30,11 @@ class Discretization:
 
     def get_sigmas(self, n: int) -> np.ndarray:
         raise NotImplementedError
+
+    def start(self, x: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
+        """Standard-normal ``x`` scaled to the schedule's top ``sigma0``:
+        x sqrt(1 + sigma0^2), the EDM / DDPM latent (sampling.py:50)."""
+        return x * torch.sqrt(1.0 + sigma0.to(x.dtype) ** 2)
 
 
 @register("edm_discretization")
@@ -84,3 +94,34 @@ class SlicedDiscretization(Discretization):
 
     def get_sigmas(self, n: int) -> np.ndarray:
         return self.base.get_sigmas(n + self.skip)[self.skip:]
+
+    def start(self, x: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
+        return self.base.start(x, sigma0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedFlowDiscretization(Discretization):
+    """FLUX.1's schedule (flux ``sampling.py`` ``get_schedule``): n + 1
+    times linspace(1, 0) shifted by ``time_shift(mu, 1, t) = e^mu / (e^mu
+    + 1/t - 1)``, mu linear in the image's tokens from ``base_shift`` at
+    ``base_tokens`` to ``max_shift`` at ``max_tokens``; the last, 0, is
+    the appended zero.  The flow starts at the noise itself (t = 1: no
+    scaling)."""
+
+    image_tokens: int = 4096
+    base_shift: float = 0.5
+    max_shift: float = 1.15
+    base_tokens: int = 256
+    max_tokens: int = 4096
+
+    def mu(self) -> float:
+        slope = (self.max_shift - self.base_shift) / (self.max_tokens - self.base_tokens)
+        return self.base_shift + slope * (self.image_tokens - self.base_tokens)
+
+    def get_sigmas(self, n: int) -> np.ndarray:
+        t = np.linspace(1.0, 0.0, n + 1, dtype=np.float64)[:-1]
+        e = math.exp(self.mu())
+        return (e / (e + (1.0 / t - 1.0))).astype(np.float32)
+
+    def start(self, x: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
+        return x

@@ -85,12 +85,12 @@ class BaseDiffusionSampler:
     def prepare(self, x: torch.Tensor, num_steps: Optional[int] = None):
         """The schedule (numpy, and as tensors in the sigma dtype
         ``result_type(x.dtype, float32)``) and the initial latent scaled to
-        its top (sampling.py:50)."""
+        its top as the discretization says (``Discretization.start``:
+        sampling.py:50's sqrt(1 + sigma0^2), 1 for a flow)."""
         sigmas_np = self.schedule(num_steps)
         sdt = torch.promote_types(x.dtype, torch.float32)
         sigmas = torch.as_tensor(sigmas_np, dtype=sdt, device=x.device)
-        x = x * torch.sqrt(1.0 + sigmas[0].to(x.dtype) ** 2)
-        return x, sigmas_np, sigmas
+        return self.discretization.start(x, sigmas[0]), sigmas_np, sigmas
 
     def denoise(self, x, denoiser, sigma: torch.Tensor, cond: Cond, uc: Cond):
         s = sigma.to(x.dtype).expand(x.shape[0])

@@ -6,7 +6,11 @@ shipped beside V3D).
 The same diffusion stack as the video engine, driving the 2-D UNet
 (``models/unet2d.py``).  The conditioner is the caller's: the text towers
 are out of scope, as in the JAX package, so ``c`` / ``uc`` carry
-``crossattn`` (n, s, d), ``vector`` and ``concat`` tensors directly.
+``crossattn`` (n, s, d), ``vector`` and ``concat`` tensors directly, and a
+guidance-distilled network (FLUX.1) its ``guidance`` (n,).  The network
+may be UNet2D or FLUX.1's transformer (``models/flux.py``), which packs
+the latent into patches itself; the latent's channels, scale and shift
+are the configuration's.
 Layouts follow the JAX package: latents (n, h, w, c), images (n, H, W, 3) in
 [-1, 1] in and [0, 1] out.  Every draw is an explicit tensor argument or
 comes from the ``torch.Generator`` passed in.
@@ -36,6 +40,7 @@ class ImageDiffusionEngine:
     scale_factor: float = 0.18215
     latent_channels: int = 4
     downscale: int = 8
+    shift_factor: float = 0.0
 
     @property
     def device(self) -> torch.device:
@@ -46,8 +51,9 @@ class ImageDiffusionEngine:
             with unet_forward(x.shape[0]):
                 if "concat" in cond:
                     x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
+                extra = {"guidance": cond["guidance"]} if "guidance" in cond else {}
                 out = self.unet(x.permute(0, 3, 1, 2), c_noise,
-                                context=cond.get("crossattn"), y=cond.get("vector"))
+                                context=cond.get("crossattn"), y=cond.get("vector"), **extra)
                 return out.permute(0, 2, 3, 1)
 
         def denoiser_fn(x, sigma, cond):
@@ -90,9 +96,12 @@ class ImageDiffusionEngine:
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """latents (n, h, w, c) -> images (n, H, W, 3) in [0, 1], float32
-        (a ``vae.decode`` span)."""
+        (a ``vae.decode`` span); the decoder takes z / scale_factor +
+        shift_factor (FLUX.1's autoencoder shifts, the SD ones do not)."""
         with span("vae.decode", frames=z.shape[0]):
             z = z.to(self.device) / self.scale_factor
+            if self.shift_factor:
+                z = z + self.shift_factor
             x = self.vae_decoder(z.permute(0, 3, 1, 2)).float()
             return ((x + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
 

@@ -7,9 +7,10 @@ bytes an element.  K10 (csrc/layer_norm.cu) is one pass: each row read
 once into registers, f32 statistics (the mean, then the sum of squared
 deviations), weight and bias applied in f32, the row rounded once and
 written once.  It replaces no TPU kernel; the JAX package leaves
-LayerNorm to XLA's fusion.  It has no backward: ``layer_norm_route`` sends
-a call that wants a gradient to the plain formula, whose autograd is
-PyTorch's.
+LayerNorm to XLA's fusion.  An affine-free LayerNorm (FLUX.1's: weight
+and bias None) runs the same launch on a unit weight and a zero bias.  It
+has no backward: ``layer_norm_route`` sends a call that wants a gradient
+to the plain formula, whose autograd is PyTorch's.
 """
 
 from __future__ import annotations
@@ -39,12 +40,22 @@ def layer_norm_route(on_card: bool, wants_grad: bool) -> str:
     return "k10" if on_card and not wants_grad else "plain"
 
 
-def layer_norm_f32_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                         eps: float = 1e-5) -> torch.Tensor:
+def layer_norm_f32_plain(x: torch.Tensor, weight: Optional[torch.Tensor],
+                         bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
     """Plain version of K10: LayerNormF32's formula, an f32 LayerNorm over
-    the last dim (``weight.shape``) of x's f32 copy, cast back to x.dtype."""
+    the last dim of x's f32 copy, cast back to x.dtype; no affine where
+    weight and bias are None."""
+    if weight is None:
+        return F.layer_norm(x.float(), x.shape[-1:], None, None, eps).to(x.dtype)
     return F.layer_norm(x.float(), weight.shape, weight.float(), bias.float(),
                         eps).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _unit_affine(C: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's parameters of an affine-free LayerNorm: f32 ones and zeros."""
+    return (torch.ones(C, dtype=torch.float32, device=device),
+            torch.zeros(C, dtype=torch.float32, device=device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,13 +126,18 @@ def _rows(shape: Tuple[int, ...], stride: Tuple[int, ...]):
     return math.prod(shape) // C if C else 0, C, ld
 
 
-def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over x's last dim with f32 statistics and affine, output
-    in x.dtype, contiguous.  On a CUDA tensor K10, counted in
-    ``LAUNCHES["layer_norm"]``; it raises on what K10 does not take (C
-    above ``LN_MAX_C``, a non-unit stride on C, leading dims that do not
-    collapse to one row stride) rather than fall back.  No gradient."""
+def layer_norm_f32(x: torch.Tensor, weight: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over x's last dim with f32 statistics and affine (none
+    where weight and bias are None), output in x.dtype, contiguous.  On a
+    CUDA tensor K10, counted in ``LAUNCHES["layer_norm"]``; it raises on
+    what K10 does not take (C above ``LN_MAX_C``, a non-unit stride on C,
+    leading dims that do not collapse to one row stride) rather than fall
+    back.  No gradient."""
+    if weight is None and bias is None:
+        if use_plain(x):
+            return layer_norm_f32_plain(x, None, None, eps)
+        weight, bias = _unit_affine(x.shape[-1], x.device)
     if use_plain(x, weight, bias):
         return layer_norm_f32_plain(x, weight, bias, eps)
     if x.dtype not in DTYPE_CODES:
